@@ -1,1 +1,1 @@
-"""Index engines: the flat exact vector index."""
+"""Index engines: the flat exact vector index and the IVF index."""

@@ -6,8 +6,9 @@ soft deletes) and a device mirror of torch tensors on the index's device
 (vectors, squared norms, valid mask), rebuilt only when the store's
 `version` changes.
 
-The device is explicit: every index takes `device` ("cpu" or "cuda") and
-never picks one itself.
+Every index runs on the card unless the caller asks for the CPU: `device`
+defaults to "cuda", and "cpu" is the other choice. Nothing detects a card
+or falls back to the CPU: without one, a CUDA index raises.
 
 Every index exposes the reference's fluent search builder
 (index_search.go:141-279 of the Go reference):
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from comet_tpu_torch.core.aggregation import aggregate_scores
+from comet_tpu_torch.core.filter import DocumentFilter
 from comet_tpu_torch.core.limiter import autocut, autocut_results, limit_results
 from comet_tpu_torch.core.node import VectorNode
 from comet_tpu_torch.core.results import Reranker, VectorResult
@@ -57,6 +59,25 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise InvalidConfigError(f"unsupported device {dev} (use 'cpu' or 'cuda')")
     return dev
+
+
+def _additive_mask(ok, sqnorms, cosine: bool):
+    """Kernel mask: L2 -> squared norms, cosine -> 0; +inf where not ok."""
+    base = torch.zeros_like(sqnorms) if cosine else sqnorms
+    return torch.where(ok, base, torch.full_like(base, float("inf")))
+
+
+def _mask_from_words(words32, ids, valid, sqnorms, cosine: bool):
+    """Additive +inf mask with the doc-ID filter expanded from packed 32-bit
+    words (bit i of word w = doc 32w + i). Ids beyond the words' span are
+    excluded. `words32` and `ids` are int64 tensors of the unsigned values."""
+    n_words = words32.shape[0]
+    widx = ids >> 5
+    in_range = widx < n_words
+    w = words32[widx.clamp(max=n_words - 1)]
+    fbit = (w >> (ids & 31)) & 1
+    ok = valid & in_range & (fbit == 1)
+    return _additive_mask(ok, sqnorms, cosine)
 
 
 class SlotStore:
@@ -206,6 +227,8 @@ class VectorSearchBuilder:
         self._aggregation = ScoreAggregationKind.SUM
         self._document_ids: list[int] | Bitset | None = None
         self._reranker: Reranker | None = None
+        # per-index knob, validated by the index that reads it (IVF)
+        self._nprobes: int | None = None
         # batch-API control: False skips copying the scores to the host
         self._wire_scores = True
 
@@ -254,6 +277,10 @@ class VectorSearchBuilder:
         self._reranker = reranker
         return self
 
+    def with_nprobes(self, nprobes: int) -> "VectorSearchBuilder":
+        self._nprobes = int(nprobes)
+        return self
+
     def execute(self) -> list[VectorResult]:
         return self._index._execute_search(self)
 
@@ -267,7 +294,7 @@ class BaseVectorIndex:
     and returns a handle holding device tensors, and `_search_collect`,
     which brings a handle's results to the host as (ids, scores)."""
 
-    def __init__(self, dim: int, distance_kind: DistanceKind, device):
+    def __init__(self, dim: int, distance_kind: DistanceKind, device="cuda"):
         if dim <= 0:
             raise InvalidConfigError(f"dimension must be positive, got {dim}")
         self._dim = dim
@@ -275,6 +302,8 @@ class BaseVectorIndex:
         self._device = resolve_device(device)
         self._store = SlotStore(dim, device=self._device)
         self._lock = threading.RLock()
+        self._dev_ids = None            # slot -> doc-id mirror, for filters
+        self._dev_ids_version = -1
 
     # -- contracts (index.go:32-63) -----------------------------------------
 
@@ -319,6 +348,7 @@ class BaseVectorIndex:
         *,
         threshold: float = 0.0,
         document_ids: Iterable[int] | Bitset | None = None,
+        nprobes: int | None = None,
         aggregation=None,
         cutoff: int = -1,
         group_size: int = 1,
@@ -333,11 +363,12 @@ class BaseVectorIndex:
         output row; `group_size` > 1 aggregates each consecutive group of
         rows into one output row with `aggregation` (Sum by default).
         `wire_scores=False` leaves the scores on the device and returns zeros.
+        `nprobes` is the IVF probe count (other indexes ignore it).
         """
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         self._check_dim(queries)
-        builder = self._make_batch_builder(k, threshold, document_ids, cutoff,
-                                           group_size, wire_scores)
+        builder = self._make_batch_builder(k, threshold, document_ids, nprobes,
+                                           cutoff, group_size, wire_scores)
         with self._lock:
             ids, scores = self._search_collect(self._search_launch(queries, builder))
         return _finish_rows(ids, scores, k, aggregation, cutoff, group_size)
@@ -349,6 +380,7 @@ class BaseVectorIndex:
         *,
         threshold: float = 0.0,
         document_ids: Iterable[int] | Bitset | None = None,
+        nprobes: int | None = None,
         depth: int = 2,
         aggregation=None,
         cutoff: int = -1,
@@ -363,8 +395,8 @@ class BaseVectorIndex:
         `search_batch`.
         """
         # validate eagerly: bad knob combinations raise at the call site
-        builder = self._make_batch_builder(k, threshold, document_ids, cutoff,
-                                           group_size, wire_scores)
+        builder = self._make_batch_builder(k, threshold, document_ids, nprobes,
+                                           cutoff, group_size, wire_scores)
         return self._search_stream_iter(
             batches, builder, k, depth, aggregation, cutoff, group_size
         )
@@ -389,7 +421,7 @@ class BaseVectorIndex:
             yield collect()
 
     def _make_batch_builder(
-        self, k, threshold, document_ids, cutoff, group_size, wire_scores
+        self, k, threshold, document_ids, nprobes, cutoff, group_size, wire_scores
     ) -> VectorSearchBuilder:
         if not wire_scores and (cutoff != -1 or group_size > 1):
             raise InvalidConfigError(
@@ -404,6 +436,7 @@ class BaseVectorIndex:
             builder._document_ids = document_ids  # bitsets stay packed
         else:
             builder._document_ids = [int(i) for i in document_ids]
+        builder._nprobes = nprobes
         return builder
 
     # -- helpers -------------------------------------------------------------
@@ -413,6 +446,34 @@ class BaseVectorIndex:
             raise DimensionMismatchError(
                 f"vector dimension mismatch: expected {self._dim}, got {vectors.shape[-1]}"
             )
+
+    def _device_ids(self) -> torch.Tensor:
+        """Device mirror of the slot -> doc-id array, for filter expansion."""
+        if self._dev_ids_version != self._store.version:
+            self._dev_ids = torch.from_numpy(self._store.ids.astype(np.int64)).to(self._device)
+            self._dev_ids_version = self._store.version
+        return self._dev_ids
+
+    def _filter_words(self, doc_filter: DocumentFilter) -> torch.Tensor:
+        """The filter's packed words over its id span, as int64 on device."""
+        if doc_filter._bitset is not None:
+            n_words = len(doc_filter._bitset.words)
+        else:
+            n_words = (int(doc_filter._ids.max()) >> 6) + 1
+        words = doc_filter.word_mask(n_words).view(np.uint32).astype(np.int64)
+        return torch.from_numpy(words).to(self._device)
+
+    def _slot_mask(self, builder: "VectorSearchBuilder") -> torch.Tensor:
+        """The kernels' additive mask over the slots: validity and the
+        doc-ID filter, which travels as packed words and is expanded
+        against the slot ids on the device."""
+        _, sqnorms, valid = self._store.device_state()
+        cosine = self._distance_kind == DistanceKind.COSINE
+        doc_filter = DocumentFilter(builder._document_ids)
+        if doc_filter.enabled:
+            return _mask_from_words(self._filter_words(doc_filter), self._device_ids(),
+                                    valid, sqnorms, cosine)
+        return _additive_mask(valid, sqnorms, cosine)
 
     def _lookup_node_vectors(self, node_ids: Sequence[int]) -> list[np.ndarray]:
         """WithNode resolution (flat_index_search.go:171-196)."""

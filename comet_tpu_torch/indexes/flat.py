@@ -19,7 +19,6 @@ from typing import BinaryIO, Iterable
 import numpy as np
 import torch
 
-from comet_tpu_torch.core.filter import DocumentFilter
 from comet_tpu_torch.core.limiter import sanitize_k
 from comet_tpu_torch.core.node import VectorNode, reserve_node_ids
 from comet_tpu_torch.indexes.base import (
@@ -37,30 +36,11 @@ MAGIC = b"CFLT"
 VERSION = 2  # v2: CRC32 payload trailer (v1 readable, no trailer check)
 
 
-def _mask_from_words(words32, ids, valid, sqnorms, cosine: bool):
-    """Additive +inf mask with the doc-ID filter expanded from packed 32-bit
-    words (bit i of word w = doc 32w + i). Ids beyond the words' span are
-    excluded. `words32` and `ids` are int64 tensors of the unsigned values."""
-    n_words = words32.shape[0]
-    widx = ids >> 5
-    in_range = widx < n_words
-    w = words32[widx.clamp(max=n_words - 1)]
-    fbit = (w >> (ids & 31)) & 1
-    ok = valid & in_range & (fbit == 1)
-    return _additive_mask(ok, sqnorms, cosine)
-
-
-def _additive_mask(ok, sqnorms, cosine: bool):
-    """Kernel mask: L2 -> squared norms, cosine -> 0; +inf where not ok."""
-    base = torch.zeros_like(sqnorms) if cosine else sqnorms
-    return torch.where(ok, base, torch.full_like(base, float("inf")))
-
-
 class FlatIndex(BaseVectorIndex):
     """Exact brute-force kNN index (reference: flat_index.go:65-94).
 
-    `device` is "cpu" or "cuda" and is required. Only `storage="float32"`
-    is ported; the reduced-precision storages raise.
+    `device` is "cuda" (the default) or "cpu". Only `storage="float32"` is
+    ported; the reduced-precision storages raise.
     """
 
     def __init__(
@@ -69,7 +49,7 @@ class FlatIndex(BaseVectorIndex):
         distance_kind: DistanceKind = DistanceKind.L2,
         storage: str = "float32",
         *,
-        device,
+        device="cuda",
     ):
         if storage != "float32":
             raise InvalidConfigError(
@@ -78,8 +58,6 @@ class FlatIndex(BaseVectorIndex):
                 "flat storage)"
             )
         super().__init__(dim, distance_kind, device)
-        self._dev_ids = None
-        self._dev_ids_version = -1
 
     @classmethod
     def load_reference_state(
@@ -90,7 +68,7 @@ class FlatIndex(BaseVectorIndex):
         n: int,
         distance_kind: DistanceKind = DistanceKind.L2,
         *,
-        device,
+        device="cuda",
     ) -> "FlatIndex":
         """An index holding the state of a comet_tpu slot store: its host
         arrays `ids`, `vectors` (already preprocessed for the metric),
@@ -147,24 +125,6 @@ class FlatIndex(BaseVectorIndex):
 
     # -- search ---------------------------------------------------------------
 
-    def _device_ids(self) -> torch.Tensor:
-        """Device mirror of the slot -> doc-id array, for filter expansion."""
-        if self._dev_ids_version != self._store.version:
-            self._dev_ids = torch.from_numpy(
-                self._store.ids.astype(np.int64)
-            ).to(self._device)
-            self._dev_ids_version = self._store.version
-        return self._dev_ids
-
-    def _filter_words(self, doc_filter: DocumentFilter) -> torch.Tensor:
-        """The filter's packed words over its id span, as int64 on device."""
-        if doc_filter._bitset is not None:
-            n_words = len(doc_filter._bitset.words)
-        else:
-            n_words = (int(doc_filter._ids.max()) >> 6) + 1
-        words = doc_filter.word_mask(n_words).view(np.uint32).astype(np.int64)
-        return torch.from_numpy(words).to(self._device)
-
     def _search_launch(self, queries: np.ndarray, builder: VectorSearchBuilder):
         """Enqueue the search; the handle holds device tensors."""
         store = self._store
@@ -178,18 +138,9 @@ class FlatIndex(BaseVectorIndex):
         # the pipeline works on squared distances for L2
         thr_k = thr * thr if kind == DistanceKind.L2 else thr
 
-        vecs, sqnorms, valid = store.device_state()
-        doc_filter = DocumentFilter(builder._document_ids)
-        if doc_filter.enabled:
-            mask_vec = _mask_from_words(
-                self._filter_words(doc_filter), self._device_ids(), valid,
-                sqnorms, cosine,
-            )
-        else:
-            mask_vec = _additive_mask(valid, sqnorms, cosine)
         q = torch.as_tensor(preprocess(queries, kind), device=self._device)
         s, i = flat_topk_pipeline(
-            q, vecs, mask_vec, thr_k, k_eff,
+            q, store.device_state()[0], self._slot_mask(builder), thr_k, k_eff,
             cosine=cosine, sqrt_out=kind == DistanceKind.L2,
         )
         return ("dev", s if builder._wire_scores else None, i, store.ids)

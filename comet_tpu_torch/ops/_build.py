@@ -2,10 +2,12 @@
 
 The sources under `comet_tpu_torch/csrc/` are compiled with nvcc into one
 shared library with a plain C interface, loaded with ctypes. The build runs
-at first use, into `build/kernels/` beside the package, and is keyed by a
-hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads the library already built. Nothing is downloaded; a
-missing nvcc or a failed build raises.
+at first use, into `build/kernels/` beside the package: one nvcc process
+per `.cu` file, all started together, then one link. It is keyed by a hash
+of the flags, the `.cu` sources and the `.cuh` headers they include, so a
+changed source or header rebuilds and an unchanged tree loads the library
+already built. Nothing is downloaded; a missing nvcc or a failed build
+raises.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
@@ -30,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 # which would change sqrtf, divisions and denormal handling.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -46,9 +48,14 @@ SIGNATURES = {
     # vout, iout, out_row, out_col, stream
     "comet_topk_rows_global": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P,
                                _P, _P, _LL, _LL, _P],
-    # q, qn, x, mask, thr, Q, N, d, cosine, dist, gmin, stream
+    # q, qn, x, mask, thr, Q, N, d, cosine, assign, words, n_words,
+    # dist, gmin, stream
     "comet_fused_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I,
-                         _P, _P, _P],
+                         _P, _P, _I, _P, _P, _P],
+    # q, qn, x, mask, probes, P, chunk_ids, cluster_ids, thr, G, S, d,
+    # cosine, dist, gmin, stream
+    "comet_sparse_scan": [_P, _P, _P, _P, _P, _I, _P, _P, ctypes.c_float,
+                          _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -60,6 +67,10 @@ build_info: dict = {}
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def find_nvcc() -> str:
@@ -94,7 +105,7 @@ def _build() -> ctypes.CDLL:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    lib_path = os.path.join(BUILD_DIR, f"comet_kernels_{_source_hash(srcs)}.so")
+    lib_path = os.path.join(BUILD_DIR, f"comet_kernels_{_source_hash(srcs + headers())}.so")
     compiled = False
     log = ""
     nvcc = None
@@ -102,15 +113,25 @@ def _build() -> ctypes.CDLL:
         nvcc = find_nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-            capture_output=True, text=True,
-        )
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n{log}"
-            )
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)
+        ]
+        outs = [(p, p.communicate()[0]) for p in procs]
+        link = None
+        if all(p.returncode == 0 for p, _ in outs):
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            outs.append((link, link.stdout + link.stderr))
+        log = "".join(out for _, out in outs)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        failed = [p.returncode for p, _ in outs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n{log}")
         os.replace(tmp, lib_path)
         with open(lib_path + ".log", "w") as f:
             f.write(log)

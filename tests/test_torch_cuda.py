@@ -141,3 +141,95 @@ def test_flat_index_cuda_matches_cpu(dev, k):
                    + ([r.node.id for r in res], [r.score for r in res]))
     for got, want in zip(*out):
         np.testing.assert_array_equal(got, want)
+
+
+# -- IVF: K2's nprobe mode and K3 ---------------------------------------------------
+
+
+@pytest.mark.parametrize("q_n,n,d,nlist,width", [(300, 4096, 20, 70, 8), (256, 8192, 128, 1024, 16)])
+def test_fused_dist_select_nprobe_kernel_matches_plain(dev, q_n, n, d, nlist, width):
+    """Integer data: dist and the group choice bit-equal to the plain
+    version, nlist not a multiple of 32 and unassigned rows included."""
+    rng = np.random.default_rng(nlist)
+    q, x, mask = _scan_inputs(rng, q_n, n, d, cosine=False)
+    assign = rng.integers(-1, nlist, size=n).astype(np.int32)
+    probes = rng.integers(0, nlist, size=(q_n, width)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (q, x, mask)]
+    ivf = dict(assign=torch.from_numpy(assign).to(dev), probes=torch.from_numpy(probes).to(dev),
+               nlist=nlist)
+    thr = float(np.float32(4.0e5 * d / 20))
+    before = (fused_scan.LAUNCHES, fused_scan.NPROBE_LAUNCHES)
+    dist, gsel = fused_scan.fused_dist_select(*args, thr, 8, False, **ivf)
+    torch.cuda.synchronize()
+    assert (fused_scan.LAUNCHES, fused_scan.NPROBE_LAUNCHES) == (before[0], before[1] + 1)
+    want_d, want_gmin = fused_scan._fused_dist_select_plain(*args, thr, False, **ivf)
+    assert torch.equal(dist, want_d)
+    assert torch.equal(gsel, sortnet._topk_rows_plain(want_gmin, None, 8)[1])
+    assert torch.isfinite(dist).any() and torch.isinf(dist).any()
+
+
+def _sparse_case(dev, g_n, s_n, d, nlist, cosine, seed):
+    from comet_tpu_torch.ops import ivf_sparse as sp
+
+    rng = np.random.default_rng(seed)
+    nr = 64 * sp.CHUNK
+    q, x, mask = _scan_inputs(rng, g_n * sp.QG, nr, d, cosine)
+    probes = rng.integers(0, nlist, size=(g_n * sp.QG, 8)).astype(np.int32)
+    chunk_ids = rng.integers(0, 64, size=(g_n, s_n)).astype(np.int32)
+    cluster_ids = rng.integers(-1, nlist, size=(g_n, s_n)).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (q, x, mask, probes, chunk_ids, cluster_ids)]
+    return sp, t
+
+
+@pytest.mark.parametrize("cosine", [False, True])
+@pytest.mark.parametrize("g_n,s_n,d", [(3, 40, 128), (2, 5, 20)])
+def test_sparse_scan_kernel_matches_plain(dev, cosine, g_n, s_n, d):
+    """K3 against `_sparse_scan_plain`: integer L2 bit-equal (group choice
+    too); cosine within float32 summation-order error."""
+    sp, t = _sparse_case(dev, g_n, s_n, d, 12, cosine, seed=g_n + s_n)
+    thr = 1.0 if cosine else float(np.float32(4.0e5 * d / 20))
+    kb = min(16, 2 * s_n)
+    before = sp.LAUNCHES
+    dist, gsel = sp._sparse_scan(*t, thr, kb, cosine)
+    torch.cuda.synchronize()
+    assert sp.LAUNCHES == before + 1
+    want_d, want_gmin = sp._sparse_scan_plain(*t, thr, cosine)
+    want_g = sortnet._topk_rows_plain(want_gmin.view(g_n * sp.QG, -1), None, kb)[1][:, :kb]
+    dead = (t[5] < 0).repeat_interleave(sp.CHUNK, dim=1)[:, None, :].expand_as(dist)
+    assert torch.isinf(dist[dead]).all()
+    if cosine:
+        both = torch.isfinite(dist) & torch.isfinite(want_d)
+        torch.testing.assert_close(dist[both], want_d[both], rtol=1e-5, atol=1e-6)
+        flip = torch.isfinite(dist) != torch.isfinite(want_d)
+        near = torch.where(torch.isfinite(dist), dist, want_d)[flip]
+        assert ((near - thr).abs() <= 1e-6 + 1e-5 * abs(thr)).all()
+    else:
+        assert torch.equal(dist, want_d)
+        assert torch.equal(gsel.view(g_n * sp.QG, kb), want_g)
+
+
+@pytest.mark.parametrize("route", ["0", "1"])
+def test_ivf_index_cuda_matches_cpu(dev, route, monkeypatch):
+    """The same IVF index on the card (kernels) and on the CPU (plain
+    versions): integer data and centroids, so results are equal on both
+    routes (nlist 64 keys queries by centroid id, the same on both)."""
+    from comet_tpu_torch import IVFIndex
+
+    monkeypatch.setenv("COMET_IVF_SPARSE", route)
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 256, size=(20000, 32)).astype(np.float32)
+    q = rng.integers(0, 256, size=(300, 32)).astype(np.float32)
+    out = []
+    for device in ("cuda", "cpu"):
+        idx = IVFIndex(32, 64, DistanceKind.L2, device=device)
+        if device == "cuda":
+            idx.train(x[:4000])
+            # integer centroids make every coarse product exact: both probe alike
+            centroids = np.rint(idx._centroids).astype(np.float32)
+        idx._set_centroids(centroids)
+        idx.add_batch(x, ids=range(5, 20005))
+        idx.remove(9)
+        out.append(idx.search_batch(q, k=40, nprobes=6, document_ids=range(5, 15000))
+                   + idx.search_batch(q, k=40, nprobes=6, threshold=150.5))
+    for got, want in zip(*out):
+        np.testing.assert_array_equal(got, want)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import comet_tpu_torch
-from comet_tpu_torch import DistanceKind, FlatIndex, InvalidConfigError
+from comet_tpu_torch import DistanceKind, FlatIndex, InvalidConfigError, IVFIndex
 from comet_tpu_torch.ops import _build
 
 PKG = os.path.dirname(comet_tpu_torch.__file__)
@@ -22,6 +22,7 @@ ROOT = os.path.dirname(PKG)
 def test_import_loads_no_jax():
     code = (
         "import sys, comet_tpu_torch\n"
+        "from comet_tpu_torch import FlatIndex, IVFIndex\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'comet_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -40,6 +41,7 @@ def test_sources_import_neither_jax_nor_reference():
 @pytest.mark.parametrize("source,replaces", [
     ("topk.cu", "comet_tpu/ops/sortnet.py:_kernel"),
     ("fused_scan.cu", "comet_tpu/ops/pallas_scan.py:_kernel"),
+    ("ivf_sparse.cu", "comet_tpu/ops/ivf_sparse.py:_sparse_kernel"),
 ])
 def test_kernel_sources_exist_with_their_note(source, replaces):
     path = os.path.join(_build.CSRC_DIR, source)
@@ -83,13 +85,33 @@ def test_cuda_index_without_card_raises():
         FlatIndex(4, DistanceKind.L2, device="cuda")
 
 
+@pytest.mark.parametrize("cls", [FlatIndex, IVFIndex])
 @pytest.mark.parametrize("device", [None, "mps", "meta"])
-def test_index_device_is_explicit(device):
-    with pytest.raises((TypeError, InvalidConfigError)):
+def test_index_device_is_explicit(device, cls):
+    """An omitted device means the card: without one the index raises, as
+    it does for a device other than "cpu" or "cuda"; nothing falls back to
+    the CPU."""
+    args = (4, DistanceKind.L2) if cls is FlatIndex else (4, 2, DistanceKind.L2)
+    if device is None and torch.cuda.is_available():
+        assert cls(*args)._device.type == "cuda"
+        return
+    with pytest.raises(InvalidConfigError):
         if device is None:
-            FlatIndex(4, DistanceKind.L2)
+            cls(*args)
         else:
-            FlatIndex(4, DistanceKind.L2, device=device)
+            cls(*args, device=device)
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    """An edit to a shared .cuh header rebuilds the library, as an edit to
+    a .cu source does."""
+    (tmp_path / "a.cu").write_text('#include "t.cuh"\n')
+    (tmp_path / "t.cuh").write_text("#define X 1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    key = lambda: _build._source_hash(_build.sources() + _build.headers())  # noqa: E731
+    before = key()
+    (tmp_path / "t.cuh").write_text("#define X 2\n")
+    assert key() != before
 
 
 def test_cpu_index_reports_its_memory():
