@@ -29,6 +29,21 @@
    search (equal to the flat path), a filtered + thresholded search and a
    cosine index, with the launches of every kernel counted. `--profile`
    adds a torch.profiler breakdown of two steady nprobe-10 batches.
+5. The HNSW path: an HNSWIndex (M = 16, ef_search = 200) bulk-built over
+   HNSW_N rows of the same corpus (the stage kNN runs K2 and K1), searched
+   with 2048 queries at k = 100, seeded (K3's bf16 mode, csrc/ivf_sparse.cu)
+   and classic, then with a doc-ID filter and a threshold, after removing
+   1% of the ids, and on a cosine index of 2^16 rows. Every beam iteration
+   runs the in-loop scoring kernel (csrc/gather_score.cu) and K4, the merge
+   step (csrc/beam_merge.cu), split or fused. Every search's ids and scores
+   must be array-equal to the plain beam (the same index with every wrapper
+   on its plain version, on the card); recall@100 against the flat path's
+   exact ids, queries/s, the seed scan's overflow and starved queries are
+   printed. K4 (both modes), K3's bf16 mode and the scoring kernel are held
+   bit-equal to their plain versions on the inputs of a real iteration, and
+   timed; a Gaussian index shows seed and in-loop distances bit-equal; one
+   iteration's blocked-table row gather is timed. `--profile` adds a
+   breakdown of two steady seeded batches.
 
 Any mismatch raises, so the run exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it names the kernels with
@@ -53,6 +68,9 @@ ROUNDS = 4         # steady-state search rounds
 NLIST = 1024       # IVF lists (bench.py's IVF operating point)
 N_TRAIN = 100_000  # IVF training rows
 NPROBES = (1, 5, 10, 20, 32)
+HNSW_N = N         # HNSW corpus rows (the flat phase's exact ids are its ground truth)
+HNSW_COSINE_N = 1 << 16
+EF_SEARCH = 200
 
 # NVIDIA's published peaks of one H100 SXM (at its 700 W limit): float32
 # outside the tensor cores, and device memory bandwidth.
@@ -166,18 +184,21 @@ def plain_ivf_search(queries, corpus, valid, assign, centroids, nprobe, thr, kin
 
 def reset_launches():
     """Every kernel's launch count to 0."""
-    from comet_tpu_torch.ops import fused_scan, ivf_sparse, sortnet
+    from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
 
     sortnet.LAUNCHES = fused_scan.LAUNCHES = fused_scan.NPROBE_LAUNCHES = 0
-    ivf_sparse.LAUNCHES = 0
+    ivf_sparse.LAUNCHES = ivf_sparse.BF16_LAUNCHES = 0
+    beam_kernel.LAUNCHES = beam_kernel.FUSED_LAUNCHES = beam_kernel.SCORE_LAUNCHES = 0
 
 
 def read_launches():
-    from comet_tpu_torch.ops import fused_scan, ivf_sparse, sortnet
+    from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
 
     return {"topk_cl": sortnet.LAUNCHES, "fused_dist_select": fused_scan.LAUNCHES,
             "fused_dist_select_nprobe": fused_scan.NPROBE_LAUNCHES,
-            "sparse_scan": ivf_sparse.LAUNCHES}
+            "sparse_scan": ivf_sparse.LAUNCHES, "sparse_scan_bf16": ivf_sparse.BF16_LAUNCHES,
+            "beam_merge": beam_kernel.LAUNCHES, "beam_merge_fused": beam_kernel.FUSED_LAUNCHES,
+            "gather_score": beam_kernel.SCORE_LAUNCHES}
 
 
 def ids_of(slots, base=1):
@@ -446,6 +467,322 @@ def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, 
     return {"report": report, "launches": launches}
 
 
+class plain_versions:
+    """Inside, every wrapper of the package takes its plain version, also
+    for CUDA tensors: searches run the plain beam on the same card tensors.
+    Plain versions count no launches."""
+
+    def __enter__(self):
+        from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
+
+        self.mods = (sortnet, fused_scan, ivf_sparse, beam_kernel)
+        self.saved = [m.use_plain for m in self.mods]
+        for m in self.mods:
+            m.use_plain = lambda t: True
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m.use_plain = f
+
+
+class capture:
+    """Inside, `module.name` is wrapped: the arguments of its call number
+    `which` (0-based) are kept in `.args` / `.kwargs`."""
+
+    def __init__(self, module, name, which):
+        self.module, self.name, self.which = module, name, which
+        self.args = self.kwargs = None
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        calls = [0]
+
+        def wrapped(*args, **kwargs):
+            if calls[0] == self.which:
+                self.args, self.kwargs = args, kwargs
+            calls[0] += 1
+            return self.real(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def hnsw_search_checked(index, name, queries, rounds=0, **kw):
+    """search_batch through the kernels (a first batch, then `rounds`
+    steady ones), then the same batch on the plain beam; ids and scores must
+    be array-equal. Returns (ids, scores, first seconds, queries/s or None)."""
+    st0 = index.stats()
+    t0 = time.perf_counter()
+    ids, scores = index.search_batch(queries, k=K, ef_search=EF_SEARCH, **kw)
+    first = time.perf_counter() - t0
+    st1 = index.stats()
+    index.first_seed_health = (st1["seed_overflow_chunks"] - st0["seed_overflow_chunks"],
+                               st1["seed_starved_queries"] - st0["seed_starved_queries"])
+    qps = None
+    if rounds:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            again = index.search_batch(queries, k=K, ef_search=EF_SEARCH, **kw)
+        qps = rounds * len(queries) / (time.perf_counter() - t0)
+        if not (np.array_equal(again[0], ids) and np.array_equal(again[1], scores)):
+            raise AssertionError(f"HNSW {name}: repeated searches differ")
+    with plain_versions():
+        p_ids, p_scores = index.search_batch(queries, k=K, ef_search=EF_SEARCH, **kw)
+    if not (np.array_equal(ids, p_ids) and np.array_equal(scores, p_scores)):
+        raise AssertionError(f"HNSW {name}: ids or scores differ from the plain beam")
+    if ids.shape != (len(queries), K):
+        raise AssertionError(f"HNSW {name}: result shape {ids.shape}")
+    return ids, scores, first, qps
+
+
+def hnsw_phase(corpus, queries, c_corpus, c_queries, flat_ids, dev, tag, time_ms, profile):
+    """Section 5 of the module docstring. Returns {"report": per-kernel
+    numbers of K3's bf16 mode, K4 and the scoring kernel, "launches": the
+    HNSW path's counts}."""
+    import os
+
+    from comet_tpu_torch import Bitset, DistanceKind, HNSWIndex
+    from comet_tpu_torch.ops import beam_kernel as bk
+    from comet_tpu_torch.ops import ivf_sparse as sp
+    from comet_tpu_torch.ops.distance import bf16_dot
+
+    n = HNSW_N
+    ids = np.arange(1, n + 1, dtype=np.uint32)
+    report = {}
+    env_seed = os.environ.pop("COMET_HNSW_SEED", None)
+
+    # -- the main path, every launch counted -------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    index = HNSWIndex(DIM, DistanceKind.L2, device="cuda")
+    index.add_batch(corpus[:n], ids=ids)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_launches = read_launches()
+    print(f"HNSW bulk build {n} x {DIM}, M=16: {t_build:.3f} s, {n / t_build:.1f} vectors/s, "
+          f"top level {index._max_level}; K2 launches {build_launches['fused_dist_select']}, "
+          f"K1 {build_launches['topk_cl']} {tag}")
+    with capture(bk, "beam_merge_step", 2) as cap_merge, \
+            capture(bk, "gather_score", 2) as cap_score, \
+            capture(sp, "_sparse_scan", 0) as cap_seed:
+        s_ids, s_scores, s_first, s_qps = hnsw_search_checked(index, "seeded", queries,
+                                                              rounds=ROUNDS)
+    ov, starved = index.first_seed_health
+    s_recall = recall_at_k(s_ids, flat_ids) if n == N else None
+    print(f"HNSW seeded k={K} ef={EF_SEARCH}: ids and scores equal to the plain beam; recall@{K} "
+          f"{s_recall if s_recall is None else f'{s_recall:.4f}'}; {s_qps:.1f} queries/s steady, "
+          f"first batch {s_first:.3f} s (seed tables included); the first batch's seed scan "
+          f"dropped {ov} chunks and left {starved} of {BATCH} queries probe-starved {tag}")
+    os.environ["COMET_HNSW_SEED"] = "0"
+    c_ids, c_scores, c_first, c_qps = hnsw_search_checked(index, "classic", queries, rounds=ROUNDS)
+    c_recall = recall_at_k(c_ids, flat_ids) if n == N else None
+    print(f"HNSW classic (COMET_HNSW_SEED=0) k={K} ef={EF_SEARCH}: equal to the plain beam; "
+          f"recall@{K} {c_recall if c_recall is None else f'{c_recall:.4f}'}; {c_qps:.1f} "
+          f"queries/s steady, first batch {c_first:.3f} s {tag}")
+    if c_recall is not None and c_recall < 0.80:
+        raise AssertionError(f"classic HNSW recall@{K} {c_recall:.4f} < 0.80")
+    del os.environ["COMET_HNSW_SEED"]
+    allowed = (ids % 3) != 0
+    thr = float(np.median(s_scores[:, 9]))
+    with capture(bk, "beam_merge_step", 2) as cap_fused:
+        f_ids, _, _, _ = hnsw_search_checked(index, "filtered + threshold", queries,
+                                             threshold=thr,
+                                             document_ids=Bitset.from_array(ids[allowed]))
+    hits = f_ids[f_ids != 0xFFFFFFFF]
+    if not 0 < len(hits) < f_ids.size or (hits % 3 == 0).any():
+        raise AssertionError("the HNSW filter or threshold had no effect")
+    print(f"HNSW with doc-ID filter and threshold {thr:.3f}: {len(hits)} hits, equal to the "
+          f"plain beam")
+    removed = ids[::100]
+    for i in removed.tolist():
+        index.remove(i)
+    r_ids, _, r_first, _ = hnsw_search_checked(index, "after remove", queries)
+    if np.isin(r_ids, removed).any():
+        raise AssertionError("a removed id came back")
+    print(f"HNSW after removing {len(removed)} ids: equal to the plain beam, no removed id "
+          f"returned; first batch {r_first:.3f} s (device mirror refresh included)")
+    c_index = HNSWIndex(DIM, DistanceKind.COSINE, device="cuda")
+    c_index.add_batch(c_corpus[:HNSW_COSINE_N], ids=ids[:HNSW_COSINE_N])
+    cos_ids, _, _, _ = hnsw_search_checked(c_index, "cosine", c_queries)
+    if (cos_ids == 0xFFFFFFFF).any():
+        raise AssertionError("the cosine HNSW search left results empty")
+    print(f"HNSW cosine {HNSW_COSINE_N} x {DIM}: equal to the plain beam")
+    if profile:
+        profile_window(lambda: [index.search_batch(queries, k=K, ef_search=EF_SEARCH)
+                                for _ in range(2)])
+    launches = read_launches()
+    print(f"kernel launches of the HNSW path (2 bulk builds, {2 * (1 + ROUNDS) + 3} "
+          f"search_batch calls{', profile included' if profile else ''}): {launches}")
+    for key in ("topk_cl", "fused_dist_select", "sparse_scan_bf16", "beam_merge",
+                "beam_merge_fused", "gather_score"):
+        if launches[key] <= 0:
+            raise AssertionError(f"a kernel of the HNSW path never launched: {launches}")
+    del c_index
+    torch.cuda.empty_cache()
+
+    # -- K4, split and fused, on a real iteration's inputs ----------------------
+    for key, cap in (("beam_merge", cap_merge), ("beam_merge_fused", cap_fused)):
+        a, kw = cap.args, cap.kwargs
+        fused = kw["fused"]
+        if not fused and a[5:] and any(t is not None for t in a[5:]):
+            raise AssertionError("the split step was given a result set")
+        args = list(a[:5]) + ([a[5], a[6], a[7]] if fused else [None, None, None])
+        args = [t.contiguous() if t is not None else None for t in args]
+        ef, ew, expand, kr = kw["ef"], kw["ew"], kw["expand"], kw["kr"]
+        stop = kw["stop"] or ef
+        rest = (ef, ew, expand, fused, kr, stop)
+        got = bk._merge_cuda(*args, *rest)
+        want = bk._merge_plain(*args, *rest)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+                raise AssertionError(f"K4 ({key}) differs from its plain version")
+        q_n = args[0].shape[0]
+        ms = time_ms(lambda: bk._merge_cuda(*args, *rest))
+        pms = time_ms(lambda: bk._merge_plain(*args, *rest))
+        n_bytes = q_n * (ef * 12 + ew * 8 + ef * 12 + bk.MISC_ROWS * 4)
+        c = 1 << (ef + ew - 1).bit_length()
+        log_c = c.bit_length() - 1
+        n_cmp = q_n * c // 2 * log_c * (log_c + 1) // 2
+        if fused:
+            n_bytes += q_n * (kr * 8 + ew * 4 + kr * 8)
+            c2 = 1 << (kr + ew - 1).bit_length()
+            l2 = c2.bit_length() - 1
+            n_cmp += q_n * c2 // 2 * l2 * (l2 + 1) // 2
+        report[key] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
+                           bound=bound(n_bytes, n_cmp))
+        print(f"K4 beam merge ({'fused' if fused else 'split'}) Q={q_n} ef={ef} ew={ew} "
+              f"expand={expand} stop={stop}{f' kr={kr}' if fused else ''}, inputs of iteration "
+              f"3: equal to plain; kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+              f"{report[key]['bound'][0]:.4f} ms ({report[key]['bound'][1]}; {n_bytes / 1e6:.1f} "
+              f"MB, {n_cmp / 1e6:.1f} M compare-exchanges) {tag}")
+
+    # -- the in-loop scoring kernel on the same iteration -------------------------
+    a = cap_score.args
+    qb, qn, nbr_vecs, aux, nodes, allowed_dev, thr_k, fused = a
+    got = bk._gather_score_cuda(*a)
+    want = bk._gather_score_plain(*a)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("the in-loop scoring kernel differs from its plain version")
+    ms = time_ms(lambda: bk._gather_score_cuda(*a))
+    pms = time_ms(lambda: bk._gather_score_plain(*a))
+    live = int((nodes >= 0).sum())
+    w = nbr_vecs.shape[1]
+    n_bytes = (live * (w * DIM * 2 + aux.shape[1] * 2) + nodes.numel() * 4 + qb.numel() * 2
+               + qn.numel() * 4 + nodes.shape[0] * nodes.shape[1] * w * 8)
+    report["gather_score"] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
+                                  bound=bound(n_bytes, 2 * DIM * live * w))
+    print(f"in-loop scoring Q={nodes.shape[0]} E={nodes.shape[1]} W={w} ({live} nodes "
+          f"expanded), iteration 3: equal to plain; kernel {ms:.3f} ms, plain {pms:.3f} ms; "
+          f"bound {report['gather_score']['bound'][0]:.4f} ms "
+          f"({report['gather_score']['bound'][1]}) {tag}")
+
+    # -- K3's bf16 mode on the seed scan's inputs ----------------------------------
+    a, kw = cap_seed.args, cap_seed.kwargs
+    qsorted, corpus_b, mask, probes, chunk_ids, cluster_ids, thr_s, kb = a[:8]
+    cosine, bf16_domain, qn_s = a[8], a[9], a[10]
+    if not bf16_domain or corpus_b.dtype != torch.bfloat16:
+        raise AssertionError("the seed scan did not take K3's bf16 mode")
+    scan = (qsorted, corpus_b, mask, probes, chunk_ids, cluster_ids)
+    dist, gsel = sp._sparse_scan(*scan, thr_s, kb, cosine, True, qn_s)
+    pdist, pgmin = sp._sparse_scan_plain(*scan, float(thr_s), cosine, qn_s)
+    g_n, s_n = chunk_ids.shape
+    pgsel = sortnet_rows_plain(pgmin.view(g_n * sp.QG, 2 * s_n), kb)
+    torch.cuda.synchronize()
+    if not (torch.equal(dist, pdist) and torch.equal(gsel.view(g_n * sp.QG, kb), pgsel)):
+        raise AssertionError("K3's bf16 mode differs from its plain version")
+    n_fin = int(torch.isfinite(pdist).sum())
+    del dist, pdist, pgmin, gsel, pgsel
+    ms = time_ms(lambda: sp._sparse_scan_cuda(*scan, float(thr_s), cosine, qn_s))
+    pms = time_ms(lambda: sp._sparse_scan_plain(*scan, float(thr_s), cosine, qn_s))
+    live = cluster_ids >= 0
+    member = (probes.view(g_n, sp.QG, -1, 1) == cluster_ids.view(g_n, 1, 1, s_n)).any(dim=2)
+    pairs = float(member.sum()) * sp.CHUNK
+    chunks_read = int(torch.unique(chunk_ids[live]).numel())
+    q_n = qsorted.shape[0]
+    n_bytes = (q_n * DIM * 2 + 4 * (q_n + q_n * probes.shape[1] + 2 * g_n * s_n
+                                    + q_n * s_n * sp.CHUNK + q_n * 2 * s_n)
+               + chunks_read * sp.CHUNK * (2 * DIM + 4))
+    report["sparse_scan_bf16"] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
+                                      bound=bound(n_bytes, 2 * DIM * pairs))
+    print(f"K3 bf16 mode, the seed scan of {q_n} queries (S={s_n}, kb={kb}, {int(live.sum())} of "
+          f"{g_n * s_n} steps live, {chunks_read} chunks): dist and group choice equal to plain "
+          f"({n_fin} finite entries); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+          f"{report['sparse_scan_bf16']['bound'][0]:.3f} ms "
+          f"({report['sparse_scan_bf16']['bound'][1]}) {tag}")
+    del scan, member, live, cap_seed, cap_merge, cap_fused, cap_score
+    torch.cuda.empty_cache()
+
+    # -- one iteration's blocked-table row gather -----------------------------------
+    nbr_vecs, aux = index._routing_tables()
+    rng = np.random.default_rng(1)
+    rows = torch.from_numpy(rng.integers(0, n, size=BATCH * 8)).to(dev)
+    ms = time_ms(lambda: (nbr_vecs[rows], aux[rows]))
+    row_bytes = nbr_vecs.shape[1] * DIM * 2 + aux.shape[1] * 2
+    gbps = len(rows) * row_bytes / (ms * 1e-3) / 1e9
+    print(f"blocked-table gather, one iteration: {len(rows)} rows of {row_bytes} bytes "
+          f"(W x d bf16 + the aux row) in {ms:.4f} ms: {len(rows) / (ms * 1e-3):.4g} rows/s, "
+          f"{gbps:.1f} GB/s = {gbps / (PEAK_BYTES / 1e9):.3f} of 3.35 TB/s {tag}")
+    del index, nbr_vecs, aux, rows
+    torch.cuda.empty_cache()
+
+    # -- seed and in-loop distances on Gaussian data ----------------------------------
+    g_rng = np.random.default_rng(7)
+    gx = g_rng.normal(size=(8192, DIM)).astype(np.float32)
+    gq = torch.from_numpy(g_rng.normal(size=(BATCH // 8, DIM)).astype(np.float32)).to(dev)
+    g_index = HNSWIndex(DIM, DistanceKind.L2, device="cuda")
+    g_index.add_batch(gx, ids=np.arange(1, len(gx) + 1))
+    gqn = bk.row_sqnorms(gq)
+    sd, ss = g_index._seed_scan(gq, gqn, 128)
+    nbr_vecs, aux = g_index._routing_tables()
+    adj = g_index._adj0[: len(gx)]
+    w = adj.shape[1]
+    flat = adj.ravel()
+    valid_pos = np.flatnonzero(flat >= 0)
+    where = np.full(len(gx), -1, np.int64)               # one (node, column) per slot
+    where[flat[valid_pos]] = valid_pos
+    seeds = ss[:, :8].cpu().numpy()
+    pos = where[np.where(seeds >= 0, np.minimum(seeds, len(gx) - 1), 0)]
+    ok = (seeds != 2**31 - 1) & (pos >= 0)
+    nodes = torch.from_numpy(np.where(ok, pos // w, -1).astype(np.int32)).to(dev)
+    cols = np.where(ok, pos % w, 0)
+    nd, ns, _ = bk.gather_score(gq.to(torch.bfloat16), gqn, nbr_vecs, aux, nodes,
+                                torch.ones(len(gx), dtype=torch.bool, device=dev),
+                                float("inf"), False)
+    e_idx = torch.from_numpy(np.arange(8)[None, :] * w + cols).to(dev)
+    loop_d = nd.gather(1, e_idx)
+    loop_s = ns.gather(1, e_idx)
+    okt = torch.from_numpy(ok).to(dev)
+    vecs, sqnorms, _ = g_index._store.device_state()
+    s_long = torch.where(okt, ss[:, :8], torch.zeros_like(ss[:, :8])).long()
+    e_d = torch.clamp_min((gqn[:, None] + sqnorms[s_long].to(torch.bfloat16).float())
+                          - 2.0 * bf16_dot(gq.to(torch.bfloat16)[:, None, :],
+                                           vecs[s_long].to(torch.bfloat16)), 0.0)
+    torch.cuda.synchronize()
+    n_pairs = int(okt.sum())
+    if not (n_pairs > 0 and torch.equal(loop_s[okt], ss[:, :8][okt])
+            and torch.equal(loop_d[okt], sd[:, :8][okt]) and torch.equal(e_d[okt], sd[:, :8][okt])):
+        raise AssertionError("seed and in-loop distances differ on Gaussian data")
+    print(f"Gaussian 8192 x {DIM}: {n_pairs} (query, slot) pairs, seed distances (K3 bf16) "
+          f"bit-equal to in-loop distances (scoring kernel) and to the entry-start bf16 dot")
+    del g_index, nbr_vecs, aux
+    torch.cuda.empty_cache()
+    if env_seed is not None:
+        os.environ["COMET_HNSW_SEED"] = env_seed
+    return {"report": report, "launches": launches}
+
+
+def sortnet_rows_plain(gmin, kb):
+    from comet_tpu_torch.ops import sortnet
+
+    return sortnet._topk_rows_plain(gmin, None, kb)[1][:, :kb]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -685,25 +1022,37 @@ def main():
     ivf = ivf_phase(corpus, queries, c_corpus, c_queries, got_ids, got_scores,
                     dev, tag, time_ms, args.profile)
 
+    # -- 5. the HNSW path ----------------------------------------------------------
+    hnsw = hnsw_phase(corpus, queries, c_corpus, c_queries, got_ids, dev, tag, time_ms,
+                      args.profile)
+
     def entry(name, source, replaces, key, n_launches):
-        r = report[key] if key in report else ivf["report"][key]
+        r = report.get(key) or ivf["report"].get(key) or hnsw["report"][key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launches, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
 
-    il = ivf["launches"]
+    il, hl = ivf["launches"], hnsw["launches"]
     kernels = [
         entry("topk_cl", "comet_tpu_torch/csrc/topk.cu", "comet_tpu/ops/sortnet.py:142",
-              "topk_cl", launches["topk_cl"] + il["topk_cl"]),
+              "topk_cl", launches["topk_cl"] + il["topk_cl"] + hl["topk_cl"]),
         entry("fused_dist_select", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:63", "fused_dist_select",
-              launches["fused_dist_select"]),
+              launches["fused_dist_select"] + hl["fused_dist_select"]),
         entry("fused_dist_select_nprobe", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:100", "fused_dist_select_nprobe",
               il["fused_dist_select_nprobe"]),
         entry("sparse_scan", "comet_tpu_torch/csrc/ivf_sparse.cu",
               "comet_tpu/ops/ivf_sparse.py:215", "sparse_scan", il["sparse_scan"]),
+        entry("sparse_scan_bf16", "comet_tpu_torch/csrc/ivf_sparse.cu",
+              "comet_tpu/ops/ivf_sparse.py:237", "sparse_scan_bf16", hl["sparse_scan_bf16"]),
+        entry("beam_merge", "comet_tpu_torch/csrc/beam_merge.cu",
+              "comet_tpu/ops/beam_kernel.py:391", "beam_merge", hl["beam_merge"]),
+        entry("beam_merge_fused", "comet_tpu_torch/csrc/beam_merge.cu",
+              "comet_tpu/ops/beam_kernel.py:391", "beam_merge_fused", hl["beam_merge_fused"]),
+        entry("gather_score", "comet_tpu_torch/csrc/gather_score.cu",
+              "comet_tpu/ops/beam_kernel.py:795", "gather_score", hl["gather_score"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

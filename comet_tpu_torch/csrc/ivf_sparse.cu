@@ -1,8 +1,12 @@
 // K3: block-sparse IVF scan over a cluster-major corpus.
 //
 // Replaces comet_tpu/ops/ivf_sparse.py:_sparse_kernel, the Pallas kernel
-// launched by _sparse_scan (float32 distances; its bf16_domain mode is not
-// ported).
+// launched by _sparse_scan, in both of its modes: float32 operands, and
+// bf16_domain (bf16 queries and corpus, float32 accumulation, float32 query
+// norms), which HNSW's seed scan uses. In the bf16 mode the product is the
+// FMA chain of `dot_fma` (scan_tile.cuh), so a seed's distance is bit-equal
+// to the distance the beam's in-loop scoring (gather_score.cu) finds for
+// the same (query, slot).
 //
 // Queries come sorted and cut into G groups of 128. Group g walks S steps;
 // step s names a 256-row chunk of the cluster-major corpus, chunk_ids[g, s],
@@ -46,9 +50,10 @@
 #define SPARSE_QG 128      // queries per group
 #define SPARSE_CHUNK 256   // corpus rows per chunk
 
+template <typename T>
 __global__ void __launch_bounds__(SCAN_THREADS) sparse_scan_kernel(
-    const float* __restrict__ q, const float* __restrict__ qn,
-    const float* __restrict__ x, const float* __restrict__ mask,
+    const T* __restrict__ q, const float* __restrict__ qn,
+    const T* __restrict__ x, const float* __restrict__ mask,
     const int* __restrict__ probes, int P,
     const int* __restrict__ chunk_ids, const int* __restrict__ cluster_ids,
     float thr, int S, int d, int cosine,
@@ -85,23 +90,30 @@ __global__ void __launch_bounds__(SCAN_THREADS) sparse_scan_kernel(
         return;
     }
     const long long r0 = (long long)chunk_ids[gs] * SPARSE_CHUNK + rh * SCAN_BN;
-    scan_tile<SCAN_QUERY>(
+    scan_tile<SCAN_QUERY, T>(
         q + q0 * d, qn + q0, SCAN_BM, x + r0 * d, mask + r0, d, thr, cosine,
         nullptr, nullptr, 0, member,
         dtile, dist_stride, gtile, 2LL * S);
 }
 
+// q [G * 128, d] and x [NR, d] are float32, or bfloat16 when bf16 != 0.
 extern "C" int comet_sparse_scan(
-    const float* q, const float* qn, const float* x, const float* mask,
+    const void* q, const float* qn, const void* x, const float* mask,
     const int* probes, int P, const int* chunk_ids, const int* cluster_ids,
-    float thr, int G, int S, int d, int cosine, float* dist, float* gmin,
+    float thr, int G, int S, int d, int cosine, int bf16, float* dist, float* gmin,
     void* stream)
 {
     if (G < 1 || S < 1 || d < 1 || P < 1) return (int)cudaErrorInvalidValue;
     const long long blocks = (long long)G * S * 4;
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    sparse_scan_kernel<<<(unsigned)blocks, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-        q, qn, x, mask, probes, P, chunk_ids, cluster_ids, thr, S, d, cosine,
-        dist, gmin);
+    if (bf16) {
+        sparse_scan_kernel<bf16_t><<<(unsigned)blocks, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+            (const bf16_t*)q, qn, (const bf16_t*)x, mask, probes, P, chunk_ids, cluster_ids,
+            thr, S, d, cosine, dist, gmin);
+    } else {
+        sparse_scan_kernel<float><<<(unsigned)blocks, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+            (const float*)q, qn, (const float*)x, mask, probes, P, chunk_ids, cluster_ids,
+            thr, S, d, cosine, dist, gmin);
+    }
     return (int)cudaGetLastError();
 }

@@ -18,6 +18,16 @@
 //                   whole tile belongs to one cluster).
 // It writes the tile's distances and each query's minimum over the tile
 // (the group minimum), finished with warp shuffles.
+//
+// The operands are float32 (T = float) or bfloat16 (T = bf16_t, K3's bf16
+// mode): bf16 values are widened to float32 as they are staged, so the
+// product is the same FMA chain either way. `dot_fma` is the one product
+// step of every inner product in the package's kernels: an inner product
+// starts at 0 and takes the depth in ascending order, one `dot_fma` per
+// element. K3's bf16 mode here and the beam's in-loop scoring
+// (gather_score.cu) both do so, and a bf16 x bf16 product is exact in
+// float32, so the two give bit-equal distances for the same (query, row):
+// the beam's duplicate kill (beam_merge.cu) relies on it.
 
 #pragma once
 
@@ -33,16 +43,24 @@
 
 enum { SCAN_ALL = 0, SCAN_ROW_BITS = 1, SCAN_QUERY = 2 };
 
+// a bfloat16 value as its raw 16 bits (the top half of a float32)
+typedef unsigned short bf16_t;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16_t x) { return __uint_as_float((unsigned)x << 16); }
+
+__device__ __forceinline__ float dot_fma(float a, float b, float acc) { return fmaf(a, b, acc); }
+
 // q, qn: the tile's first query row (row stride d) and its squared norm;
 // q_valid of the SCAN_BM queries exist. x, mask: the tile's first corpus
 // row (row stride d) and its mask; all SCAN_BN rows exist. dist: entry
 // (query 0, row 0) of the tile, row stride dist_stride; gmin: the group
 // minimum of query 0, row stride gmin_stride. words: the probe bitmask of
 // query 0, n_words words per query.
-template <int MODE>
+template <int MODE, typename T = float>
 __device__ __forceinline__ void scan_tile(
-    const float* __restrict__ q, const float* __restrict__ qn, int q_valid,
-    const float* __restrict__ x, const float* __restrict__ mask, int d,
+    const T* __restrict__ q, const float* __restrict__ qn, int q_valid,
+    const T* __restrict__ x, const float* __restrict__ mask, int d,
     float thr, int cosine,
     const int* __restrict__ assign, const unsigned* __restrict__ words,
     int n_words, const bool* member_q,
@@ -67,13 +85,13 @@ __device__ __forceinline__ void scan_tile(
             const int r = e / SCAN_BK;
             const int c = e % SCAN_BK;
             const int gk = k0 + c;
-            As[c][r] = (r < q_valid && gk < d) ? q[(long long)r * d + gk] : 0.0f;
+            As[c][r] = (r < q_valid && gk < d) ? to_f32(q[(long long)r * d + gk]) : 0.0f;
         }
         for (int e = tid; e < SCAN_BN * SCAN_BK; e += SCAN_THREADS) {
             const int r = e / SCAN_BK;
             const int c = e % SCAN_BK;
             const int gk = k0 + c;
-            Bs[c][r] = gk < d ? x[(long long)r * d + gk] : 0.0f;
+            Bs[c][r] = gk < d ? to_f32(x[(long long)r * d + gk]) : 0.0f;
         }
         __syncthreads();
 #pragma unroll
@@ -88,7 +106,7 @@ __device__ __forceinline__ void scan_tile(
             for (int i = 0; i < SCAN_TM; ++i)
 #pragma unroll
                 for (int j = 0; j < SCAN_TN; ++j)
-                    acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+                    acc[i][j] = dot_fma(a[i], b[j], acc[i][j]);
         }
         __syncthreads();
     }

@@ -227,8 +227,9 @@ class VectorSearchBuilder:
         self._aggregation = ScoreAggregationKind.SUM
         self._document_ids: list[int] | Bitset | None = None
         self._reranker: Reranker | None = None
-        # per-index knob, validated by the index that reads it (IVF)
-        self._nprobes: int | None = None
+        # per-index knobs, validated by the index that reads them
+        self._nprobes: int | None = None      # IVF
+        self._ef_search: int | None = None    # HNSW
         # batch-API control: False skips copying the scores to the host
         self._wire_scores = True
 
@@ -279,6 +280,11 @@ class VectorSearchBuilder:
 
     def with_nprobes(self, nprobes: int) -> "VectorSearchBuilder":
         self._nprobes = int(nprobes)
+        return self
+
+    def with_ef_search(self, ef_search: int) -> "VectorSearchBuilder":
+        """Per-query beam width override (HNSW; 0 = the index default)."""
+        self._ef_search = int(ef_search)
         return self
 
     def execute(self) -> list[VectorResult]:
@@ -349,6 +355,7 @@ class BaseVectorIndex:
         threshold: float = 0.0,
         document_ids: Iterable[int] | Bitset | None = None,
         nprobes: int | None = None,
+        ef_search: int | None = None,
         aggregation=None,
         cutoff: int = -1,
         group_size: int = 1,
@@ -363,11 +370,12 @@ class BaseVectorIndex:
         output row; `group_size` > 1 aggregates each consecutive group of
         rows into one output row with `aggregation` (Sum by default).
         `wire_scores=False` leaves the scores on the device and returns zeros.
-        `nprobes` is the IVF probe count (other indexes ignore it).
+        `nprobes` is the IVF probe count and `ef_search` the HNSW beam width
+        (other indexes ignore them).
         """
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         self._check_dim(queries)
-        builder = self._make_batch_builder(k, threshold, document_ids, nprobes,
+        builder = self._make_batch_builder(k, threshold, document_ids, nprobes, ef_search,
                                            cutoff, group_size, wire_scores)
         with self._lock:
             ids, scores = self._search_collect(self._search_launch(queries, builder))
@@ -381,6 +389,7 @@ class BaseVectorIndex:
         threshold: float = 0.0,
         document_ids: Iterable[int] | Bitset | None = None,
         nprobes: int | None = None,
+        ef_search: int | None = None,
         depth: int = 2,
         aggregation=None,
         cutoff: int = -1,
@@ -395,7 +404,7 @@ class BaseVectorIndex:
         `search_batch`.
         """
         # validate eagerly: bad knob combinations raise at the call site
-        builder = self._make_batch_builder(k, threshold, document_ids, nprobes,
+        builder = self._make_batch_builder(k, threshold, document_ids, nprobes, ef_search,
                                            cutoff, group_size, wire_scores)
         return self._search_stream_iter(
             batches, builder, k, depth, aggregation, cutoff, group_size
@@ -421,7 +430,7 @@ class BaseVectorIndex:
             yield collect()
 
     def _make_batch_builder(
-        self, k, threshold, document_ids, nprobes, cutoff, group_size, wire_scores
+        self, k, threshold, document_ids, nprobes, ef_search, cutoff, group_size, wire_scores
     ) -> VectorSearchBuilder:
         if not wire_scores and (cutoff != -1 or group_size > 1):
             raise InvalidConfigError(
@@ -437,6 +446,7 @@ class BaseVectorIndex:
         else:
             builder._document_ids = [int(i) for i in document_ids]
         builder._nprobes = nprobes
+        builder._ef_search = ef_search
         return builder
 
     # -- helpers -------------------------------------------------------------

@@ -129,6 +129,14 @@ def read_u64(f: BinaryIO) -> int:
     return struct.unpack("<Q", _read_exact(f, 8))[0]
 
 
+def write_i64(f: BinaryIO, v: int) -> None:
+    f.write(struct.pack("<q", v))
+
+
+def read_i64(f: BinaryIO) -> int:
+    return struct.unpack("<q", _read_exact(f, 8))[0]
+
+
 def write_str(f: BinaryIO, s: str) -> None:
     raw = s.encode("utf-8")
     f.write(struct.pack("<I", len(raw)))

@@ -53,9 +53,17 @@ SIGNATURES = {
     "comet_fused_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I,
                          _P, _P, _I, _P, _P, _P],
     # q, qn, x, mask, probes, P, chunk_ids, cluster_ids, thr, G, S, d,
-    # cosine, dist, gmin, stream
+    # cosine, bf16, dist, gmin, stream
     "comet_sparse_scan": [_P, _P, _P, _P, _P, _I, _P, _P, ctypes.c_float,
-                          _I, _I, _I, _I, _P, _P, _P],
+                          _I, _I, _I, _I, _I, _P, _P, _P],
+    # qb, qn, nbr_vecs, aux, nodes, allowed, thr, Q, E, W, d, ndig, fused,
+    # nd, ns, adm, stream
+    "comet_gather_score": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I,
+                           _I, _I, _P, _P, _P, _P],
+    # bd, bs, be, nd, ns, rd, rs, adm, Q, ef, ew, expand, stop, kr, fused,
+    # od, os, oe, misc, ord, ors, stream
+    "comet_beam_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

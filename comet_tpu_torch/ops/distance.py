@@ -44,6 +44,30 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bfloat16 (nearest even), kept as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16-domain inner product over the last axis, [..., d] x [..., d]
+    broadcast to [...] float32.
+
+    Each bf16 x bf16 product is exact in float32, and the products are
+    added to a float32 sum that starts at 0 in ascending order of the
+    depth: the order of the FMA chain of the CUDA kernels (`dot_fma` in
+    csrc/scan_tile.cuh). So this plain version, K3's bf16 mode and the
+    beam's in-loop scoring give bit-equal distances for the same (query,
+    row), which the beam's duplicate kill needs (ops/beam_kernel.py)."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
+                      dtype=torch.float32, device=a.device)
+    for k in range(a.shape[-1]):
+        acc = acc + a[..., k] * b[..., k]
+    return acc
+
+
 def pairwise_scores(
     queries: torch.Tensor, corpus: torch.Tensor, kind: DistanceKind
 ) -> torch.Tensor:

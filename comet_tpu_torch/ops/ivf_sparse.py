@@ -30,6 +30,16 @@ boundary break by scan order and not slot order, and a group's walk is
 budgeted at S steps and UC distinct clusters; the returned per-group
 overflow counts every chunk dropped, and indexes/ivf.py rescans with a
 larger S until it is zero.
+
+The bf16 mode (`bf16_domain=True`, HNSW's seed scan) scores bf16 queries
+against a bf16 cluster-major corpus with float32 accumulation, float32
+query norms from the float32 queries and the caller's mask (the float32
+value of the bf16 squared norm). Its inner product is `bf16_dot`
+(ops/distance.py), the one the beam's in-loop scoring uses, so a seed's
+distance is bit-equal to the distance the beam finds for the same (query,
+slot); its kernel launches count in `BF16_LAUNCHES`. `kb_cap` keeps fewer
+selection groups than the exactness bound (the seed scan's approximate
+top-k): the best kb_cap rows stay exact.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ import numpy as np
 import torch
 
 from comet_tpu_torch.ops import _build
-from comet_tpu_torch.ops.distance import f32_matmul, sqrt_f32
+from comet_tpu_torch.ops.distance import bf16_dot, f32_matmul, sqrt_f32
 from comet_tpu_torch.ops.fused_scan import coarse_probes, probe_pad
 from comet_tpu_torch.ops.kmeans import kmeans
 from comet_tpu_torch.ops.sortnet import k_pow2, topk_rows, use_plain
@@ -53,8 +63,9 @@ QG = 128         # queries per kernel group
 BIG = 2**30
 DEFAULT_MEM_GB = 8.0   # see `_mem_envelope_bytes`
 
-# Kernel launches made by `_sparse_scan_cuda`.
+# Kernel launches made by `_sparse_scan_cuda`: float32 mode, bf16 mode.
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 
 
 # -- layout (host) ---------------------------------------------------------------
@@ -191,26 +202,35 @@ def _group_chunk_lists(probes, chunk_start, nchunks, S: int, UC: int, MC: int, n
 
 
 def _sparse_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
-                       thr: float, cosine: bool):
+                       thr: float, cosine: bool, qn=None):
     """Plain PyTorch version of K3, in the kernel's order of operations.
 
-    qsorted [G * QG, d], corpus [NR, d] cluster-major, mask_vec [NR],
-    probes [G * QG, P], chunk_ids / cluster_ids [G, S]. Returns
-    (dist [G, QG, S * CHUNK], gmin [G, QG, 2 S]) float32; gmin position
-    2 s + h is the minimum of rows h * 128 ... of step s."""
+    qsorted [G * QG, d] float32, corpus [NR, d] cluster-major (float32, or
+    bfloat16 for the bf16 mode, where the queries are rounded to bf16 and
+    the product is `bf16_dot`), mask_vec [NR], probes [G * QG, P],
+    chunk_ids / cluster_ids [G, S], qn [G * QG] the queries' squared norms
+    (computed from qsorted when None). Returns (dist [G, QG, S * CHUNK],
+    gmin [G, QG, 2 S]) float32; gmin position 2 s + h is the minimum of rows
+    h * 128 ... of step s."""
     g_n, s_n = chunk_ids.shape
     d = qsorted.shape[1]
     dev = qsorted.device
+    if qn is None:
+        qn = (qsorted * qsorted).sum(dim=1)
     rows = (chunk_ids.long()[:, :, None] * CHUNK
             + torch.arange(CHUNK, device=dev)).reshape(g_n, s_n * CHUNK)
     q = qsorted.view(g_n, QG, d)
-    ip = torch.stack([f32_matmul(q[g], corpus[rows[g]]) for g in range(g_n)])
+    if corpus.dtype == torch.bfloat16:
+        qb = q.to(torch.bfloat16)
+        ip = torch.stack([bf16_dot(qb[g][:, None, :], corpus[rows[g]][None, :, :])
+                          for g in range(g_n)])
+    else:
+        ip = torch.stack([f32_matmul(q[g], corpus[rows[g]]) for g in range(g_n)])
     m = mask_vec[rows][:, None, :]                       # [G, 1, S * CHUNK]
     if cosine:
         dist = (1.0 - torch.clamp(ip, -1.0, 1.0)) + m
     else:
-        qn = (q * q).sum(dim=2, keepdim=True)
-        dist = torch.clamp_min((qn + m) - 2.0 * ip, 0.0)
+        dist = torch.clamp_min((qn.view(g_n, QG, 1) + m) - 2.0 * ip, 0.0)
     inf = torch.full_like(dist, float("inf"))
     dist = torch.where(dist <= thr, dist, inf)
     pr = probes.view(g_n, QG, -1)
@@ -221,33 +241,45 @@ def _sparse_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids
 
 
 def _sparse_scan_cuda(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
-                      thr: float, cosine: bool):
-    """Launch K3. Returns (dist [G, QG, S * CHUNK], gmin [G, QG, 2 S])."""
-    global LAUNCHES
+                      thr: float, cosine: bool, qn=None):
+    """Launch K3 (the bf16 mode for a bfloat16 corpus). Returns
+    (dist [G, QG, S * CHUNK], gmin [G, QG, 2 S])."""
+    global LAUNCHES, BF16_LAUNCHES
     lib = _build.library()
     g_n, s_n = chunk_ids.shape
     d = qsorted.shape[1]
     dev = qsorted.device
-    qn = (qsorted * qsorted).sum(dim=1)
+    if qn is None:
+        qn = (qsorted * qsorted).sum(dim=1)
+    bf16 = corpus.dtype == torch.bfloat16
+    q = qsorted.to(torch.bfloat16).contiguous() if bf16 else qsorted
+    qn = qn.contiguous()
     dist = torch.empty((g_n, QG, s_n * CHUNK), dtype=torch.float32, device=dev)
     gmin = torch.empty((g_n, QG, 2 * s_n), dtype=torch.float32, device=dev)
     code = lib.comet_sparse_scan(
-        qsorted.data_ptr(), qn.data_ptr(), corpus.data_ptr(), mask_vec.data_ptr(),
+        q.data_ptr(), qn.data_ptr(), corpus.data_ptr(), mask_vec.data_ptr(),
         probes.data_ptr(), probes.shape[1], chunk_ids.data_ptr(),
-        cluster_ids.data_ptr(), thr, g_n, s_n, d, int(cosine),
+        cluster_ids.data_ptr(), thr, g_n, s_n, d, int(cosine), int(bf16),
         dist.data_ptr(), gmin.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    LAUNCHES += 1
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     _build.check(code, "sparse_scan")
     return dist, gmin
 
 
 def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
-                 threshold: float, kb: int, cosine: bool = False):
+                 threshold: float, kb: int, cosine: bool = False,
+                 bf16_domain: bool = False, qn=None):
     """Distances of the listed chunks and each query's top-kb selection
-    groups. Returns (dist [G, QG, S * CHUNK] float32, gsel [G, QG, kb]
-    int32: group positions 2 s + h in (group minimum, position) order)."""
+    groups. The corpus is float32, or bfloat16 with `bf16_domain`; `qn`
+    (float32 [G * QG]) gives the queries' squared norms, else they are
+    computed from qsorted. Returns (dist [G, QG, S * CHUNK] float32, gsel
+    [G, QG, kb] int32: group positions 2 s + h in (group minimum, position)
+    order)."""
     g_n, s_n = chunk_ids.shape
     if qsorted.ndim != 2 or qsorted.shape[0] != g_n * QG:
         raise ValueError(f"qsorted must be [{g_n * QG}, d], got {tuple(qsorted.shape)}")
@@ -260,10 +292,15 @@ def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
         raise ValueError(f"probes must be [{qsorted.shape[0]}, P], got {tuple(probes.shape)}")
     if cluster_ids.shape != chunk_ids.shape:
         raise ValueError("chunk_ids and cluster_ids differ in shape")
-    for name, t, dt in (("qsorted", qsorted, torch.float32), ("corpus", corpus, torch.float32),
-                        ("mask_vec", mask_vec, torch.float32), ("probes", probes, torch.int32),
-                        ("chunk_ids", chunk_ids, torch.int32),
-                        ("cluster_ids", cluster_ids, torch.int32)):
+    if qn is not None and qn.shape != (qsorted.shape[0],):
+        raise ValueError(f"qn must be [{qsorted.shape[0]}], got {tuple(qn.shape)}")
+    corpus_dt = torch.bfloat16 if bf16_domain else torch.float32
+    checks = [("qsorted", qsorted, torch.float32), ("corpus", corpus, corpus_dt),
+              ("mask_vec", mask_vec, torch.float32), ("probes", probes, torch.int32),
+              ("chunk_ids", chunk_ids, torch.int32), ("cluster_ids", cluster_ids, torch.int32)]
+    if qn is not None:
+        checks.append(("qn", qn, torch.float32))
+    for name, t, dt in checks:
         if t.dtype != dt:
             raise ValueError(f"{name} must be {dt}, got {t.dtype}")
         if t.device != qsorted.device:
@@ -273,9 +310,9 @@ def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
     thr = float(np.float32(threshold))
     args = [t.contiguous() for t in (qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids)]
     if use_plain(qsorted):
-        dist, gmin = _sparse_scan_plain(*args, thr, cosine)
+        dist, gmin = _sparse_scan_plain(*args, thr, cosine, qn)
     else:
-        dist, gmin = _sparse_scan_cuda(*args, thr, cosine)
+        dist, gmin = _sparse_scan_cuda(*args, thr, cosine, qn)
     gsel = topk_rows(gmin.view(g_n * QG, 2 * s_n), None, kb)[1][:, :kb]
     return dist, gsel.reshape(g_n, QG, kb)
 
@@ -284,14 +321,17 @@ def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
 
 
 def scan_plan(q, centroids, order_key, chunk_start, nchunks, k, nprobe,
-              S, UC, MC, nlist, coarse_cosine):
+              S, UC, MC, nlist, coarse_cosine, kb_cap: int = 0):
     """The scan's inputs for one slice of queries (a multiple of QG):
     coarse probes, the stable query sort by the order key of each query's
     nearest centroid, and the groups' chunk lists. kb is a power of two
-    >= k (block-select bound) and S grows so that at least kb selection
-    groups exist (the extra steps are dead). Returns a dict of qperm,
-    qsorted, probes (sorted), chunk_ids, cluster_ids, overflow, kb, S."""
+    >= k (block-select bound), or at most k_pow2(kb_cap) when kb_cap > 0,
+    and S grows so that at least kb selection groups exist (the extra steps
+    are dead). Returns a dict of qperm, qsorted, probes (sorted),
+    chunk_ids, cluster_ids, overflow, kb, S."""
     kb = k_pow2(k)
+    if kb_cap:
+        kb = min(kb, k_pow2(kb_cap))
     S = max(S, -(-kb * SEL_GROUP // CHUNK))
     probes = coarse_probes(q, centroids, nprobe, coarse_cosine, probe_pad(nprobe))
     p0 = probes[:, 0].long()
@@ -303,18 +343,19 @@ def scan_plan(q, centroids, order_key, chunk_start, nchunks, k, nprobe,
                 cluster_ids=cluster_ids, overflow=overflow, kb=kb, S=S)
 
 
-def _pipeline(q, corpus, mask_vec, row_slot, thr, centroids, order_key,
+def _pipeline(q, qn, corpus, mask_vec, row_slot, thr, centroids, order_key,
               chunk_start, nchunks, k, nprobe, S, UC, MC, nlist,
-              coarse_cosine, cosine, sqrt_out):
+              coarse_cosine, cosine, sqrt_out, bf16_domain, kb_cap):
     """One slice of queries (a multiple of QG). Returns (scores [Q, k],
     slots [Q, k] int32, overflow [G] int32)."""
     q_n = q.shape[0]
     dev = q.device
     plan = scan_plan(q, centroids, order_key, chunk_start, nchunks, k, nprobe,
-                     S, UC, MC, nlist, coarse_cosine)
+                     S, UC, MC, nlist, coarse_cosine, kb_cap)
     qperm, chunk_ids, kb, S = plan["qperm"], plan["chunk_ids"], plan["kb"], plan["S"]
     dist, gsel = _sparse_scan(plan["qsorted"], corpus, mask_vec, plan["probes"], chunk_ids,
-                              plan["cluster_ids"], thr, kb, cosine)
+                              plan["cluster_ids"], thr, kb, cosine, bf16_domain,
+                              qn[qperm] if qn is not None else None)
 
     # candidate stage, every group at once (the flat pipeline's structure)
     d3 = dist.view(q_n, 2 * S, SEL_GROUP)
@@ -372,25 +413,37 @@ def ivf_sparse_pipeline(
     coarse_cosine: bool = False,
     cosine: bool = False,
     sqrt_out: bool = False,
+    bf16_domain: bool = False,  # bf16 corpus, bf16-domain distances (HNSW seeds)
+    kb_cap: int = 0,            # > 0: keep at most k_pow2(kb_cap) selection groups
+    qn: torch.Tensor | None = None,  # [Q] float32 query squared norms (bf16 mode)
 ):
     """Block-sparse IVF search of every query. Pads the batch with zero
     queries to a multiple of QG and, when the scan's distance tensor would
     exceed the envelope (`_mem_envelope_bytes`), runs it in QG-multiple
     slices (queries are sorted within a slice). Returns (scores [Q, k]
     float32, slots [Q, k] int32, overflow [G] int32, one count per group
-    of QG padded queries); empty slots carry (+inf, IDX_SENTINEL)."""
+    of QG padded queries); empty slots carry (+inf, IDX_SENTINEL).
+
+    With `bf16_domain` the corpus is bfloat16 and the mask the float32
+    value of each row's bf16 squared norm; `qn`, when given, is used for
+    the query norms, so that the caller's beam search and this scan read
+    the same values."""
     q_n = queries.shape[0]
     q_pad = -(-max(q_n, 1) // QG) * QG
     if q_pad > q_n:
         queries = torch.cat([queries, queries.new_zeros((q_pad - q_n, queries.shape[1]))])
+        if qn is not None:
+            qn = torch.cat([qn, qn.new_zeros(q_pad - q_n)])
     g_n = q_pad // QG
     per_group = QG * S * CHUNK * 4
     max_g = max(_mem_envelope_bytes() // max(per_group, 1), 1)
     args = (corpus, mask_vec, row_slot, threshold, centroids, order_key,
             chunk_start, nchunks, k, nprobe, S, UC, MC, nlist,
-            coarse_cosine, cosine, sqrt_out)
-    outs = [_pipeline(queries[g0 * QG:min(g0 + max_g, g_n) * QG], *args)
-            for g0 in range(0, g_n, max_g)]
+            coarse_cosine, cosine, sqrt_out, bf16_domain, kb_cap)
+    outs = []
+    for g0 in range(0, g_n, max_g):
+        rows = slice(g0 * QG, min(g0 + max_g, g_n) * QG)
+        outs.append(_pipeline(queries[rows], qn[rows] if qn is not None else None, *args))
     return (torch.cat([o[0] for o in outs])[:q_n],
             torch.cat([o[1] for o in outs])[:q_n],
             torch.cat([o[2] for o in outs]))

@@ -23,6 +23,12 @@ def _canonical_zero(s: torch.Tensor) -> torch.Tensor:
     return torch.where(s == 0, torch.zeros_like(s), s)
 
 
+def dist_key_bits(d: torch.Tensor) -> torch.Tensor:
+    """int64 of the float32 bits of distances >= 0 or +inf (-0.0 as +0.0):
+    ordered as the values, so they make the high word of a sort key."""
+    return _canonical_zero(d).contiguous().view(torch.int32).to(torch.int64)
+
+
 def lexsort_topk(s: torch.Tensor, i: torch.Tensor, k: int):
     """The k best (score, index) pairs of each row, lexicographically: two
     stable sorts, by index then by score. Every plain select of the package

@@ -233,3 +233,241 @@ def test_ivf_index_cuda_matches_cpu(dev, route, monkeypatch):
                    + idx.search_batch(q, k=40, nprobes=6, threshold=150.5))
     for got, want in zip(*out):
         np.testing.assert_array_equal(got, want)
+
+
+# -- HNSW: K4, K3's bf16 mode, the in-loop scoring ------------------------------------
+
+SENT = 2**31 - 1
+
+
+def _merge_state(rng, q_n, ef, ew, cap=4096):
+    """A valid beam state on float data: each query's beam holds distinct
+    slots sorted by distance, with random expanded flags; the candidates
+    mix new slots, copies of beam slots and copies among themselves, every
+    copy at its slot's one distance (a per-query table)."""
+    table = (rng.random((q_n, cap)) * 10).astype(np.float32)
+    perm = np.argsort(rng.random((q_n, cap)), axis=1)
+    nb = rng.integers(1, ef + 1, size=q_n)
+    bs = perm[:, :ef].astype(np.int32)
+    bd = np.take_along_axis(table, bs, axis=1)
+    order = np.argsort(bd, axis=1, kind="stable")
+    bs, bd = np.take_along_axis(bs, order, 1), np.take_along_axis(bd, order, 1)
+    keep = np.arange(ef)[None, :] < nb[:, None]
+    # keep the nb nearest as the beam (still sorted), the rest empty
+    bd, bs = np.where(keep, bd, np.inf), np.where(keep, bs, SENT)
+    be = np.where(keep, rng.integers(0, 2, size=(q_n, ef)), 0).astype(np.int32)
+    pick_beam = rng.random((q_n, ew)) < 0.4
+    from_beam = np.take_along_axis(bs, rng.integers(0, ef, size=(q_n, ew)) % nb[:, None], 1)
+    fresh = perm[:, ef:ef + ew] if cap >= ef + ew else rng.integers(0, cap, size=(q_n, ew))
+    ns = np.where(pick_beam, from_beam, fresh[:, rng.integers(0, ew, size=ew)]).astype(np.int32)
+    nd = np.take_along_axis(table, ns, axis=1)
+    empty = rng.random((q_n, ew)) < 0.1
+    nd, ns = np.where(empty, np.inf, nd).astype(np.float32), np.where(empty, SENT, ns)
+    return [np.ascontiguousarray(a)
+            for a in (bd.astype(np.float32), bs, be, nd, ns.astype(np.int32))]
+
+
+@pytest.mark.parametrize("q_n,ef,ew,expand,stop,kr", [
+    (2048, 256, 256, 8, None, 0), (2048, 256, 256, 8, 256, 256), (300, 64, 32, 4, 16, 0),
+    (130, 32, 96, 23, None, 64), (64, 1024, 256, 8, 128, 2048),
+])
+def test_beam_merge_kernel_matches_plain(dev, q_n, ef, ew, expand, stop, kr):
+    """K4 against `_merge_plain` on float data, split (kr = 0) and fused
+    mode: bit-equal (the step compares and moves values only)."""
+    from comet_tpu_torch.ops import beam_kernel as bk
+
+    rng = np.random.default_rng(q_n + ef + kr)
+    state = [torch.from_numpy(a).to(dev) for a in _merge_state(rng, q_n, ef, ew)]
+    fused = kr > 0
+    extra = {}
+    if fused:
+        rd, rs = _merge_state(rng, q_n, kr, 8)[:2]
+        adm = rng.integers(0, 2, size=(q_n, ew)).astype(np.int32)
+        extra = dict(res_d=torch.from_numpy(rd).to(dev), res_s=torch.from_numpy(rs).to(dev),
+                     adm=torch.from_numpy(adm).to(dev))
+    before = (bk.LAUNCHES, bk.FUSED_LAUNCHES)
+    got = bk.beam_merge_step(*state, **extra, ef=ef, ew=ew, expand=expand, fused=fused, kr=kr,
+                             stop=stop)
+    torch.cuda.synchronize()
+    assert (bk.LAUNCHES, bk.FUSED_LAUNCHES) == (before[0] + (not fused), before[1] + fused)
+    args = state + [extra.get("res_d"), extra.get("res_s"), extra.get("adm")]
+    want = bk._merge_plain(*args, ef, ew, expand, fused, kr, stop or ef)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(g, w)
+    assert (got[3][:, expand] == 1).any() and (got[3][:, 0] >= 0).any()
+
+
+def _seed_loop_case(dev, n=4096, d=128, w=32, q_n=128, seed=5):
+    """Gaussian vectors and queries, a random adjacency, the blocked tables
+    and a one-group K3 layout over every row."""
+    from comet_tpu_torch.ops import beam_kernel as bk
+    from comet_tpu_torch.ops.distance import bf16_round
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32)).to(dev)
+    adj = torch.from_numpy(rng.integers(0, n, size=(n, w)).astype(np.int32)).to(dev)
+    sqn = (x * x).sum(dim=1)
+    nbr_vecs, aux = bk.build_blocked_tables(adj, x, sqn)
+    mask = bf16_round(sqn)
+    return bk, rng, x, q, adj, sqn, nbr_vecs, aux, mask
+
+
+@pytest.mark.parametrize("q_n,s_n", [(128, 16), (384, 40)])
+def test_sparse_scan_bf16_kernel_matches_plain(dev, q_n, s_n):
+    """K3's bf16 mode on Gaussian (non-integer) data: bit-equal to the
+    plain version, which sums the exact bf16 products in the kernel's
+    order; and its launches count apart from the float32 mode's."""
+    from comet_tpu_torch.ops import ivf_sparse as sp
+
+    rng = np.random.default_rng(q_n)
+    nr = 64 * sp.CHUNK
+    g_n = q_n // sp.QG
+    q = torch.from_numpy(rng.normal(size=(q_n, 128)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(nr, 128)).astype(np.float32)).to(dev)
+    sqn = (x * x).sum(dim=1)
+    mask = torch.where(torch.from_numpy(rng.random(nr) < 0.1).to(dev), float("inf"),
+                       sqn.to(torch.bfloat16).float())
+    probes = torch.from_numpy(rng.integers(0, 12, size=(q_n, 8)).astype(np.int32)).to(dev)
+    chunk_ids = torch.from_numpy(rng.integers(0, 64, size=(g_n, s_n)).astype(np.int32)).to(dev)
+    cluster_ids = torch.from_numpy(rng.integers(-1, 12, size=(g_n, s_n)).astype(np.int32)).to(dev)
+    qn = (q * q).sum(dim=1)
+    xb = x.to(torch.bfloat16)
+    args = (q, xb, mask, probes, chunk_ids, cluster_ids)
+    before = (sp.LAUNCHES, sp.BF16_LAUNCHES)
+    dist, gsel = sp._sparse_scan(*args, float("inf"), 16, False, True, qn)
+    torch.cuda.synchronize()
+    assert (sp.LAUNCHES, sp.BF16_LAUNCHES) == (before[0], before[1] + 1)
+    want_d, want_gmin = sp._sparse_scan_plain(*args, float("inf"), False, qn)
+    assert torch.equal(dist, want_d)
+    want_g = sortnet._topk_rows_plain(want_gmin.view(q_n, -1), None, 16)[1][:, :16]
+    assert torch.equal(gsel.view(q_n, 16), want_g)
+    assert torch.isfinite(dist).any()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_gather_score_kernel_matches_plain(dev, fused):
+    bk, rng, x, q, adj, sqn, nbr_vecs, aux, _ = _seed_loop_case(dev)
+    n = x.shape[0]
+    nodes = torch.from_numpy(rng.integers(-1, n, size=(q.shape[0], 8)).astype(np.int32)).to(dev)
+    adj_cut = adj.clone()
+    adj_cut[nodes[0, 0].clamp_min(0).long(), 5:] = -1
+    nbr_vecs, aux = bk.build_blocked_tables(adj_cut, x, sqn)
+    allowed = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    qb, qn = q.to(torch.bfloat16), (q * q).sum(dim=1)
+    before = bk.SCORE_LAUNCHES
+    got = bk.gather_score(qb, qn, nbr_vecs, aux, nodes, allowed, 250.0, fused)
+    torch.cuda.synchronize()
+    assert bk.SCORE_LAUNCHES == before + 1
+    want = bk._gather_score_plain(qb, qn, nbr_vecs, aux, nodes, allowed, 250.0, fused)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(g, w)
+    if fused:
+        assert 0 < int(got[2].sum()) < got[2].numel()
+
+
+def test_seed_and_in_loop_distances_are_bit_equal(dev):
+    """Gaussian data: the distance K3's bf16 mode gives a (query, slot) is
+    bit-equal to the one the in-loop scoring kernel gives the same pair when
+    a node whose neighbourhood holds the slot is expanded, and to the
+    plain bf16 dot of the probe-starved entry start."""
+    from comet_tpu_torch.ops import ivf_sparse as sp
+    from comet_tpu_torch.ops.distance import bf16_dot
+
+    bk, rng, x, q, adj, sqn, nbr_vecs, aux, mask = _seed_loop_case(dev)
+    n, q_n, w = x.shape[0], q.shape[0], adj.shape[1]
+    s_n = n // sp.CHUNK
+    qn = (q * q).sum(dim=1)
+    dist, _ = sp._sparse_scan(
+        q, x.to(torch.bfloat16), mask, torch.zeros((q_n, 8), dtype=torch.int32, device=dev),
+        torch.arange(s_n, dtype=torch.int32, device=dev)[None, :],
+        torch.zeros((1, s_n), dtype=torch.int32, device=dev), float("inf"), 8, False, True, qn)
+    seed_d = dist[0]                                          # [Q, n]: every (query, row)
+    nodes = torch.from_numpy(rng.integers(0, n, size=(q_n, 8)).astype(np.int32)).to(dev)
+    nd, ns, _ = bk.gather_score(q.to(torch.bfloat16), qn, nbr_vecs, aux, nodes,
+                                torch.ones(n, dtype=torch.bool, device=dev), float("inf"), False)
+    torch.cuda.synchronize()
+    assert torch.equal(ns.view(q_n, 8, w), adj[nodes.long()])
+    assert torch.equal(nd, seed_d.gather(1, ns.long()))
+    entry = ns[:, 0].long()
+    e_d = torch.clamp_min((qn + mask[entry]) - 2.0 * bf16_dot(q.to(torch.bfloat16),
+                                                             x[entry].to(torch.bfloat16)), 0.0)
+    assert torch.equal(e_d, nd[:, 0])
+    assert not torch.equal(seed_d, torch.clamp_min((qn[:, None] + mask) - 2.0 * (q @ x.T), 0.0))
+
+
+class _plain_versions:
+    """Every wrapper of the package takes its plain version, also for CUDA
+    tensors, while inside: the plain beam on the card."""
+
+    def __enter__(self):
+        from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse
+
+        self.mods = (sortnet, fused_scan, ivf_sparse, beam_kernel)
+        self.saved = [m.use_plain for m in self.mods]
+        for m in self.mods:
+            m.use_plain = lambda t: True
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m.use_plain = f
+
+
+@pytest.mark.parametrize("seeded", ["1", "0"])
+def test_hnsw_index_cuda_matches_plain_and_cpu(dev, seeded, monkeypatch):
+    """A small HNSWIndex built on the card: its graph equals the CPU
+    build's (integer data), and its searches (default, filtered +
+    thresholded, after removals) equal the plain beam on the card and the
+    CPU index."""
+    from comet_tpu_torch import HNSWConfig, HNSWIndex
+    from comet_tpu_torch.ops import beam_kernel as bk
+
+    monkeypatch.setenv("COMET_HNSW_SEED", seeded)
+    rng = np.random.default_rng(21)
+    x = rng.integers(0, 256, size=(6000, 32)).astype(np.float32)
+    q = rng.integers(0, 256, size=(300, 32)).astype(np.float32)
+    kw = [dict(), dict(threshold=300.0, document_ids=range(1, 6001, 2))]
+    out = {}
+    for device in ("cuda", "cpu"):
+        idx = HNSWIndex(32, DistanceKind.L2, HNSWConfig(m=8, ef_construction=64, ef_search=64),
+                        device=device)
+        idx.add_batch(x, ids=range(1, 6001))
+        res = [idx.search_batch(q, k=10, **a) for a in kw]
+        for i in range(1, 6001, 97):
+            idx.remove(i)
+        res.append(idx.search_batch(q, k=10))
+        out[device] = (idx, res)
+    idx, res = out["cuda"]
+    np.testing.assert_array_equal(idx._adj0, out["cpu"][0]._adj0)
+    before = (bk.FUSED_LAUNCHES, bk.SCORE_LAUNCHES)
+    again = idx.search_batch(q, k=10)
+    # the removals make every search fused (result admission), so the
+    # fused mode of K4 runs, with the scoring kernel
+    assert min(bk.FUSED_LAUNCHES - before[0], bk.SCORE_LAUNCHES - before[1]) > 0
+    with _plain_versions():
+        plain = idx.search_batch(q, k=10)
+    for got, want in zip(again + tuple(a for r in res for a in r),
+                         plain + tuple(a for r in out["cpu"][1] for a in r)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_hnsw_cuda_raises_where_the_port_has_no_path(dev, monkeypatch):
+    import comet_tpu_torch.indexes.hnsw as hnsw
+    from comet_tpu_torch import HNSWIndex, InvalidConfigError
+
+    x = np.random.default_rng(2).integers(0, 256, size=(5000, 16)).astype(np.float32)
+    idx = HNSWIndex(16, DistanceKind.L2, device="cuda")
+    with pytest.raises(InvalidConfigError, match="ROADMAP"):
+        idx.add_batch(x[:100])
+    monkeypatch.setenv("COMET_HNSW_FUSE", "1")
+    with pytest.raises(InvalidConfigError, match="ROADMAP"):
+        idx.add_batch(x)
+    monkeypatch.delenv("COMET_HNSW_FUSE")
+    monkeypatch.setattr(hnsw, "BLOCKED_TABLE_BYTES_MAX", 1 << 10)
+    with pytest.raises(InvalidConfigError, match="BLOCKED_TABLE_BYTES_MAX"):
+        HNSWIndex(16, DistanceKind.L2, device="cuda").add_batch(x)

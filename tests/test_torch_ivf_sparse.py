@@ -314,3 +314,110 @@ def test_pipeline_pads_ragged_batches(monkeypatch):
     assert s2.shape == (50, K) and len(ov2) == 1
     # exact within the probed lists: the zero padding changes no real row
     np.testing.assert_array_equal(s2.numpy(), s[:50])
+
+
+# -- the bf16 mode (HNSW seed scans) and kb_cap ------------------------------------------
+
+
+def _bf16_layout():
+    """The L2 layout with the bf16-domain mask: the float32 value of each
+    row's bf16 squared norm (the rows are integers, some above 256, so
+    bf16 rounds them; both packages round to nearest even)."""
+    xr, mask, perm, cents, lay = _layout(False)
+    xb = torch.from_numpy(xr).to(torch.bfloat16)
+    sq = torch.from_numpy((xr * xr).sum(axis=1)).to(torch.bfloat16).float().numpy()
+    bmask = np.where(np.isfinite(mask), sq, np.inf).astype(np.float32)
+    return xb, bmask, perm, cents, lay
+
+
+@lru_cache(maxsize=None)
+def _ref_scan_bf16():
+    q, _, _, probes, chunk_ids, cluster_ids = _scan_case()
+    xb, bmask, _, _, _ = _bf16_layout()
+    xt = jnp.asarray(np.ascontiguousarray(xb.float().numpy().T)).astype(jnp.bfloat16)
+    dist, gsel = ref._sparse_scan(
+        jnp.asarray(q), xt, jnp.asarray(bmask), jnp.asarray(probes), jnp.asarray(chunk_ids),
+        jnp.asarray(cluster_ids), jnp.asarray(np.float32(THR_SCAN)), kb=8, S=6,
+        bf16_domain=True, interpret=True,
+    )
+    return np.asarray(dist), np.asarray(gsel)
+
+
+def test_sparse_scan_bf16_matches_reference():
+    """K3's bf16 mode: bf16 queries and corpus, float32 query norms, the
+    bf16-domain mask: dist array-equal to the reference kernel's, and the
+    group choice in (minimum, position) order."""
+    q, _, _, probes, chunk_ids, cluster_ids = _scan_case()
+    xb, bmask, _, _, _ = _bf16_layout()
+    rdist, _ = _ref_scan_bf16()
+    t = torch.from_numpy
+    dist, gsel = sp._sparse_scan(t(q), xb, t(bmask), t(probes), t(chunk_ids), t(cluster_ids),
+                                 THR_SCAN, 8, False, True)
+    np.testing.assert_array_equal(dist.numpy(), rdist)
+    gmin = rdist.reshape(2 * sp.QG, 12, sp.SEL_GROUP).min(axis=2)
+    order = np.lexsort((np.broadcast_to(np.arange(12), gmin.shape), gmin), axis=1)[:, :8]
+    np.testing.assert_array_equal(gsel.numpy().reshape(2 * sp.QG, 8), order)
+    # bf16 rounding moved some distances off the float32 mode's
+    f32, _ = sp._sparse_scan(t(q), *(t(a) for a in _scan_case()[1:]), THR_SCAN, 8)
+    assert not np.array_equal(f32.numpy(), rdist)
+    with pytest.raises(ValueError, match="corpus must be"):
+        sp._sparse_scan(t(q), xb.float(), t(bmask), t(probes), t(chunk_ids), t(cluster_ids),
+                        THR_SCAN, 8, False, True)
+
+
+K_CAP = 32   # k of the kb_cap pipeline: kb = k_pow2(8) = 8 groups, not 32
+
+
+@lru_cache(maxsize=None)
+def _ref_pipe_bf16(q_n):
+    q = _queries(False, True, q_n, seed=71)
+    xb, bmask, perm, cents, lay = _bf16_layout()
+    xt = jnp.asarray(np.ascontiguousarray(xb.float().numpy().T)).astype(jnp.bfloat16)
+    s, i, ov = ref.ivf_sparse_pipeline(
+        jnp.asarray(q), xt, jnp.asarray(bmask), jnp.asarray(perm),
+        jnp.asarray(np.float32(np.inf)), jnp.asarray(cents), jnp.asarray(ORDER_KEY),
+        jnp.asarray(lay["chunk_start"]), jnp.asarray(lay["nchunks"]),
+        k=K_CAP, nprobe=3, S=S_SMALL, UC=S_SMALL, MC=lay["max_chunks"], nlist=NLIST,
+        bf16_domain=True, kb_cap=8, hier=False, interpret=True,
+    )
+    return np.asarray(s), np.asarray(i), np.asarray(ov)
+
+
+def _port_pipe_bf16(q_n, qn=None):
+    q = _queries(False, True, q_n, seed=71)
+    xb, bmask, perm, cents, lay = _bf16_layout()
+    t = torch.from_numpy
+    s, i, ov = sp.ivf_sparse_pipeline(
+        t(q), xb, t(bmask), t(perm), np.inf, t(cents), t(ORDER_KEY), t(lay["chunk_start"]),
+        t(lay["nchunks"]), K_CAP, 3, S_SMALL, S_SMALL, lay["max_chunks"], NLIST,
+        bf16_domain=True, kb_cap=8, qn=qn,
+    )
+    return s.numpy(), i.numpy(), ov.numpy()
+
+
+def test_sparse_pipeline_bf16_kb_cap_matches_reference():
+    """The HNSW seed scan's configuration: bf16 mode, kb_cap below the
+    exactness bound (8 groups for k = 32) and the overflow of a spread
+    batch left as it is: ids, scores and overflow array-equal."""
+    rs, ri, rov = _ref_pipe_bf16(sp.QG)
+    s, i, ov = _port_pipe_bf16(sp.QG)
+    np.testing.assert_array_equal(ov, rov)
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_array_equal(s, rs)
+    assert ov.max() > 0 and (i == sp.IDX_SENTINEL).any()
+
+
+def test_sparse_pipeline_takes_the_callers_query_norms():
+    """`qn` replaces the norms the scan would compute: the same values give
+    the same result; larger ones raise every unclamped distance by the
+    difference (integers: exact)."""
+    q = _queries(False, True, sp.QG, seed=71)
+    qn = torch.from_numpy((q * q).sum(axis=1))
+    s, i, _ = _port_pipe_bf16(sp.QG)
+    s2, i2, _ = _port_pipe_bf16(sp.QG, qn)
+    np.testing.assert_array_equal(s2, s)
+    np.testing.assert_array_equal(i2, i)
+    s3, i3, _ = _port_pipe_bf16(sp.QG, qn + 1024.0)
+    same = (i3 == i) & (s > 0) & np.isfinite(s)
+    assert same.sum() >= 0.9 * (np.isfinite(s) & (s > 0)).sum() > 0
+    np.testing.assert_array_equal(s3[same], s[same] + 1024.0)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import comet_tpu_torch
-from comet_tpu_torch import DistanceKind, FlatIndex, InvalidConfigError, IVFIndex
+from comet_tpu_torch import DistanceKind, FlatIndex, HNSWIndex, InvalidConfigError, IVFIndex
 from comet_tpu_torch.ops import _build
 
 PKG = os.path.dirname(comet_tpu_torch.__file__)
@@ -22,7 +22,8 @@ ROOT = os.path.dirname(PKG)
 def test_import_loads_no_jax():
     code = (
         "import sys, comet_tpu_torch\n"
-        "from comet_tpu_torch import FlatIndex, IVFIndex\n"
+        "from comet_tpu_torch import FlatIndex, HNSWIndex, IVFIndex\n"
+        "import comet_tpu_torch.ops.beam_kernel, comet_tpu_torch.ops.graph_build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'comet_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -42,6 +43,8 @@ def test_sources_import_neither_jax_nor_reference():
     ("topk.cu", "comet_tpu/ops/sortnet.py:_kernel"),
     ("fused_scan.cu", "comet_tpu/ops/pallas_scan.py:_kernel"),
     ("ivf_sparse.cu", "comet_tpu/ops/ivf_sparse.py:_sparse_kernel"),
+    ("beam_merge.cu", "comet_tpu/ops/beam_kernel.py:_merge_kernel"),
+    ("gather_score.cu", "comet_tpu/ops/beam_kernel.py:_gather_score"),
 ])
 def test_kernel_sources_exist_with_their_note(source, replaces):
     path = os.path.join(_build.CSRC_DIR, source)
@@ -85,13 +88,13 @@ def test_cuda_index_without_card_raises():
         FlatIndex(4, DistanceKind.L2, device="cuda")
 
 
-@pytest.mark.parametrize("cls", [FlatIndex, IVFIndex])
+@pytest.mark.parametrize("cls", [FlatIndex, IVFIndex, HNSWIndex])
 @pytest.mark.parametrize("device", [None, "mps", "meta"])
 def test_index_device_is_explicit(device, cls):
     """An omitted device means the card: without one the index raises, as
     it does for a device other than "cpu" or "cuda"; nothing falls back to
     the CPU."""
-    args = (4, DistanceKind.L2) if cls is FlatIndex else (4, 2, DistanceKind.L2)
+    args = (4, 2, DistanceKind.L2) if cls is IVFIndex else (4, DistanceKind.L2)
     if device is None and torch.cuda.is_available():
         assert cls(*args)._device.type == "cuda"
         return
