@@ -26,7 +26,9 @@
 // 2048, E = 8, W = 32 that is about 137 MB an iteration, 41 us at 3.35
 // TB/s, against 2 d operations per candidate (134 MFLOP, 2 us at 67
 // TFLOP/s): bytes bound it. The kernel is simple on purpose: one thread
-// per candidate, 16-byte loads of its neighbour's row.
+// per candidate runs the FMA chain over its neighbour's row, reading the
+// row in 16-byte loads between a scalar head (up to the row's first
+// 16-byte boundary) and a scalar tail, so the same code serves every d.
 
 #include "scan_tile.cuh"
 
@@ -66,25 +68,20 @@ __global__ void __launch_bounds__(SCORE_THREADS) gather_score_kernel(
             const bf16_t* x = nbr_vecs + ((long long)node * W + j) * d;
             const bf16_t* qq = qb + q * d;
             float acc = 0.0f;
-            if ((d & 7) == 0) {
-                for (int k0 = 0; k0 < d; k0 += 8) {
-                    const uint4 xv = *reinterpret_cast<const uint4*>(x + k0);
-                    const uint4 qv = *reinterpret_cast<const uint4*>(qq + k0);
-                    const unsigned xs[4] = {xv.x, xv.y, xv.z, xv.w};
-                    const unsigned qs[4] = {qv.x, qv.y, qv.z, qv.w};
+            int k = 0;
+            const int head = min(d, (int)(((16 - ((size_t)x & 15)) & 15) >> 1));
+            for (; k < head; ++k) acc = dot_fma(to_f32(qq[k]), to_f32(x[k]), acc);
+            for (; k + 8 <= d; k += 8) {
+                const uint4 xv = *reinterpret_cast<const uint4*>(x + k);
+                const unsigned xs[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-                    for (int h = 0; h < 4; ++h) {
-                        acc = dot_fma(to_f32((bf16_t)(qs[h] & 0xFFFFu)),
-                                      to_f32((bf16_t)(xs[h] & 0xFFFFu)), acc);
-                        acc = dot_fma(to_f32((bf16_t)(qs[h] >> 16)),
-                                      to_f32((bf16_t)(xs[h] >> 16)), acc);
-                    }
+                for (int h = 0; h < 4; ++h) {
+                    acc = dot_fma(to_f32(qq[k + 2 * h]), to_f32((bf16_t)(xs[h] & 0xFFFFu)), acc);
+                    acc = dot_fma(to_f32(qq[k + 2 * h + 1]), to_f32((bf16_t)(xs[h] >> 16)), acc);
                 }
-            } else {
-                for (int k = 0; k < d; ++k) acc = dot_fma(to_f32(qq[k]), to_f32(x[k]), acc);
             }
-            const float s = qn[q] + to_f32(arow[j]);
-            dist = fmaxf(s - 2.0f * acc, 0.0f);
+            for (; k < d; ++k) acc = dot_fma(to_f32(qq[k]), to_f32(x[k]), acc);
+            dist = fmaxf((qn[q] + to_f32(arow[j])) - 2.0f * acc, 0.0f);
         }
     }
     nd[t] = dist;

@@ -155,7 +155,16 @@ class HNSWIndex(BaseVectorIndex):
         # level >= 1 member tables for the entry choice
         self._dev_l1 = None
         self._dev_l1_version = -1
-        # seeded beam state (cluster-major bf16 probe tables)
+        self._reset_seed()
+        # seed-scan health, device counters: chunks dropped by the step
+        # budget, and probe-starved queries (an empty seed row)
+        self._seed_overflow = None
+        self._seed_starved = None
+
+    def _reset_seed(self) -> None:
+        """Drop the seeded beam state (cluster-major bf16 probe tables). A
+        new slot store restarts its version at 0, so the state must go with
+        the old store: its slots point into the old corpus."""
         self._seed_state = None
         self._seed_version = -1
         self._seed_centroids = None
@@ -165,10 +174,6 @@ class HNSWIndex(BaseVectorIndex):
         self._seed_assign_n = 0
         self._seed_layout_n = 0
         self._seed_layout_deleted = 0
-        # seed-scan health, device counters: chunks dropped by the step
-        # budget, and probe-starved queries (an empty seed row)
-        self._seed_overflow = None
-        self._seed_starved = None
 
     @classmethod
     def load_reference_state(
@@ -340,7 +345,7 @@ class HNSWIndex(BaseVectorIndex):
         n = self._store.n
         m = self._cfg.m
         vecs, sqnorms, _ = self._store.device_state()
-        builder = BulkGraphBuilder(self._store.vectors, n, self._distance_kind, vecs, sqnorms)
+        builder = BulkGraphBuilder(n, self._distance_kind, vecs, sqnorms)
         self._adj0[:n] = builder.build_layer(None, m, 2 * m)[:n]
         max_level = int(levels.max())
         for lvl in range(1, max_level + 1):
@@ -721,6 +726,7 @@ class HNSWIndex(BaseVectorIndex):
         with self._lock:
             self._cfg.ef_search = efs
             self._store = type(self._store)(dim, capacity=max(n, 1), device=self._device)
+            self._reset_seed()
             cap = self._store.capacity
             self._levels = np.full(cap, -1, dtype=np.int32)
             self._adj0 = np.full((cap, 2 * m), -1, dtype=np.int32)

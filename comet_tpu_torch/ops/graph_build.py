@@ -11,17 +11,17 @@ before it, then backfill the nearest), and the reverse edges of a whole
 layer are appended in one pass that re-selects overflowing rows with the
 same heuristic.
 
-Stage kNN: a stage whose prefix has at most HOST_KNN_MAX rows runs as a
-numpy matmul on the host, as in the reference; a larger one runs through
-`flat_topk_pipeline` (ops/fused_scan.py, kernels K2 and K1 on a CUDA
-device, their plain versions on the CPU) over the whole capacity-padded
-corpus with the mask `where(rank < hi, sqnorm, inf)`: rows that are not
-among the first `hi` members of the layer are out. Distances are
-kernel-domain (squared L2, or cosine distance) and comparison-only; ties
-follow (distance asc, slot asc). Pairwise candidate distances take
-bf16-rounded vectors with float32 accumulation, as the reference's bf16
-matmul does. The adjacency stays on the index's device for the whole
-layer.
+Stage kNN: every stage runs through `flat_topk_pipeline` (ops/fused_scan.py,
+kernels K2 and K1 on a CUDA device, their plain versions on the CPU) over
+the whole capacity-padded corpus with the mask `where(rank < hi, sqnorm,
+inf)`: rows that are not among the first `hi` members of the layer are
+out. (The reference runs the stages of at most 2048 prefix rows as a host
+matmul; on integer data the distances and their order are the same.)
+Distances are kernel-domain (squared L2, or cosine distance) and
+comparison-only; ties follow (distance asc, slot asc). Pairwise candidate
+distances take bf16-rounded vectors with float32 accumulation, as the
+reference's bf16 matmul does. The adjacency stays on the index's device
+for the whole layer.
 
 The reference's TPU workarounds (one canonical shape for every stage,
 pooled host buffers, a narrow upload format) are left out: they change no
@@ -38,8 +38,6 @@ from comet_tpu_torch.ops.fused_scan import GROUP, flat_topk_pipeline
 from comet_tpu_torch.ops.topk import IDX_SENTINEL, dist_key_bits
 from comet_tpu_torch.types import DistanceKind
 
-# Up to this many prefix rows a stage's kNN is a host matmul.
-HOST_KNN_MAX = 2048
 # The first stage is small so that the early nodes keep long-range edges.
 FIRST_STAGE = 64
 QUERY_CHUNK = 32768   # stage queries per flat-pipeline call
@@ -114,13 +112,12 @@ def _bmm_f32(cv: torch.Tensor) -> torch.Tensor:
 class BulkGraphBuilder:
     """Builds every layer of one HNSW graph over a capacity-padded corpus.
 
-    `vectors` [cap, d] float32 on the host (rows >= n are padding);
-    `device_vectors` and `device_sqnorms` are the same rows and their
-    squared norms on the build's device (the index's device mirror)."""
+    `device_vectors` [cap, d] float32 (rows >= n are padding) and
+    `device_sqnorms` [cap] are the rows and their squared norms on the
+    build's device (the index's device mirror)."""
 
-    def __init__(self, vectors: np.ndarray, n: int, kind: DistanceKind,
-                 device_vectors: torch.Tensor, device_sqnorms: torch.Tensor):
-        self.vectors = vectors
+    def __init__(self, n: int, kind: DistanceKind, device_vectors: torch.Tensor,
+                 device_sqnorms: torch.Tensor):
         self.n = n
         self.cosine = kind == DistanceKind.COSINE
         self.corpus = device_vectors
@@ -128,23 +125,6 @@ class BulkGraphBuilder:
         if device_vectors.shape[0] % GROUP:
             raise ValueError(f"the device corpus rows ({device_vectors.shape[0]}) must be a "
                              f"multiple of {GROUP}")
-
-    def _query_host(self, order: np.ndarray, lo: int, hi: int, k: int):
-        """Host matmul kNN of the stage's nodes against the prefix: GLOBAL
-        slots in (dist asc, slot asc) order, self included."""
-        v = self.vectors[order[:hi]]
-        q = v[lo:hi]
-        ip = q @ v.T
-        if self.cosine:
-            d = 1.0 - np.clip(ip, -1.0, 1.0)
-        else:
-            sq = np.einsum("nd,nd->n", v, v)
-            d = np.maximum(sq[lo:hi, None] + sq[None, :] - 2.0 * ip, 0.0)
-        k = min(k, hi)
-        sel = np.argsort(d, axis=1, kind="stable")[:, :k]
-        dists = np.take_along_axis(d, sel, axis=1).astype(np.float32)
-        slots = order[sel].astype(np.int32)
-        return dists, slots
 
     def build_layer(self, members: np.ndarray | None, m_forward: int, width: int,
                     first_stage: int = FIRST_STAGE) -> np.ndarray:
@@ -159,11 +139,8 @@ class BulkGraphBuilder:
         if nloc <= 1:
             return np.full((n, width), -1, np.int32)
         order_dev = torch.from_numpy(order).to(dev)
-        rank_dev = None
-        if nloc > HOST_KNN_MAX:
-            rank_dev = torch.full((self.corpus.shape[0],), RANK_NONE, dtype=torch.int32,
-                                  device=dev)
-            rank_dev[order_dev.long()] = torch.arange(nloc, dtype=torch.int32, device=dev)
+        rank_dev = torch.full((self.corpus.shape[0],), RANK_NONE, dtype=torch.int32, device=dev)
+        rank_dev[order_dev.long()] = torch.arange(nloc, dtype=torch.int32, device=dev)
         adj_s = torch.full((n, width), SENT, dtype=torch.int32, device=dev)
         adj_d = torch.full((n, width), float("inf"), dtype=torch.float32, device=dev)
         pool = 2 * m_forward
@@ -171,23 +148,13 @@ class BulkGraphBuilder:
         select = min(m_forward, width)
         lo, hi = 0, min(first_stage, nloc)
         while lo < nloc:
-            k = min(pool + 1, hi)
-            if hi > HOST_KNN_MAX:
-                self._device_stage(adj_s, adj_d, order_dev, rank_dev, lo, hi, k, select,
-                                   width, out_w)
-            else:
-                dists, slots = self._query_host(order, lo, hi, k)
-                own = order_dev[lo:hi]
-                fs, fd = _finalize_math(self.corpus, torch.from_numpy(slots).to(dev),
-                                        torch.from_numpy(dists).to(dev), own, select, out_w,
-                                        self.cosine)
-                adj_s[own.long()] = fs[:, :width]
-                adj_d[own.long()] = fd[:, :width]
+            self._stage(adj_s, adj_d, order_dev, rank_dev, lo, hi, min(pool + 1, hi), select,
+                        width, out_w)
             lo, hi = hi, min(2 * hi, nloc)
         out = self._append(adj_s, adj_d, order_dev, width)
         return out.cpu().numpy()
 
-    def _device_stage(self, adj_s, adj_d, order_dev, rank_dev, lo, hi, k, select, width, out_w):
+    def _stage(self, adj_s, adj_d, order_dev, rank_dev, lo, hi, k, select, width, out_w):
         """One stage's kNN through the flat pipeline, QUERY_CHUNK queries at
         a time, then the finalize and the scatter of the stage's rows."""
         base = torch.zeros_like(self.sqnorms) if self.cosine else self.sqnorms

@@ -348,8 +348,11 @@ def test_sparse_scan_bf16_kernel_matches_plain(dev, q_n, s_n):
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_gather_score_kernel_matches_plain(dev, fused):
-    bk, rng, x, q, adj, sqn, nbr_vecs, aux, _ = _seed_loop_case(dev)
+@pytest.mark.parametrize("d,w", [(128, 32), (100, 12)])
+def test_gather_score_kernel_matches_plain(dev, d, w, fused):
+    """Bit-equal to the plain version; d = 100 ends in a partial staging
+    pass, and E W = 96 candidates a query put several queries in a block."""
+    bk, rng, x, q, adj, sqn, nbr_vecs, aux, _ = _seed_loop_case(dev, d=d, w=w)
     n = x.shape[0]
     nodes = torch.from_numpy(rng.integers(-1, n, size=(q.shape[0], 8)).astype(np.int32)).to(dev)
     adj_cut = adj.clone()

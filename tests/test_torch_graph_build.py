@@ -6,9 +6,9 @@ vectors are SIFT-range integers (0..255), so every float32 and bf16
 distance of the build is exact and both packages order every candidate
 alike. Bar: the layer-0 and upper-layer adjacency, the levels and the
 entry point array-equal. The reference builds on the CPU with its host
-kNN for every stage; the port takes the stages past HOST_KNN_MAX rows
-through its flat pipeline (the plain versions of K2 and K1 on the CPU), so
-the comparison holds that route too.
+kNN for every stage; the port takes every stage through its flat pipeline
+(the plain versions of K2 and K1 on the CPU), so the comparison holds that
+route too.
 """
 
 from functools import lru_cache
@@ -83,8 +83,8 @@ def test_bulk_build_upper_layers_match_reference(level):
 
 
 def test_bulk_build_takes_the_pipeline_route(monkeypatch):
-    """The last layer-0 stage (prefix 3000 > HOST_KNN_MAX rows) runs through
-    the flat pipeline; the earlier ones on the host."""
+    """Every layer-0 stage runs through the flat pipeline, the stage ladder
+    64, 64, 128, ... in order."""
     calls = []
     real = gb.flat_topk_pipeline
 
@@ -95,9 +95,9 @@ def test_bulk_build_takes_the_pipeline_route(monkeypatch):
     monkeypatch.setattr(gb, "flat_topk_pipeline", spy)
     x = _sift(N, D, 1)
     vecs = torch.from_numpy(np.concatenate([x, np.zeros((4096 - N, D), np.float32)]))
-    b = gb.BulkGraphBuilder(vecs.numpy(), N, DistanceKind.L2, vecs, (vecs * vecs).sum(1))
+    b = gb.BulkGraphBuilder(N, DistanceKind.L2, vecs, (vecs * vecs).sum(1))
     adj = b.build_layer(None, M, 2 * M)
-    assert calls == [N - 2048]
+    assert calls == [64, 64, 128, 256, 512, 1024, N - 2048]
     np.testing.assert_array_equal(adj, _port_index()._adj0[:N])
 
 

@@ -263,6 +263,35 @@ def test_chnw_bytes_both_ways():
     assert sorted(rback._upper) == sorted(port._upper)
 
 
+def test_read_from_drops_the_seed_tables(monkeypatch):
+    """read_from swaps in a new slot store, whose version restarts: the
+    seed tables of the old corpus go with the old store. A seeded index
+    that reads a smaller index's bytes searches as a fresh index does."""
+    monkeypatch.setattr(port_hnsw, "BULK_BUILD_MIN", 512)
+    _env_seed(monkeypatch, True)
+    x, q = _data("l2")
+
+    def cfg():
+        return HNSWConfig(m=M, ef_construction=64, seed_width=SEED_WIDTH, seed_kb=SEED_KB)
+
+    small = HNSWIndex(D, DistanceKind.L2, cfg(), device="cpu")
+    small.add_batch(x[:1000], ids=np.arange(1, 1001))
+    buf = io.BytesIO()
+    small.write_to(buf)
+    port = _port_of(_ref_copy("l2"))
+    port.search_batch(q, k=K)
+    assert port._seed_state["row_slot"].shape[0] > 1000
+    port.read_from(io.BytesIO(buf.getvalue()))
+    fresh = HNSWIndex(D, DistanceKind.L2, cfg(), device="cpu")
+    fresh.read_from(io.BytesIO(buf.getvalue()))
+    want_ids, want_scores = fresh.search_batch(q, k=K)
+    ids, scores = port.search_batch(q, k=K)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(scores, want_scores)
+    np.testing.assert_array_equal(port._seed_state["row_slot"].numpy(),
+                                  fresh._seed_state["row_slot"].numpy())
+
+
 def test_fluent_builder_takes_ef_search(monkeypatch):
     _, port, _ = _case("classic")
     _env_seed(monkeypatch, False)
