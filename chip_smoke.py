@@ -17,7 +17,11 @@
    force on the host. Then a search with a doc-ID filter and a threshold,
    and a cosine index at the same size. The kernel launches of the L2
    searches are counted and reported.
-4. The IVF path at the reference's operating point: an IVFIndex over the
+4. Flat bf16 storage: K2's bf16 operand held bit-equal to its plain version
+   on 256 queries x 1M x 128 and timed, then FlatIndex(storage="bfloat16")
+   without and with `rerank` at the same size: ids and scores array-equal
+   to the float32 path (the data are exact in bf16), queries/s, launches.
+5. The IVF path at the reference's operating point: an IVFIndex over the
    same corpus, nlist 1024 trained on the first 100,000 rows. Holds K2's
    nprobe mode (256 queries x 1M rows, the index's probes at nprobe 10) and
    K3 (block-sparse scan, csrc/ivf_sparse.cu, a 2048-query batch at nprobe
@@ -29,21 +33,32 @@
    search (equal to the flat path), a filtered + thresholded search and a
    cosine index, with the launches of every kernel counted. `--profile`
    adds a torch.profiler breakdown of two steady nprobe-10 batches.
-5. The HNSW path: an HNSWIndex (M = 16, ef_search = 200) bulk-built over
+6. The HNSW path: an HNSWIndex (M = 16, ef_search = 200) bulk-built over
    HNSW_N rows of the same corpus (the stage kNN runs K2 and K1), searched
    with 2048 queries at k = 100, seeded (K3's bf16 mode, csrc/ivf_sparse.cu)
-   and classic, then with a doc-ID filter and a threshold, after removing
-   1% of the ids, and on a cosine index of 2^16 rows. Every beam iteration
-   runs the in-loop scoring kernel (csrc/gather_score.cu) and K4, the merge
-   step (csrc/beam_merge.cu), split or fused. Every search's ids and scores
-   must be array-equal to the plain beam (the same index with every wrapper
-   on its plain version, on the card); recall@100 against the flat path's
-   exact ids, queries/s, the seed scan's overflow and starved queries are
-   printed. K4 (both modes), K3's bf16 mode and the scoring kernel are held
-   bit-equal to their plain versions on the inputs of a real iteration, and
-   timed; a Gaussian index shows seed and in-loop distances bit-equal; one
-   iteration's blocked-table row gather is timed. `--profile` adds a
-   breakdown of two steady seeded batches.
+   and classic over the blocked table: every iteration runs the in-loop
+   scoring kernel (csrc/gather_score.cu) and K4, the merge step
+   (csrc/beam_merge.cu). Then the packed table (held equal to the blocked
+   pair on a row range), the same searches with COMET_HNSW_PACKED=1 (the
+   scoring kernel's packed mode) and COMET_HNSW_FUSE=1 (K5,
+   csrc/fused_expand.cu), each array-equal to the blocked search; a
+   filtered + thresholded search (K4's fused mode). K5 is held bit-equal to
+   its plain version and to the split pair on a real iteration and timed
+   beside the pair; the packed scoring also on 152-byte rows.
+7. HNSW insertion: N_INSERT held-out rows of the same generator added to
+   the 1M graph in rounds of 512 (the first grows the capacity to 2^21 and
+   rebuilds the device state; the others update it in place), timed; the
+   blocked and packed tables held equal to fresh builds; seeded, classic
+   and fused searches of the grown index with recall@100 against its exact
+   ids; one `add`; searches after removing 1% of the ids; a cosine index
+   of 2^16 rows. Every HNSW search's ids and scores must be array-equal to
+   the plain beam (the same index with every wrapper on its plain version,
+   on the card). K4 (both modes), K3's bf16 mode and the scoring kernel
+   are held bit-equal to their plain versions on the inputs of a real
+   iteration, and timed; a Gaussian index shows seed and in-loop distances
+   bit-equal; one iteration's blocked-table row gather is timed.
+   `--profile` adds breakdowns of one insertion round and two steady
+   seeded batches.
 
 Any mismatch raises, so the run exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it names the kernels with
@@ -52,6 +67,7 @@ their launches, errors, times and bounds, and the line before that the card.
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -61,6 +77,7 @@ import numpy as np
 import torch
 
 N = 1 << 20        # corpus rows
+N_INSERT = 8192    # held-out rows inserted into the HNSW graph
 DIM = 128
 K = 100
 BATCH = 2048       # queries per search_batch call
@@ -72,21 +89,27 @@ HNSW_N = N         # HNSW corpus rows (the flat phase's exact ids are its ground
 HNSW_COSINE_N = 1 << 16
 EF_SEARCH = 200
 
-# NVIDIA's published peaks of one H100 SXM (at its 700 W limit): float32
-# outside the tensor cores, and device memory bandwidth.
+# NVIDIA's published peaks of one H100 SXM (at its 700 W limit, dense):
+# float32 outside the tensor cores, bf16 on the tensor cores, and device
+# memory bandwidth.
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 
-def bound(n_bytes, n_ops):
-    """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
+def bound(n_bytes, n_ops, peak=PEAK_FP32, more_ops_ms=0.0):
+    """The least time the card could take: (ms, "bytes" or "operations").
+    n_ops operations at `peak`, plus `more_ops_ms` of operations of another
+    type."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / peak * 1e3 + more_ops_ms
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sift_like(rng, n_corpus, n_queries, dim):
+def sift_like(rng, n_corpus, n_queries, dim, n_extra=0):
     """SIFT-range clustered data: a Gaussian mixture with low intrinsic
-    dimension (bench.py's generator), rounded and clipped to 0..255."""
+    dimension (bench.py's generator), rounded and clipped to 0..255.
+    Returns the corpus, the queries and n_extra held-out rows (drawn last,
+    so the corpus and the queries do not depend on n_extra)."""
     centers = rng.uniform(0, 256, size=(1024, dim)).astype(np.float32)
     proj = rng.normal(scale=1.0, size=(16, dim)).astype(np.float32)
 
@@ -96,7 +119,7 @@ def sift_like(rng, n_corpus, n_queries, dim):
         v = centers[which] + z @ proj
         return np.clip(np.rint(v), 0, 255).astype(np.float32)
 
-    return sample(n_corpus), sample(n_queries)
+    return sample(n_corpus), sample(n_queries), sample(n_extra)
 
 
 def sparse_signs(rng, n, dim):
@@ -187,8 +210,10 @@ def reset_launches():
     from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
 
     sortnet.LAUNCHES = fused_scan.LAUNCHES = fused_scan.NPROBE_LAUNCHES = 0
+    fused_scan.BF16_LAUNCHES = 0
     ivf_sparse.LAUNCHES = ivf_sparse.BF16_LAUNCHES = 0
     beam_kernel.LAUNCHES = beam_kernel.FUSED_LAUNCHES = beam_kernel.SCORE_LAUNCHES = 0
+    beam_kernel.PACKED_SCORE_LAUNCHES = beam_kernel.FUSE_LAUNCHES = 0
 
 
 def read_launches():
@@ -196,9 +221,12 @@ def read_launches():
 
     return {"topk_cl": sortnet.LAUNCHES, "fused_dist_select": fused_scan.LAUNCHES,
             "fused_dist_select_nprobe": fused_scan.NPROBE_LAUNCHES,
+            "fused_dist_select_bf16": fused_scan.BF16_LAUNCHES,
             "sparse_scan": ivf_sparse.LAUNCHES, "sparse_scan_bf16": ivf_sparse.BF16_LAUNCHES,
             "beam_merge": beam_kernel.LAUNCHES, "beam_merge_fused": beam_kernel.FUSED_LAUNCHES,
-            "gather_score": beam_kernel.SCORE_LAUNCHES}
+            "gather_score": beam_kernel.SCORE_LAUNCHES,
+            "gather_score_packed": beam_kernel.PACKED_SCORE_LAUNCHES,
+            "fused_expand": beam_kernel.FUSE_LAUNCHES}
 
 
 def ids_of(slots, base=1):
@@ -266,10 +294,8 @@ def profile_window(fn):
 
 def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, tag,
               time_ms, profile):
-    """Section 4 of the module docstring. Returns {"report": per-kernel
+    """Section 5 of the module docstring. Returns {"report": per-kernel
     numbers of K2's nprobe mode and K3, "launches": the IVF path's counts}."""
-    import os
-
     from comet_tpu_torch import Bitset, DistanceKind, IVFIndex
     from comet_tpu_torch.indexes.base import _additive_mask
     from comet_tpu_torch.ops import fused_scan, sortnet
@@ -467,6 +493,68 @@ def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, 
     return {"report": report, "launches": launches}
 
 
+def flat_bf16_phase(corpus, queries, flat_ids, flat_scores, dev, tag, time_ms):
+    """Section 4 of the module docstring. Returns {"report": K2's bf16
+    operand, "launches": the bf16 flat path's counts}."""
+    from comet_tpu_torch import DistanceKind, FlatIndex
+    from comet_tpu_torch.ops import fused_scan, sortnet
+
+    inf = float("inf")
+    x_dev = torch.from_numpy(corpus).to(dev)
+    xb = x_dev.to(torch.bfloat16)
+    mask = (x_dev * x_dev).sum(dim=1)
+    del x_dev
+    q256 = torch.from_numpy(queries[:256]).to(dev)
+    dist, gsel = fused_scan.fused_dist_select(q256, xb, mask, inf, 128)
+    pdist, pgmin = fused_scan._fused_dist_select_plain(q256, xb, mask, inf, False)
+    pgsel = sortnet._topk_rows_plain(pgmin, None, 128)[1]
+    torch.cuda.synchronize()
+    if not (torch.equal(dist, pdist) and torch.equal(gsel, pgsel)):
+        raise AssertionError("K2's bf16 operand differs from its plain version")
+    del dist, pdist, pgmin, gsel, pgsel
+    ms = time_ms(lambda: fused_scan._fused_scan_cuda(q256, xb, mask, inf, False))
+    pms = time_ms(lambda: fused_scan._fused_dist_select_plain(q256, xb, mask, inf, False))
+    # queries (float32), the bf16 corpus and the mask read once; dist and
+    # the group minima written
+    n_bytes = 4 * 256 * DIM + 2 * N * DIM + 4 * N + 4 * 256 * N + 4 * 256 * (N // 128)
+    report = {"fused_dist_select_bf16": dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
+                                             bound=bound(n_bytes, 2 * 256 * N * DIM, PEAK_BF16))}
+    b = report["fused_dist_select_bf16"]["bound"]
+    print(f"K2 bf16 operand 256 x {N} x {DIM} kb=128 L2: dist and group choice equal to plain; "
+          f"kernel {ms:.3f} ms, plain {pms:.3f} ms; bound {b[0]:.3f} ms ({b[1]}; operations at "
+          f"the bf16 tensor-core peak) {tag}")
+    del xb, mask, q256
+    torch.cuda.empty_cache()
+
+    ids = np.arange(1, N + 1, dtype=np.uint32)
+    reset_launches()
+    for rerank in (False, True):
+        index = FlatIndex(DIM, DistanceKind.L2, storage="bfloat16", rerank=rerank, device="cuda")
+        index.add_batch(corpus, ids=ids)
+        t0 = time.perf_counter()
+        got = index.search_batch(queries, k=K)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(ROUNDS):
+            again = index.search_batch(queries, k=K)
+        qps = ROUNDS * BATCH / (time.perf_counter() - t0)
+        for g in (got, again):
+            if not (np.array_equal(g[0], flat_ids) and np.array_equal(g[1], flat_scores)):
+                raise AssertionError(f"flat bf16 (rerank={rerank}) differs from the float32 path")
+        print(f"FlatIndex(storage='bfloat16', rerank={rerank}) {N} x {DIM} k={K}: ids and "
+              f"scores equal to the float32 flat path; {qps:.1f} queries/s steady, first batch "
+              f"{first:.3f} s (bf16 copy included) {tag}")
+        report[f"qps_rerank_{rerank}"] = qps
+        del index
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    print(f"kernel launches of the bf16 flat path ({2 * (1 + ROUNDS)} search_batch calls): "
+          f"{launches}")
+    if min(launches["fused_dist_select_bf16"], launches["topk_cl"]) <= 0:
+        raise AssertionError(f"a kernel of the bf16 flat path never launched: {launches}")
+    return {"report": report, "launches": launches}
+
+
 class plain_versions:
     """Inside, every wrapper of the package takes its plain version, also
     for CUDA tensors: searches run the plain beam on the same card tensors.
@@ -539,92 +627,60 @@ def hnsw_search_checked(index, name, queries, rounds=0, **kw):
     return ids, scores, first, qps
 
 
-def hnsw_phase(corpus, queries, c_corpus, c_queries, flat_ids, dev, tag, time_ms, profile):
-    """Section 5 of the module docstring. Returns {"report": per-kernel
-    numbers of K3's bf16 mode, K4 and the scoring kernel, "launches": the
-    HNSW path's counts}."""
-    import os
+class uncounted:
+    """Inside, kernel launches do not count: launches made to hold a kernel
+    against its plain version are not the main path's."""
 
-    from comet_tpu_torch import Bitset, DistanceKind, HNSWIndex
+    def __enter__(self):
+        self.saved = read_launches()
+        return self
+
+    def __exit__(self, *exc):
+        from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
+
+        s = self.saved
+        sortnet.LAUNCHES = s["topk_cl"]
+        fused_scan.LAUNCHES = s["fused_dist_select"]
+        fused_scan.NPROBE_LAUNCHES = s["fused_dist_select_nprobe"]
+        fused_scan.BF16_LAUNCHES = s["fused_dist_select_bf16"]
+        ivf_sparse.LAUNCHES, ivf_sparse.BF16_LAUNCHES = s["sparse_scan"], s["sparse_scan_bf16"]
+        beam_kernel.LAUNCHES = s["beam_merge"]
+        beam_kernel.FUSED_LAUNCHES = s["beam_merge_fused"]
+        beam_kernel.SCORE_LAUNCHES = s["gather_score"]
+        beam_kernel.PACKED_SCORE_LAUNCHES = s["gather_score_packed"]
+        beam_kernel.FUSE_LAUNCHES = s["fused_expand"]
+
+
+class env_set:
+    """Inside, the environment variables given are set (None: unset)."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_seed, report, tag, time_ms):
+    """K4 (split and fused), the blocked scoring kernel and K3's bf16 mode
+    against their plain versions on the captured inputs of real
+    iterations, timed."""
     from comet_tpu_torch.ops import beam_kernel as bk
     from comet_tpu_torch.ops import ivf_sparse as sp
-    from comet_tpu_torch.ops.distance import bf16_dot
 
-    n = HNSW_N
-    ids = np.arange(1, n + 1, dtype=np.uint32)
-    report = {}
-    env_seed = os.environ.pop("COMET_HNSW_SEED", None)
-
-    # -- the main path, every launch counted -------------------------------
-    reset_launches()
-    t0 = time.perf_counter()
-    index = HNSWIndex(DIM, DistanceKind.L2, device="cuda")
-    index.add_batch(corpus[:n], ids=ids)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    build_launches = read_launches()
-    print(f"HNSW bulk build {n} x {DIM}, M=16: {t_build:.3f} s, {n / t_build:.1f} vectors/s, "
-          f"top level {index._max_level}; K2 launches {build_launches['fused_dist_select']}, "
-          f"K1 {build_launches['topk_cl']} {tag}")
-    with capture(bk, "beam_merge_step", 2) as cap_merge, \
-            capture(bk, "gather_score", 2) as cap_score, \
-            capture(sp, "_sparse_scan", 0) as cap_seed:
-        s_ids, s_scores, s_first, s_qps = hnsw_search_checked(index, "seeded", queries,
-                                                              rounds=ROUNDS)
-    ov, starved = index.first_seed_health
-    s_recall = recall_at_k(s_ids, flat_ids) if n == N else None
-    print(f"HNSW seeded k={K} ef={EF_SEARCH}: ids and scores equal to the plain beam; recall@{K} "
-          f"{s_recall if s_recall is None else f'{s_recall:.4f}'}; {s_qps:.1f} queries/s steady, "
-          f"first batch {s_first:.3f} s (seed tables included); the first batch's seed scan "
-          f"dropped {ov} chunks and left {starved} of {BATCH} queries probe-starved {tag}")
-    os.environ["COMET_HNSW_SEED"] = "0"
-    c_ids, c_scores, c_first, c_qps = hnsw_search_checked(index, "classic", queries, rounds=ROUNDS)
-    c_recall = recall_at_k(c_ids, flat_ids) if n == N else None
-    print(f"HNSW classic (COMET_HNSW_SEED=0) k={K} ef={EF_SEARCH}: equal to the plain beam; "
-          f"recall@{K} {c_recall if c_recall is None else f'{c_recall:.4f}'}; {c_qps:.1f} "
-          f"queries/s steady, first batch {c_first:.3f} s {tag}")
-    if c_recall is not None and c_recall < 0.80:
-        raise AssertionError(f"classic HNSW recall@{K} {c_recall:.4f} < 0.80")
-    del os.environ["COMET_HNSW_SEED"]
-    allowed = (ids % 3) != 0
-    thr = float(np.median(s_scores[:, 9]))
-    with capture(bk, "beam_merge_step", 2) as cap_fused:
-        f_ids, _, _, _ = hnsw_search_checked(index, "filtered + threshold", queries,
-                                             threshold=thr,
-                                             document_ids=Bitset.from_array(ids[allowed]))
-    hits = f_ids[f_ids != 0xFFFFFFFF]
-    if not 0 < len(hits) < f_ids.size or (hits % 3 == 0).any():
-        raise AssertionError("the HNSW filter or threshold had no effect")
-    print(f"HNSW with doc-ID filter and threshold {thr:.3f}: {len(hits)} hits, equal to the "
-          f"plain beam")
-    removed = ids[::100]
-    for i in removed.tolist():
-        index.remove(i)
-    r_ids, _, r_first, _ = hnsw_search_checked(index, "after remove", queries)
-    if np.isin(r_ids, removed).any():
-        raise AssertionError("a removed id came back")
-    print(f"HNSW after removing {len(removed)} ids: equal to the plain beam, no removed id "
-          f"returned; first batch {r_first:.3f} s (device mirror refresh included)")
-    c_index = HNSWIndex(DIM, DistanceKind.COSINE, device="cuda")
-    c_index.add_batch(c_corpus[:HNSW_COSINE_N], ids=ids[:HNSW_COSINE_N])
-    cos_ids, _, _, _ = hnsw_search_checked(c_index, "cosine", c_queries)
-    if (cos_ids == 0xFFFFFFFF).any():
-        raise AssertionError("the cosine HNSW search left results empty")
-    print(f"HNSW cosine {HNSW_COSINE_N} x {DIM}: equal to the plain beam")
-    if profile:
-        profile_window(lambda: [index.search_batch(queries, k=K, ef_search=EF_SEARCH)
-                                for _ in range(2)])
-    launches = read_launches()
-    print(f"kernel launches of the HNSW path (2 bulk builds, {2 * (1 + ROUNDS) + 3} "
-          f"search_batch calls{', profile included' if profile else ''}): {launches}")
-    for key in ("topk_cl", "fused_dist_select", "sparse_scan_bf16", "beam_merge",
-                "beam_merge_fused", "gather_score"):
-        if launches[key] <= 0:
-            raise AssertionError(f"a kernel of the HNSW path never launched: {launches}")
-    del c_index
-    torch.cuda.empty_cache()
-
-    # -- K4, split and fused, on a real iteration's inputs ----------------------
     for key, cap in (("beam_merge", cap_merge), ("beam_merge_fused", cap_fused)):
         a, kw = cap.args, cap.kwargs
         fused = kw["fused"]
@@ -645,14 +701,10 @@ def hnsw_phase(corpus, queries, c_corpus, c_queries, flat_ids, dev, tag, time_ms
         ms = time_ms(lambda: bk._merge_cuda(*args, *rest))
         pms = time_ms(lambda: bk._merge_plain(*args, *rest))
         n_bytes = q_n * (ef * 12 + ew * 8 + ef * 12 + bk.MISC_ROWS * 4)
-        c = 1 << (ef + ew - 1).bit_length()
-        log_c = c.bit_length() - 1
-        n_cmp = q_n * c // 2 * log_c * (log_c + 1) // 2
+        n_cmp = q_n * sort_exchanges(ef + ew)
         if fused:
             n_bytes += q_n * (kr * 8 + ew * 4 + kr * 8)
-            c2 = 1 << (kr + ew - 1).bit_length()
-            l2 = c2.bit_length() - 1
-            n_cmp += q_n * c2 // 2 * l2 * (l2 + 1) // 2
+            n_cmp += q_n * sort_exchanges(kr + ew)
         report[key] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
                            bound=bound(n_bytes, n_cmp))
         print(f"K4 beam merge ({'fused' if fused else 'split'}) Q={q_n} ef={ef} ew={ew} "
@@ -661,7 +713,6 @@ def hnsw_phase(corpus, queries, c_corpus, c_queries, flat_ids, dev, tag, time_ms
               f"{report[key]['bound'][0]:.4f} ms ({report[key]['bound'][1]}; {n_bytes / 1e6:.1f} "
               f"MB, {n_cmp / 1e6:.1f} M compare-exchanges) {tag}")
 
-    # -- the in-loop scoring kernel on the same iteration -------------------------
     a = cap_score.args
     qb, qn, nbr_vecs, aux, nodes, allowed_dev, thr_k, fused = a
     got = bk._gather_score_cuda(*a)
@@ -682,8 +733,7 @@ def hnsw_phase(corpus, queries, c_corpus, c_queries, flat_ids, dev, tag, time_ms
           f"bound {report['gather_score']['bound'][0]:.4f} ms "
           f"({report['gather_score']['bound'][1]}) {tag}")
 
-    # -- K3's bf16 mode on the seed scan's inputs ----------------------------------
-    a, kw = cap_seed.args, cap_seed.kwargs
+    a = cap_seed.args
     qsorted, corpus_b, mask, probes, chunk_ids, cluster_ids, thr_s, kb = a[:8]
     cosine, bf16_domain, qn_s = a[8], a[9], a[10]
     if not bf16_domain or corpus_b.dtype != torch.bfloat16:
@@ -715,10 +765,11 @@ def hnsw_phase(corpus, queries, c_corpus, c_queries, flat_ids, dev, tag, time_ms
           f"({n_fin} finite entries); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
           f"{report['sparse_scan_bf16']['bound'][0]:.3f} ms "
           f"({report['sparse_scan_bf16']['bound'][1]}) {tag}")
-    del scan, member, live, cap_seed, cap_merge, cap_fused, cap_score
-    torch.cuda.empty_cache()
 
-    # -- one iteration's blocked-table row gather -----------------------------------
+
+def time_gather(index, n, dev, tag, time_ms):
+    """One iteration's blocked-table row gather: 8 rows a query of a
+    2048-query batch, at random among the graph's n nodes."""
     nbr_vecs, aux = index._routing_tables()
     rng = np.random.default_rng(1)
     rows = torch.from_numpy(rng.integers(0, n, size=BATCH * 8)).to(dev)
@@ -726,9 +777,320 @@ def hnsw_phase(corpus, queries, c_corpus, c_queries, flat_ids, dev, tag, time_ms
     row_bytes = nbr_vecs.shape[1] * DIM * 2 + aux.shape[1] * 2
     gbps = len(rows) * row_bytes / (ms * 1e-3) / 1e9
     print(f"blocked-table gather, one iteration: {len(rows)} rows of {row_bytes} bytes "
-          f"(W x d bf16 + the aux row) in {ms:.4f} ms: {len(rows) / (ms * 1e-3):.4g} rows/s, "
-          f"{gbps:.1f} GB/s = {gbps / (PEAK_BYTES / 1e9):.3f} of 3.35 TB/s {tag}")
-    del index, nbr_vecs, aux, rows
+          f"(W x d bf16 + the aux row, table of {nbr_vecs.shape[0]} rows) in {ms:.4f} ms: "
+          f"{len(rows) / (ms * 1e-3):.4g} rows/s, {gbps:.1f} GB/s = "
+          f"{gbps / (PEAK_BYTES / 1e9):.3f} of 3.35 TB/s {tag}")
+
+
+def sort_exchanges(rows):
+    """Compare-exchanges of the bitonic sort of next_pow2(rows) keys."""
+    c = 1 << (rows - 1).bit_length()
+    log_c = c.bit_length() - 1
+    return c // 2 * log_c * (log_c + 1) // 2
+
+
+def packed_fused_phase(index, queries, blocked, report, dev, tag, time_ms):
+    """Part of section 6 of the module docstring, on the 1M graph: the
+    packed table against the blocked pair, the packed and fused searches
+    against the blocked ones and the plain beam, K5 and the packed scoring
+    against their plain versions. `blocked` maps "seeded" / "classic" to
+    the blocked search's (ids, scores)."""
+    from comet_tpu_torch.ops import beam_kernel as bk
+
+    nbr_vecs, aux = index._routing_tables()
+    t0 = time.perf_counter()
+    with env_set(COMET_HNSW_PACKED="1"):
+        packed, none = index._routing_tables()
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    cap, w, d = nbr_vecs.shape
+    rows = slice(cap // 2, cap // 2 + (1 << 16))
+    if not (none is None and torch.equal(packed[rows, : w * d].view(-1, w, d), nbr_vecs[rows])
+            and torch.equal(packed[rows, w * d:], aux[rows])):
+        raise AssertionError("the packed table differs from the blocked pair")
+    print(f"packed table {tuple(packed.shape)} bf16 ({packed.numel() * 2 / 2**30:.2f} GiB, rows "
+          f"of {packed.shape[1] * 2} bytes) built in {t_pack:.3f} s; rows {rows.start}.."
+          f"{rows.stop - 1} equal to the blocked pair {tag}")
+    for switch in ("COMET_HNSW_PACKED", "COMET_HNSW_FUSE"):
+        for mode, seed in (("seeded", None), ("classic", "0")):
+            with env_set(**{switch: "1", "COMET_HNSW_SEED": seed}), \
+                    capture(bk, "fused_expand_merge", 2) as cap_k5, \
+                    capture(bk, "gather_score", 2) as cap_score:
+                got = hnsw_search_checked(index, f"{mode} {switch}=1", queries, rounds=ROUNDS)
+            want = blocked[mode]
+            if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+                raise AssertionError(f"{mode} search with {switch}=1 differs from the blocked one")
+            print(f"HNSW {mode} {switch}=1: ids and scores equal to the blocked split search and "
+                  f"to the plain beam; {got[3]:.1f} queries/s steady, first batch {got[2]:.3f} s "
+                  f"{tag}")
+            if (switch, mode) == ("COMET_HNSW_FUSE", "seeded"):
+                k5_args = cap_k5
+            if (switch, mode) == ("COMET_HNSW_PACKED", "seeded"):
+                score_args = cap_score
+    with uncounted():
+        check_k5_packed_scoring(k5_args, score_args, report, dev, tag, time_ms)
+
+
+def check_k5_packed_scoring(cap_k5, cap_score, report, dev, tag, time_ms):
+    """K5 and the packed scoring mode against their plain versions on a
+    real iteration's inputs (and K5 against the split pair's kernels), then
+    the packed scoring at an unaligned shape; timed beside the split pair."""
+    from comet_tpu_torch.ops import beam_kernel as bk
+
+    a, kw = cap_k5.args, cap_k5.kwargs
+    nodes, packed, qb, qn, bd, bs, be = [t.contiguous() for t in a]
+    ef, expand, stop = kw["ef"], kw["expand"], kw["stop"] or kw["ef"]
+    q_n, d = qb.shape
+    w = bk._table_width(packed, d)
+    got = bk._fused_expand_cuda(nodes, packed, qb, qn, bd, bs, be, ef, expand, stop)
+    want = bk._fused_expand_plain(nodes, packed, qb, qn, bd, bs, be, ef, expand, stop)
+
+    def split():
+        nd, ns, _ = bk._gather_score_cuda(qb, qn, packed, None, nodes, None, float("inf"), False)
+        return bk._merge_cuda(bd, bs, be, nd, ns, None, None, None, ef, expand * w, expand,
+                              False, 0, stop)[:4]
+
+    pair = split()
+    torch.cuda.synchronize()
+    for g, wv, sv in zip(got, want, pair):
+        if not (torch.equal(g, wv) and torch.equal(g, sv)):
+            raise AssertionError("K5 differs from its plain version or the split pair")
+    ms = time_ms(lambda: bk._fused_expand_cuda(nodes, packed, qb, qn, bd, bs, be, ef, expand,
+                                               stop))
+    pms = time_ms(lambda: bk._fused_expand_plain(nodes, packed, qb, qn, bd, bs, be, ef, expand,
+                                                 stop))
+    sms = time_ms(split)
+    live = int((nodes >= 0).sum())
+    row_len = packed.shape[1]
+    n_bytes = (live * row_len * 2 + nodes.numel() * 4 + qb.numel() * 2 + qn.numel() * 4
+               + q_n * ef * 12 * 2 + q_n * bk.MISC_ROWS * 4)
+    n_cmp = q_n * sort_exchanges(ef + expand * w)
+    report["fused_expand"] = dict(
+        err=0.0, ms=ms, plain_ms=pms, library_ms=None,
+        bound=bound(n_bytes, 2 * d * live * w, PEAK_BF16, n_cmp / PEAK_FP32 * 1e3))
+    print(f"K5 fused expand Q={q_n} ef={ef} E={expand} W={w} d={d} stop={stop} ({live} nodes "
+          f"expanded, rows of {row_len * 2} bytes), a seeded search's iteration 3: equal to "
+          f"plain and to the split pair; kernel {ms:.3f} ms, split pair (packed scoring + K4) "
+          f"{sms:.3f} ms, plain {pms:.3f} ms; bound {report['fused_expand']['bound'][0]:.4f} ms "
+          f"({report['fused_expand']['bound'][1]}; {n_bytes / 1e6:.1f} MB) {tag}")
+
+    a = cap_score.args
+    if a[3] is not None:
+        raise AssertionError("the packed search scored a blocked table")
+    got = bk._gather_score_cuda(*a)
+    want = bk._gather_score_plain(*a)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("the packed scoring differs from its plain version")
+    ms = time_ms(lambda: bk._gather_score_cuda(*a))
+    pms = time_ms(lambda: bk._gather_score_plain(*a))
+    qb, qn, packed, nodes = a[0], a[1], a[2], a[4]
+    live = int((nodes >= 0).sum())
+    n_bytes = (live * packed.shape[1] * 2 + nodes.numel() * 4 + qb.numel() * 2 + qn.numel() * 4
+               + nodes.numel() * w * 8)
+    report["gather_score_packed"] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
+                                         bound=bound(n_bytes, 2 * d * live * w, PEAK_BF16))
+    # an unaligned shape: W = 4, d = 16 rows of 152 bytes
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(4096, 16)).astype(np.float32)).to(dev)
+    adj = torch.from_numpy(rng.integers(-1, 4096, size=(4096, 4)).astype(np.int32)).to(dev)
+    small = bk.build_packed_table(adj, x, (x * x).sum(dim=1))
+    qs = torch.from_numpy(rng.normal(size=(512, 16)).astype(np.float32)).to(dev)
+    ua = (qs.to(torch.bfloat16), (qs * qs).sum(dim=1), small, None,
+          torch.from_numpy(rng.integers(-1, 4096, size=(512, 8)).astype(np.int32)).to(dev),
+          None, float("inf"), False)
+    got, want = bk._gather_score_cuda(*ua), bk._gather_score_plain(*ua)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("the packed scoring differs from its plain version on 152-byte rows")
+    print(f"packed scoring Q={nodes.shape[0]} E={nodes.shape[1]} W={w} ({live} nodes expanded), "
+          f"iteration 3 of a seeded search: equal to plain, and on 152-byte rows (W=4, d=16, "
+          f"{small.shape[0]} rows); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+          f"{report['gather_score_packed']['bound'][0]:.4f} ms "
+          f"({report['gather_score_packed']['bound'][1]}) {tag}")
+
+
+def insertion_phase(index, queries, extra, dev, tag, time_ms, profile):
+    """Part of section 7 of the module docstring: `extra` held-out rows
+    added to the 1M graph in BUILD_SUB_BATCH rounds, the in-place tables
+    against fresh builds, seeded / classic / fused searches on the grown
+    index against the plain beam with recall@K against its exact ids, and
+    one `add`."""
+    from comet_tpu_torch import VectorNode
+    from comet_tpu_torch.indexes import hnsw as hnsw_mod
+    from comet_tpu_torch.ops import beam_kernel as bk
+    from comet_tpu_torch.ops import fused_scan
+
+    n0, cap0 = index._store.n, index._store.capacity
+    sub = hnsw_mod.BUILD_SUB_BATCH
+    times = []
+    for lo in range(0, len(extra), sub):
+        rows = extra[lo: lo + sub]
+        row_ids = np.arange(n0 + 1 + lo, n0 + 1 + lo + len(rows))
+        t0 = time.perf_counter()
+        if profile and lo == sub:      # the second round: in place
+            profile_window(lambda: index.add_batch(rows, ids=row_ids))
+        else:
+            index.add_batch(rows, ids=row_ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    cap = index._store.capacity
+    steady = (len(extra) - sub) / sum(times[1:])
+    print(f"HNSW insertion of {len(extra)} held-out rows into the {n0}-row graph (efC "
+          f"{index.config.ef_construction}, {len(times)} rounds of {sub}): "
+          f"{len(extra) / sum(times):.1f} vectors/s over all rounds; the first round {times[0]:.3f} s (capacity {cap0} -> {cap}, "
+          f"device mirror and the resident tables {sorted(index._tables)} (True = packed) rebuilt "
+          f"at ndig {bk._aux_digits(cap)}); the other rounds {steady:.1f} vectors/s, in place "
+          f"(median round {statistics.median(times[1:]):.3f} s) {tag}")
+    vecs, sqn, valid = index._store.device_state()
+    adj = torch.from_numpy(index._adj0).to(dev)
+    if not torch.equal(index._dev_adj, adj):
+        raise AssertionError("the device adjacency differs from the host graph")
+    if sorted(index._tables) != [False, True]:
+        raise AssertionError(f"both routing tables should be resident: {sorted(index._tables)}")
+    for packed, (tab, aux) in index._tables.items():
+        if packed:
+            same = torch.equal(tab, bk.build_packed_table(adj, vecs, sqn))
+        else:
+            fresh = bk.build_blocked_tables(adj, vecs, sqn)
+            same = torch.equal(tab, fresh[0]) and torch.equal(aux, fresh[1])
+            del fresh
+        torch.cuda.empty_cache()
+        if not same:
+            raise AssertionError(f"the {'packed' if packed else 'blocked'} table updated in place "
+                                 f"differs from a fresh build")
+    print(f"the blocked and packed tables updated in place equal fresh builds on the final "
+          f"adjacency ({index._store.n} rows, capacity {cap})")
+    del adj
+    q = torch.from_numpy(queries).to(dev)
+    mask = torch.where(valid, sqn, torch.full_like(sqn, float("inf")))
+    true_ids = fused_scan.flat_topk_pipeline(q, vecs, mask, float("inf"), K)[1].cpu().numpy() + 1
+    del q, mask
+    torch.cuda.empty_cache()
+    new_hits = int((true_ids > n0).sum())
+    for name, envs in (("seeded", {}), ("classic", {"COMET_HNSW_SEED": "0"}),
+                       ("fused", {"COMET_HNSW_FUSE": "1"})):
+        with env_set(**envs):
+            ids_, _, first, qps = hnsw_search_checked(index, f"grown {name}", queries,
+                                                      rounds=ROUNDS)
+        rec = recall_at_k(ids_, true_ids)
+        print(f"HNSW grown index {name}: equal to the plain beam; recall@{K} {rec:.4f} against "
+              f"the exact ids of the {index._store.n}-row corpus ({new_hits} of its top-{K} "
+              f"entries are inserted rows, {int((ids_ > n0).sum())} returned); {qps:.1f} "
+              f"queries/s steady, first batch {first:.3f} s {tag}")
+        if rec < 0.80:
+            raise AssertionError(f"grown-index recall@{K} {rec:.4f} < 0.80")
+    v = extra[0] + 1.0
+    t0 = time.perf_counter()
+    index.add(VectorNode(n0 + len(extra) + 1, v))
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    got = index.search_batch(v[None, :], k=1)
+    if got[0][0, 0] != n0 + len(extra) + 1:
+        raise AssertionError("the node added by add() is not its own nearest neighbour")
+    print(f"HNSW add() of one node: {t_one * 1e3:.1f} ms (one insertion round, in place); the "
+          f"node is its own nearest neighbour {tag}")
+
+
+def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, time_ms,
+               profile):
+    """Sections 6 and 7 of the module docstring. Returns {"report": per-kernel
+    numbers of K3's bf16 mode, K4, the scoring kernel (both layouts) and
+    K5, "launches": the HNSW path's counts}."""
+    from comet_tpu_torch import Bitset, DistanceKind, HNSWIndex
+    from comet_tpu_torch.ops import beam_kernel as bk
+    from comet_tpu_torch.ops import ivf_sparse as sp
+    from comet_tpu_torch.ops.distance import bf16_dot
+
+    n = HNSW_N
+    ids = np.arange(1, n + 1, dtype=np.uint32)
+    report = {}
+    envs = env_set(COMET_HNSW_SEED=None, COMET_HNSW_PACKED=None, COMET_HNSW_FUSE=None)
+    envs.__enter__()
+
+    # -- the main path, every launch counted -------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    index = HNSWIndex(DIM, DistanceKind.L2, device="cuda")
+    index.add_batch(corpus[:n], ids=ids)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_launches = read_launches()
+    print(f"HNSW bulk build {n} x {DIM}, M=16: {t_build:.3f} s, {n / t_build:.1f} vectors/s, "
+          f"top level {index._max_level}; K2 launches {build_launches['fused_dist_select']}, "
+          f"K1 {build_launches['topk_cl']} {tag}")
+    with capture(bk, "beam_merge_step", 2) as cap_merge, \
+            capture(bk, "gather_score", 2) as cap_score, \
+            capture(sp, "_sparse_scan", 0) as cap_seed:
+        s_ids, s_scores, s_first, s_qps = hnsw_search_checked(index, "seeded", queries,
+                                                              rounds=ROUNDS)
+    ov, starved = index.first_seed_health
+    s_recall = recall_at_k(s_ids, flat_ids) if n == N else None
+    print(f"HNSW seeded k={K} ef={EF_SEARCH}: ids and scores equal to the plain beam; recall@{K} "
+          f"{s_recall if s_recall is None else f'{s_recall:.4f}'}; {s_qps:.1f} queries/s steady, "
+          f"first batch {s_first:.3f} s (seed tables included); the first batch's seed scan "
+          f"dropped {ov} chunks and left {starved} of {BATCH} queries probe-starved {tag}")
+    with env_set(COMET_HNSW_SEED="0"):
+        c_ids, c_scores, c_first, c_qps = hnsw_search_checked(index, "classic", queries,
+                                                              rounds=ROUNDS)
+    c_recall = recall_at_k(c_ids, flat_ids) if n == N else None
+    print(f"HNSW classic (COMET_HNSW_SEED=0) k={K} ef={EF_SEARCH}: equal to the plain beam; "
+          f"recall@{K} {c_recall if c_recall is None else f'{c_recall:.4f}'}; {c_qps:.1f} "
+          f"queries/s steady, first batch {c_first:.3f} s {tag}")
+    if c_recall is not None and c_recall < 0.80:
+        raise AssertionError(f"classic HNSW recall@{K} {c_recall:.4f} < 0.80")
+
+    # -- the packed table and K5 -------------------------------------------------
+    packed_fused_phase(index, queries, {"seeded": (s_ids, s_scores), "classic": (c_ids, c_scores)},
+                       report, dev, tag, time_ms)
+
+    allowed = (ids % 3) != 0
+    thr = float(np.median(s_scores[:, 9]))
+    with capture(bk, "beam_merge_step", 2) as cap_fused:
+        f_ids, _, _, _ = hnsw_search_checked(index, "filtered + threshold", queries,
+                                             threshold=thr,
+                                             document_ids=Bitset.from_array(ids[allowed]))
+    hits = f_ids[f_ids != 0xFFFFFFFF]
+    if not 0 < len(hits) < f_ids.size or (hits % 3 == 0).any():
+        raise AssertionError("the HNSW filter or threshold had no effect")
+    print(f"HNSW with doc-ID filter and threshold {thr:.3f}: {len(hits)} hits, equal to the "
+          f"plain beam")
+    with uncounted():
+        check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_seed, report, tag, time_ms)
+    del cap_merge, cap_fused, cap_score, cap_seed
+    torch.cuda.empty_cache()
+
+    # -- incremental insertion ---------------------------------------------------------
+    insertion_phase(index, queries, extra, dev, tag, time_ms, profile)
+
+    removed = ids[::100]
+    for i in removed.tolist():
+        index.remove(i)
+    r_ids, _, r_first, _ = hnsw_search_checked(index, "after remove", queries)
+    if np.isin(r_ids, removed).any():
+        raise AssertionError("a removed id came back")
+    print(f"HNSW after removing {len(removed)} ids of the grown index: equal to the plain beam, "
+          f"no removed id returned; first batch {r_first:.3f} s (seed mask refresh included)")
+    if profile:
+        profile_window(lambda: [index.search_batch(queries, k=K, ef_search=EF_SEARCH)
+                                for _ in range(2)])
+    time_gather(index, n, dev, tag, time_ms)
+    del index
+    torch.cuda.empty_cache()
+    c_index = HNSWIndex(DIM, DistanceKind.COSINE, device="cuda")
+    c_index.add_batch(c_corpus[:HNSW_COSINE_N], ids=ids[:HNSW_COSINE_N])
+    cos_ids, _, _, _ = hnsw_search_checked(c_index, "cosine", c_queries)
+    if (cos_ids == 0xFFFFFFFF).any():
+        raise AssertionError("the cosine HNSW search left results empty")
+    print(f"HNSW cosine {HNSW_COSINE_N} x {DIM}: equal to the plain beam")
+    launches = read_launches()
+    print(f"kernel launches of the HNSW path (2 bulk builds, the insertion rounds and one add, "
+          f"every search_batch call above{', profile included' if profile else ''}): {launches}")
+    for key in ("topk_cl", "fused_dist_select", "sparse_scan_bf16", "beam_merge",
+                "beam_merge_fused", "gather_score", "gather_score_packed", "fused_expand"):
+        if launches[key] <= 0:
+            raise AssertionError(f"a kernel of the HNSW path never launched: {launches}")
+    del c_index
     torch.cuda.empty_cache()
 
     # -- seed and in-loop distances on Gaussian data ----------------------------------
@@ -772,9 +1134,9 @@ def hnsw_phase(corpus, queries, c_corpus, c_queries, flat_ids, dev, tag, time_ms
           f"bit-equal to in-loop distances (scoring kernel) and to the entry-start bf16 dot")
     del g_index, nbr_vecs, aux
     torch.cuda.empty_cache()
-    if env_seed is not None:
-        os.environ["COMET_HNSW_SEED"] = env_seed
+    envs.__exit__()
     return {"report": report, "launches": launches}
+
 
 
 def sortnet_rows_plain(gmin, kb):
@@ -787,7 +1149,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace two steady IVF batches at nprobe 10 with torch.profiler")
+                    help="trace two steady IVF and HNSW batches and one insertion round "
+                         "with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -833,9 +1196,9 @@ def main():
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    corpus, queries = sift_like(rng, N, BATCH, DIM)
-    print(f"data: {N} x {DIM} SIFT-range integer corpus, {BATCH} queries "
-          f"({time.perf_counter() - t0:.2f} s on the host)")
+    corpus, queries, extra = sift_like(rng, N, BATCH, DIM, N_INSERT)
+    print(f"data: {N} x {DIM} SIFT-range integer corpus, {BATCH} queries, {N_INSERT} held-out "
+          f"rows ({time.perf_counter() - t0:.2f} s on the host)")
 
     # -- 2. kernels against their plain versions -----------------------------
     report = {}
@@ -1018,31 +1381,38 @@ def main():
     del c_index, xc, qc
     torch.cuda.empty_cache()
 
-    # -- 4. the IVF path ----------------------------------------------------------
+    # -- 4. flat bf16 storage ------------------------------------------------------
+    fb = flat_bf16_phase(corpus, queries, got_ids, got_scores, dev, tag, time_ms)
+
+    # -- 5. the IVF path ----------------------------------------------------------
     ivf = ivf_phase(corpus, queries, c_corpus, c_queries, got_ids, got_scores,
                     dev, tag, time_ms, args.profile)
 
-    # -- 5. the HNSW path ----------------------------------------------------------
-    hnsw = hnsw_phase(corpus, queries, c_corpus, c_queries, got_ids, dev, tag, time_ms,
+    # -- 6-7. the HNSW path ----------------------------------------------------------
+    hnsw = hnsw_phase(corpus, queries, extra, c_corpus, c_queries, got_ids, dev, tag, time_ms,
                       args.profile)
 
     def entry(name, source, replaces, key, n_launches):
-        r = report.get(key) or ivf["report"].get(key) or hnsw["report"][key]
+        r = (report.get(key) or fb["report"].get(key) or ivf["report"].get(key)
+             or hnsw["report"][key])
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launches, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
 
-    il, hl = ivf["launches"], hnsw["launches"]
+    il, hl, fl = ivf["launches"], hnsw["launches"], fb["launches"]
     kernels = [
         entry("topk_cl", "comet_tpu_torch/csrc/topk.cu", "comet_tpu/ops/sortnet.py:142",
-              "topk_cl", launches["topk_cl"] + il["topk_cl"] + hl["topk_cl"]),
+              "topk_cl", launches["topk_cl"] + fl["topk_cl"] + il["topk_cl"] + hl["topk_cl"]),
         entry("fused_dist_select", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:63", "fused_dist_select",
               launches["fused_dist_select"] + hl["fused_dist_select"]),
         entry("fused_dist_select_nprobe", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:100", "fused_dist_select_nprobe",
               il["fused_dist_select_nprobe"]),
+        entry("fused_dist_select_bf16", "comet_tpu_torch/csrc/fused_scan.cu",
+              "comet_tpu/ops/pallas_scan.py:82", "fused_dist_select_bf16",
+              fl["fused_dist_select_bf16"]),
         entry("sparse_scan", "comet_tpu_torch/csrc/ivf_sparse.cu",
               "comet_tpu/ops/ivf_sparse.py:215", "sparse_scan", il["sparse_scan"]),
         entry("sparse_scan_bf16", "comet_tpu_torch/csrc/ivf_sparse.cu",
@@ -1053,6 +1423,11 @@ def main():
               "comet_tpu/ops/beam_kernel.py:391", "beam_merge_fused", hl["beam_merge_fused"]),
         entry("gather_score", "comet_tpu_torch/csrc/gather_score.cu",
               "comet_tpu/ops/beam_kernel.py:795", "gather_score", hl["gather_score"]),
+        entry("gather_score_packed", "comet_tpu_torch/csrc/gather_score.cu",
+              "comet_tpu/ops/beam_kernel.py:811", "gather_score_packed",
+              hl["gather_score_packed"]),
+        entry("fused_expand", "comet_tpu_torch/csrc/fused_expand.cu",
+              "comet_tpu/ops/beam_kernel.py:582", "fused_expand", hl["fused_expand"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,11 @@
 // K2: fused exact distance scan with masking and per-group minima.
 //
 // Replaces comet_tpu/ops/pallas_scan.py:_kernel, the Pallas kernel launched
-// by fused_dist_select, float32 corpus, in both of its modes: the flat mode
-// and the nprobe (IVF) mode.
+// by fused_dist_select, in its three forms: the flat mode and the nprobe
+// (IVF) mode over a float32 corpus, and the flat mode's bf16 operand
+// (:82-93, flat `storage="bfloat16"`), where the queries are rounded to
+// bf16 for the product, the products accumulate in float32 and qn stays
+// the norm of the float32 queries (:187).
 //
 // For every query q and corpus row n it computes ip = q . x_n in float32
 // with FMA on the CUDA cores (no TF32: a lower-precision product flips
@@ -26,6 +29,14 @@
 // still computes every product, adding one 4-byte cluster id per row and
 // one bit test per distance, and so takes the flat mode's time.
 //
+// bf16 operand: the same tile with T = bf16_t. scan_tile.cuh widens bf16
+// to float32 as it stages the slices, so each distance is the `dot_fma`
+// chain from 0 in ascending depth over exact bf16 products, the order of
+// ops/distance.bf16_dot, the plain version's. Bytes halve on the corpus;
+// the CUDA-core FMA rate bounds it as in float32 (the TPU's bf16 MXU pass
+// has no counterpart here: a tensor-core product would sum in another
+// order).
+//
 // Design: a classic register-tiled product (scan_tile.cuh). A block owns
 // 64 queries x 128 corpus rows (exactly one selection group), stages
 // 32-wide slices of the depth through shared memory, and each of its 256
@@ -45,10 +56,10 @@
 
 #include "scan_tile.cuh"
 
-template <int MODE>
+template <int MODE, typename T>
 __global__ void __launch_bounds__(SCAN_THREADS) fused_scan_kernel(
-    const float* __restrict__ q, const float* __restrict__ qn,
-    const float* __restrict__ x, const float* __restrict__ mask, float thr,
+    const T* __restrict__ q, const float* __restrict__ qn,
+    const T* __restrict__ x, const float* __restrict__ mask, float thr,
     int Q, int N, int d, int cosine, const int* __restrict__ assign,
     const unsigned* __restrict__ words, int n_words,
     float* __restrict__ dist, float* __restrict__ gmin)
@@ -58,7 +69,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) fused_scan_kernel(
     const int g = blockIdx.x / n_qblocks;
     const int q0 = qb * SCAN_BM;
     const long long n0 = (long long)g * SCAN_BN;
-    scan_tile<MODE>(
+    scan_tile<MODE, T>(
         q + (long long)q0 * d, qn + q0, min(SCAN_BM, Q - q0),
         x + n0 * d, mask + n0, d, thr, cosine,
         MODE == SCAN_ROW_BITS ? assign + n0 : nullptr,
@@ -69,28 +80,35 @@ __global__ void __launch_bounds__(SCAN_THREADS) fused_scan_kernel(
 }
 
 // assign == NULL: flat mode; otherwise nprobe mode with `words`, n_words
-// 32-bit words of probe bits per query.
+// 32-bit words of probe bits per query. q [Q, d] and x [N, d] are float32,
+// or bfloat16 when bf16 != 0 (flat mode only).
 extern "C" int comet_fused_scan(
-    const float* q, const float* qn, const float* x, const float* mask,
-    float thr, int Q, int N, int d, int cosine, const int* assign,
+    const void* q, const float* qn, const void* x, const float* mask,
+    float thr, int Q, int N, int d, int cosine, int bf16, const int* assign,
     const unsigned* words, int n_words, float* dist, float* gmin,
     void* stream)
 {
     if (Q < 1 || N < SCAN_BN || N % SCAN_BN != 0 || d < 1) {
         return (int)cudaErrorInvalidValue;
     }
-    if (assign != nullptr && (words == nullptr || n_words < 1)) {
+    if (assign != nullptr && (words == nullptr || n_words < 1 || bf16)) {
         return (int)cudaErrorInvalidValue;
     }
     const long long blocks = (long long)((Q + SCAN_BM - 1) / SCAN_BM) * (N / SCAN_BN);
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (assign == nullptr) {
-        fused_scan_kernel<SCAN_ALL><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(
-            q, qn, x, mask, thr, Q, N, d, cosine, nullptr, nullptr, 0, dist, gmin);
+    if (bf16) {
+        fused_scan_kernel<SCAN_ALL, bf16_t><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(
+            (const bf16_t*)q, qn, (const bf16_t*)x, mask, thr, Q, N, d, cosine, nullptr,
+            nullptr, 0, dist, gmin);
+    } else if (assign == nullptr) {
+        fused_scan_kernel<SCAN_ALL, float><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(
+            (const float*)q, qn, (const float*)x, mask, thr, Q, N, d, cosine, nullptr,
+            nullptr, 0, dist, gmin);
     } else {
-        fused_scan_kernel<SCAN_ROW_BITS><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(
-            q, qn, x, mask, thr, Q, N, d, cosine, assign, words, n_words, dist, gmin);
+        fused_scan_kernel<SCAN_ROW_BITS, float><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(
+            (const float*)q, qn, (const float*)x, mask, thr, Q, N, d, cosine, assign, words,
+            n_words, dist, gmin);
     }
     return (int)cudaGetLastError();
 }

@@ -85,7 +85,9 @@ class SlotStore:
 
     Slots [0, n) are occupied (possibly soft-deleted); [n, capacity) are free
     padding. `valid[slot]` False means deleted-or-padding. The device mirror
-    is rebuilt only when `version` changes.
+    follows `version`: an add or a remove writes its rows into a current
+    mirror in place; a flush, a load or a capacity growth leaves it to be
+    uploaded whole at the next `device_state`.
     """
 
     def __init__(self, dim: int, capacity: int = MIN_CAPACITY, *, device: torch.device):
@@ -131,6 +133,7 @@ class SlotStore:
             self.id_to_slot[i] = s
         self.n += b
         self.version += 1
+        self._sync_rows(slots)
         return slots
 
     def load(self, ids: np.ndarray, vectors: np.ndarray, valid: np.ndarray, n: int) -> None:
@@ -169,6 +172,7 @@ class SlotStore:
         self.valid[slot] = False
         self.deleted += 1
         self.version += 1
+        self._sync_rows(np.array([slot]))
 
     def flush(self) -> None:
         """Hard-delete: compact live slots to the front (flat_index.go:266-299)."""
@@ -200,9 +204,24 @@ class SlotStore:
     def live_count(self) -> int:
         return self.n - self.deleted
 
+    def _sync_rows(self, slots: np.ndarray) -> None:
+        """After one mutation of `slots`: write their rows (vector, squared
+        norm, validity) into the mirror in place when it was current before
+        it and the capacity is unchanged, and keep it current."""
+        if (self._dev is None or self._dev_version != self.version - 1
+                or self._dev[0].shape[0] != self.capacity):
+            return
+        vecs, sqnorms, valid = self._dev
+        rows = torch.from_numpy(np.asarray(slots, dtype=np.int64)).to(self.device)
+        v = torch.from_numpy(self.vectors[slots]).to(self.device)
+        vecs[rows] = v
+        sqnorms[rows] = (v * v).sum(dim=1)
+        valid[rows] = torch.from_numpy(self.valid[slots]).to(self.device)
+        self._dev_version = self.version
+
     def device_state(self):
         """Device mirror (vectors [cap, d], sqnorms [cap], valid [cap]),
-        rebuilt when the store changed since the last call."""
+        uploaded whole when it is not current."""
         if self._dev_version != self.version:
             self._dev = None  # free the old mirror before the new upload
             vecs = torch.from_numpy(self.vectors).to(self.device, copy=True)

@@ -1,15 +1,22 @@
 """Flat (brute-force exact) vector index.
 
-Counterpart of comet_tpu/indexes/flat.py with float32 storage: exact kNN
-with soft delete + flush compaction, threshold, doc-ID pre-filter,
-multi-query aggregation, autocut, reranker, and the CFLT v2 binary format
-(byte-compatible with the reference package).
+Counterpart of comet_tpu/indexes/flat.py with float32 and bfloat16
+storage: exact kNN with soft delete + flush compaction, threshold, doc-ID
+pre-filter, multi-query aggregation, autocut, reranker, and the CFLT v2
+binary format (byte-compatible with the reference package).
 
 Search runs `ops.fused_scan.flat_topk_pipeline` over the device mirror of
 the slot store: on a CUDA index through the K2 distance kernel and the K1
 select kernel, on a CPU index through their plain PyTorch versions. The
 doc-ID filter travels as packed 32-bit words and is expanded against the
 slot ids on the device.
+
+`storage="bfloat16"` scans a bf16 copy of the corpus, cast from the float32
+mirror once per store version, with K2's bf16 operand (queries rounded to
+bf16 for the product, float32 query norms and corpus squared norms);
+`rerank=True` over-fetches rerank_factor * k candidates and re-scores
+them exactly in float32 on the host. The host copy stays float32, so
+serialization and flush are lossless.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from comet_tpu_torch.core.limiter import sanitize_k
 from comet_tpu_torch.core.node import VectorNode, reserve_node_ids
 from comet_tpu_torch.indexes.base import (
+    INVALID_ID,
     BaseVectorIndex,
     VectorSearchBuilder,
     collect_device_handle,
@@ -30,6 +38,7 @@ from comet_tpu_torch.indexes.base import (
 from comet_tpu_torch.io import serial
 from comet_tpu_torch.ops.distance import preprocess
 from comet_tpu_torch.ops.fused_scan import flat_topk_pipeline
+from comet_tpu_torch.ops.topk import IDX_SENTINEL
 from comet_tpu_torch.types import DistanceKind, InvalidConfigError, VectorIndexKind
 
 MAGIC = b"CFLT"
@@ -39,8 +48,10 @@ VERSION = 2  # v2: CRC32 payload trailer (v1 readable, no trailer check)
 class FlatIndex(BaseVectorIndex):
     """Exact brute-force kNN index (reference: flat_index.go:65-94).
 
-    `device` is "cuda" (the default) or "cpu". Only `storage="float32"` is
-    ported; the reduced-precision storages raise.
+    `device` is "cuda" (the default) or "cpu". `storage` is "float32"
+    (exact, the reference's tie order) or "bfloat16" (module docstring);
+    "float16" and "int8" are not ported yet and raise. `rerank=True` needs
+    lossy storage.
     """
 
     def __init__(
@@ -48,16 +59,28 @@ class FlatIndex(BaseVectorIndex):
         dim: int,
         distance_kind: DistanceKind = DistanceKind.L2,
         storage: str = "float32",
+        rerank: bool = False,
+        rerank_factor: int = 4,
         *,
         device="cuda",
     ):
-        if storage != "float32":
+        if storage not in ("float32", "bfloat16", "float16", "int8"):
             raise InvalidConfigError(
-                f"flat storage {storage!r} is not available in comet_tpu_torch: "
-                "only float32 is ported (ROADMAP.md, Queue 1: bf16/f16/int8 "
-                "flat storage)"
-            )
+                f"unsupported flat storage dtype: {storage!r} "
+                "(use float32, bfloat16, float16, or int8)")
+        if storage in ("float16", "int8"):
+            raise InvalidConfigError(
+                f"flat storage {storage!r} is not ported to comet_tpu_torch yet "
+                "(ROADMAP.md, Queue 1: f16/int8 flat storage)")
+        if rerank and storage == "float32":
+            raise InvalidConfigError(
+                "rerank=True needs lossy storage (the float32 scan is exact)")
         super().__init__(dim, distance_kind, device)
+        self._storage = storage
+        self._rerank = bool(rerank)
+        self._rerank_factor = max(int(rerank_factor), 2)
+        self._dev_cast = None          # the bf16 corpus, for one store version
+        self._dev_cast_version = -1
 
     @classmethod
     def load_reference_state(
@@ -69,12 +92,14 @@ class FlatIndex(BaseVectorIndex):
         distance_kind: DistanceKind = DistanceKind.L2,
         *,
         device="cuda",
+        **kwargs,
     ) -> "FlatIndex":
         """An index holding the state of a comet_tpu slot store: its host
         arrays `ids`, `vectors` (already preprocessed for the metric),
-        `valid` and `n`, soft-deleted slots included."""
+        `valid` and `n`, soft-deleted slots included; `kwargs` are the
+        constructor's storage options."""
         vectors = np.asarray(vectors, dtype=np.float32)
-        idx = cls(vectors.shape[1], distance_kind, device=device)
+        idx = cls(vectors.shape[1], distance_kind, device=device, **kwargs)
         idx._store.load(ids, vectors, valid, n)
         return idx
 
@@ -125,6 +150,18 @@ class FlatIndex(BaseVectorIndex):
 
     # -- search ---------------------------------------------------------------
 
+    def _device_corpus(self) -> torch.Tensor:
+        """The corpus the scan reads: the float32 mirror, or its bf16 copy
+        cast once per store version."""
+        vecs = self._store.device_state()[0]
+        if self._storage == "float32":
+            return vecs
+        if self._dev_cast_version != self._store.version:
+            self._dev_cast = None      # free the old copy before the new one
+            self._dev_cast = vecs.to(torch.bfloat16)
+            self._dev_cast_version = self._store.version
+        return self._dev_cast
+
     def _search_launch(self, queries: np.ndarray, builder: VectorSearchBuilder):
         """Enqueue the search; the handle holds device tensors."""
         store = self._store
@@ -132,21 +169,55 @@ class FlatIndex(BaseVectorIndex):
         if n_slots == 0:
             return ("empty", queries.shape[0])
         k_eff = sanitize_k(builder._k, n_slots)
+        k_want = min(k_eff * self._rerank_factor, n_slots) if self._rerank else k_eff
         kind = self._distance_kind
         cosine = kind == DistanceKind.COSINE
         thr = threshold_scalar(builder._threshold)
         # the pipeline works on squared distances for L2
         thr_k = thr * thr if kind == DistanceKind.L2 else thr
 
-        q = torch.as_tensor(preprocess(queries, kind), device=self._device)
+        qprep = preprocess(queries, kind)
+        q = torch.as_tensor(qprep, device=self._device)
         s, i = flat_topk_pipeline(
-            q, store.device_state()[0], self._slot_mask(builder), thr_k, k_eff,
+            q, self._device_corpus(), self._slot_mask(builder), thr_k, k_want,
             cosine=cosine, sqrt_out=kind == DistanceKind.L2,
         )
+        if self._rerank:
+            return ("rerank", i, store.ids, qprep, k_eff, builder._threshold)
         return ("dev", s if builder._wire_scores else None, i, store.ids)
 
     def _search_collect(self, handle):
+        if handle[0] == "rerank":
+            return self._collect_rerank(*handle[1:])
         return collect_device_handle(handle)
+
+    def _collect_rerank(self, slots_dev, ids_snap, qprep, k_eff, threshold):
+        """Exact float32 refinement of a lossy scan's candidates (reference
+        _collect_rerank): the rerank_factor * k candidates are re-scored from
+        the host float32 vectors, the metric-space threshold is applied
+        again, and the (score, slot)-ascending top k_eff is kept."""
+        slots = slots_dev.cpu().numpy().astype(np.int64)
+        hit = slots != IDX_SENTINEL
+        vecs = self._store.vectors[np.where(hit, slots, 0)]        # [Q, kc, d]
+        ip = np.einsum("qd,qcd->qc", qprep, vecs, optimize=True)
+        if self._distance_kind == DistanceKind.COSINE:
+            exact = 1.0 - np.clip(ip, -1.0, 1.0)
+        else:
+            xn = np.einsum("qcd,qcd->qc", vecs, vecs, optimize=True)
+            qn = np.einsum("qd,qd->q", qprep, qprep)[:, None]
+            exact = np.maximum(qn + xn - 2.0 * ip, 0.0)
+            if self._distance_kind == DistanceKind.L2:
+                exact = np.sqrt(exact)
+        thr = threshold_scalar(threshold)
+        exact = np.where(hit & (exact <= thr), exact, np.inf).astype(np.float32)
+        slots = np.where(np.isfinite(exact), slots, IDX_SENTINEL)
+        slot_key = np.where(slots == IDX_SENTINEL, np.iinfo(np.int64).max, slots)
+        order = np.lexsort((slot_key, exact), axis=1)[:, :k_eff]
+        exact = np.take_along_axis(exact, order, axis=1)
+        slots = np.take_along_axis(slots, order, axis=1)
+        hit = slots != IDX_SENTINEL
+        ids = np.where(hit, ids_snap[np.where(hit, slots, 0)], INVALID_ID)
+        return ids.astype(np.uint32), exact
 
     # -- serialization ----------------------------------------------------------
 
@@ -190,5 +261,7 @@ class FlatIndex(BaseVectorIndex):
             raise serial.SerializationError("corrupt flat index payload")
         with self._lock:
             self._store = type(self._store)(dim, capacity=max(n, 1), device=self._device)
+            # the new store restarts its version at 0: drop the old bf16 copy
+            self._dev_cast, self._dev_cast_version = None, -1
             if n:
                 self._store.add_batch(ids.astype(np.uint32), vectors.astype(np.float32))

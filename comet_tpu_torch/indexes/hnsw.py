@@ -1,4 +1,5 @@
-"""HNSW vector index: bulk build and batched beam search.
+"""HNSW vector index: bulk build, incremental insertion and batched beam
+search.
 
 Counterpart of comet_tpu/indexes/hnsw.py (capability parity with the Go
 reference's HNSWIndex, hnsw_index.go and hnsw_index_search.go): geometric
@@ -8,18 +9,29 @@ entry-point repair, the CHNW v2 format (byte-identical to the reference
 package's).
 
 - Build: an `add_batch` of at least BULK_BUILD_MIN vectors into an empty
-  index takes the staged exact-kNN bulk build (ops/graph_build.py). The
-  incremental insertion rounds are not ported yet: any other `add_batch`
-  raises InvalidConfigError (ROADMAP.md, the next HNSW slice).
-- Search: a lockstep beam over neighbourhood-blocked bf16 routing tables
-  (ops/beam_kernel.py): in-loop scoring, the merge step K4, an exact
-  float32 re-score at the end. Doc-ID filters, thresholds and soft deletes
-  gate result admission (the fused result set of K4) while every node
-  still routes. At n >= SEED_MIN_N (or COMET_HNSW_SEED=1) the beam starts
-  from a cluster-probe seed scan (ops/ivf_sparse.py, K3 in bf16 mode) and
-  stops on the k-window bound; otherwise from the exact nearest upper-layer
-  member. On a CUDA index every kernel of the path launches on the card,
-  on a CPU index the plain versions run; nothing falls back.
+  index takes the staged exact-kNN bulk build (ops/graph_build.py). Every
+  other add, `add` included, runs insertion rounds of BUILD_SUB_BATCH
+  vectors: a host greedy descent through the upper layers, the graph beam
+  (ops/graph.py, E = GRAPH_EXPAND) at efConstruction for each new node's
+  candidate pool plus the exact candidates within the round, the nearest M
+  as forward edges, batched reverse edges with pruning, upper-layer links
+  and entry-point promotion. Each round then writes the touched adjacency
+  rows into the device adjacency and the resident routing tables in place;
+  only a capacity growth or a replaced graph (flush, load) rebuilds them.
+- Search: a lockstep beam over bf16 routing tables (ops/beam_kernel.py),
+  blocked by default, packed with COMET_HNSW_PACKED=1; in-loop scoring,
+  the merge step K4, an exact float32 re-score at the end, and with
+  COMET_HNSW_FUSE=1 (which implies the packed table) the fused expand
+  kernel K5 for unfiltered searches. Doc-ID filters, thresholds and soft
+  deletes gate result admission (the fused result set of K4) while every
+  node still routes. At n >= SEED_MIN_N (or COMET_HNSW_SEED=1) the beam
+  starts from a cluster-probe seed scan (ops/ivf_sparse.py, K3 in bf16
+  mode) and stops on the k-window bound; otherwise from the exact nearest
+  upper-layer member. A graph whose routing table would pass
+  BLOCKED_TABLE_BYTES_MAX searches with the graph beam instead, in chunks
+  of GRAPH_QUERY_CHUNK queries from a host descent, as the reference does.
+  On a CUDA index every kernel of the path launches on the card, on a CPU
+  index the plain versions run; nothing falls back.
 
 The reference's query padding is kept, and is part of the result: a batch
 is padded with zero rows to a power of two, cut into chunks of
@@ -46,11 +58,13 @@ from comet_tpu_torch.indexes.base import (
     BaseVectorIndex,
     VectorSearchBuilder,
     next_pow2,
+    threshold_scalar,
 )
 from comet_tpu_torch.io import serial
 from comet_tpu_torch.ops import beam_kernel as bk
 from comet_tpu_torch.ops import ivf_sparse as sp
 from comet_tpu_torch.ops.distance import bf16_round, preprocess
+from comet_tpu_torch.ops.graph import beam_search_layer0, scatter_graph_update
 from comet_tpu_torch.ops.graph_build import BulkGraphBuilder
 from comet_tpu_torch.ops.kmeans import find_nearest_centroid, kmeans
 from comet_tpu_torch.ops.topk import IDX_SENTINEL
@@ -60,12 +74,23 @@ MAGIC = b"CHNW"
 VERSION = 2  # v2: CRC32 payload trailer (v1 readable, no trailer check)
 
 MAX_LEVEL = 16            # hnsw_index.go:474-484 cap
-SEARCH_EXPAND = 8         # beam nodes expanded per iteration
-SEARCH_QUERY_CHUNK = 2048  # queries per beam launch
-# The blocked routing table (cap x 2M x d bf16) may take at most half of an
-# 80 GB H100: the other half holds the corpus, the seed tables and the
-# search and build transients. 1M x 32 x 128 is 8 GiB; the cap is reached
-# near 5M rows at d = 128.
+# The routing-table beam (ops/beam_kernel.py): nodes expanded per
+# iteration and queries per launch (the reference's PALLAS_EXPAND and
+# PALLAS_QUERY_CHUNK).
+BEAM_EXPAND = 8
+SEARCH_QUERY_CHUNK = 2048
+# The graph beam (ops/graph.py) of insertion and of searches without a
+# routing table: nodes expanded per iteration and queries per search chunk
+# (the reference's SEARCH_EXPAND = BUILD_EXPAND and HNSW_QUERY_CHUNK).
+GRAPH_EXPAND = 1
+GRAPH_QUERY_CHUNK = 256
+# New vectors per insertion round.
+BUILD_SUB_BATCH = 512
+# A routing table (blocked: cap x 2M x d bf16; packed: cap x 2M (d + 1 +
+# ndig) bf16) may take at most half of an 80 GB H100: the other half holds
+# the corpus, the seed tables and the search and build transients. 1M x 32
+# x 128 is 8 GiB; the cap is reached near 5M rows at d = 128. A larger
+# graph searches with the graph beam.
 BLOCKED_TABLE_BYTES_MAX = 40 << 30
 # Seeded beam: smaller corpora start from the entry point.
 SEED_MIN_N = 1 << 15
@@ -78,15 +103,19 @@ SEED_REBUILD_FRAC = 0.125
 # bulk build.
 BULK_BUILD_MIN = 4096
 
-_NEXT_SLICE = "ROADMAP.md, Queue 1: the next HNSW slice"
+
+def _use_packed_table() -> bool:
+    """COMET_HNSW_PACKED=1 selects the packed routing table (one row per
+    node: the neighbour vectors and the aux planes), with the blocked
+    pair's results; implied by COMET_HNSW_FUSE."""
+    return os.environ.get("COMET_HNSW_PACKED", "0") == "1" or _use_fused_beam()
 
 
-def _check_unported_env() -> None:
-    for var, what in (("COMET_HNSW_PACKED", "the packed routing table"),
-                      ("COMET_HNSW_FUSE", "the fused expand kernel (K5)")):
-        if os.environ.get(var, "0") == "1":
-            raise InvalidConfigError(
-                f"{var}=1: {what} is not ported to comet_tpu_torch yet ({_NEXT_SLICE})")
+def _use_fused_beam() -> bool:
+    """COMET_HNSW_FUSE=1 runs each iteration of an unfiltered search as one
+    launch of K5 over the packed table; filtered, thresholded and
+    soft-deleted searches keep the split path."""
+    return os.environ.get("COMET_HNSW_FUSE", "0") == "1"
 
 
 def pad_queries(qarr: np.ndarray) -> tuple[np.ndarray, int]:
@@ -143,15 +172,19 @@ class HNSWIndex(BaseVectorIndex):
             raise InvalidConfigError("efConstruction must be positive")
         cap = self._store.capacity
         self._levels = np.full(cap, -1, dtype=np.int32)
+        self._sqn0 = np.zeros(cap, dtype=np.float32)   # host squared norms
         self._adj0 = np.full((cap, 2 * self._cfg.m), -1, dtype=np.int32)
         self._upper: dict[int, np.ndarray] = {}
         self._entry_slot = -1
         self._max_level = -1
         self._rng = np.random.default_rng(seed)
         self._graph_version = 0
-        # routing tables (nbr_vecs, aux), for one (graph, store) version
-        self._tables = None
-        self._tables_key = None
+        # device state of the graph, current at (graph version, capacity)
+        # _dev_key: the layer-0 adjacency and the resident routing tables,
+        # {packed: (nbr_vecs, aux or None)}
+        self._dev_adj = None
+        self._tables: dict[bool, tuple] = {}
+        self._dev_key = None
         # level >= 1 member tables for the entry choice
         self._dev_l1 = None
         self._dev_l1_version = -1
@@ -206,6 +239,8 @@ class HNSWIndex(BaseVectorIndex):
         m = idx._cfg.m
         idx._levels = np.full(cap, -1, dtype=np.int32)
         idx._levels[:n] = np.asarray(levels)[:n]
+        idx._sqn0 = np.zeros(cap, dtype=np.float32)
+        idx._sqn0[:n] = np.einsum("nd,nd->n", vectors[:n], vectors[:n])
         idx._adj0 = np.full((cap, 2 * m), -1, dtype=np.int32)
         idx._adj0[:n] = np.asarray(adj0)[:n]
         for lvl, arr in upper.items():
@@ -271,6 +306,9 @@ class HNSWIndex(BaseVectorIndex):
         levels = np.full(cap, -1, dtype=np.int32)
         levels[: len(self._levels)] = self._levels
         self._levels = levels
+        sqn = np.zeros(cap, dtype=np.float32)
+        sqn[: len(self._sqn0)] = self._sqn0
+        self._sqn0 = sqn
         adj0 = np.full((cap, 2 * self._cfg.m), -1, dtype=np.int32)
         adj0[: len(self._adj0)] = self._adj0
         self._adj0 = adj0
@@ -279,29 +317,122 @@ class HNSWIndex(BaseVectorIndex):
             up[: len(self._upper[lvl])] = self._upper[lvl]
             self._upper[lvl] = up
 
-    # -- device tables -------------------------------------------------------
+    # -- device state ----------------------------------------------------------
 
-    def _blocked_fits(self) -> bool:
-        return self._store.capacity * 2 * self._cfg.m * self._dim * 2 <= BLOCKED_TABLE_BYTES_MAX
+    def _table_bytes(self, packed: bool) -> int:
+        cap, w = self._store.capacity, 2 * self._cfg.m
+        if packed:
+            return cap * w * (self._dim + 1 + bk._aux_digits(cap)) * 2
+        return cap * w * self._dim * 2
+
+    def _sync_device(self) -> None:
+        """Bring the device state to the current graph and capacity: upload
+        the layer-0 adjacency and rebuild every resident routing table when
+        the graph was replaced or the capacity changed (insertion rounds
+        keep them current in place, `_scatter_device`)."""
+        key = (self._graph_version, self._store.capacity)
+        if self._dev_key == key:
+            return
+        layouts = list(self._tables)
+        self._tables = {}     # free the old state before the new
+        self._dev_adj = None
+        self._dev_adj = torch.from_numpy(self._adj0).to(self._device)
+        self._dev_key = key
+        for packed in layouts:
+            self._build_tables(packed)
+
+    def _build_tables(self, packed: bool):
+        if self._table_bytes(packed) > BLOCKED_TABLE_BYTES_MAX:
+            return None
+        vecs, sqnorms, _ = self._store.device_state()
+        if packed:
+            tables = (bk.build_packed_table(self._dev_adj, vecs, sqnorms), None)
+        else:
+            tables = bk.build_blocked_tables(self._dev_adj, vecs, sqnorms)
+        self._tables[packed] = tables
+        return tables
 
     def _routing_tables(self):
-        """The blocked routing tables of the current graph, built on the
-        index's device when the graph or the store changed."""
-        key = (self._graph_version, self._store.capacity)
-        if self._tables_key != key:
-            _check_unported_env()
-            if not self._blocked_fits():
-                raise InvalidConfigError(
-                    f"the blocked routing table ({self._store.capacity} x {2 * self._cfg.m} x "
-                    f"{self._dim} bf16) exceeds BLOCKED_TABLE_BYTES_MAX "
-                    f"({BLOCKED_TABLE_BYTES_MAX} bytes); larger graphs need the packed table "
-                    f"or the graph beam, not ported yet ({_NEXT_SLICE})")
-            self._tables = None   # free the old tables before the new ones
-            vecs, sqnorms, _ = self._store.device_state()
-            adj = torch.from_numpy(self._adj0).to(self._device)
-            self._tables = bk.build_blocked_tables(adj, vecs, sqnorms)
-            self._tables_key = key
-        return self._tables
+        """The routing tables of the current graph in the layout the switch
+        selects, (nbr_vecs, aux) blocked or (packed, None), built on first
+        use; None when the table would pass BLOCKED_TABLE_BYTES_MAX."""
+        self._sync_device()
+        packed = _use_packed_table()
+        if packed in self._tables:
+            return self._tables[packed]
+        return self._build_tables(packed)
+
+    def _scatter_device(self, slots: np.ndarray, touched: np.ndarray, version: int) -> None:
+        """After an insertion round that moved the graph on from `version`:
+        the round's new vectors and touched adjacency rows to the device
+        adjacency and mirror (ops/graph.scatter_graph_update), and the
+        touched rows of every resident routing table, in place. Device state
+        that was not current before the round stays stale and is rebuilt at
+        its next use."""
+        cap = self._store.capacity
+        if self._dev_key != (version, cap):
+            return
+        dev = self._device
+        vecs, sqnorms, _ = self._store.device_state()
+        rows = torch.from_numpy(np.asarray(touched, dtype=np.int64)).to(dev)
+        adj_rows = torch.from_numpy(self._adj0[touched]).to(dev)
+        vec_rows = np.asarray(slots, dtype=np.int64)
+        scatter_graph_update(vecs, sqnorms, self._dev_adj,
+                             torch.from_numpy(vec_rows).to(dev),
+                             torch.from_numpy(self._store.vectors[vec_rows]).to(dev),
+                             rows, adj_rows)
+        for packed, (nbr_vecs, aux) in self._tables.items():
+            if packed:
+                bk.update_packed_rows(nbr_vecs, rows, adj_rows, vecs, sqnorms)
+            else:
+                bk.update_blocked_rows(nbr_vecs, aux, rows, adj_rows, vecs, sqnorms)
+        self._dev_key = (self._graph_version, cap)
+
+    # -- host distances and descent ------------------------------------------
+
+    def _dist_rows_cmp(self, a: np.ndarray, b: np.ndarray, bn: np.ndarray,
+                       an: np.ndarray | None = None) -> np.ndarray:
+        """Comparison-only scores of a[i] against b[i, ...]: a [n, d], b
+        [n, m, d], bn [n, m] b's squared norms (the `_sqn0` cache). L2 stays
+        squared; only the order is used (construction and descent)."""
+        ip = np.einsum("nd,nmd->nm", a, b)
+        if self._distance_kind == DistanceKind.COSINE:
+            return 1.0 - np.clip(ip, -1.0, 1.0)
+        if an is None:
+            an = (a * a).sum(axis=1)
+        return an[:, None] + bn - 2 * ip
+
+    def _descend(self, queries: np.ndarray) -> np.ndarray:
+        """Greedy descent through the upper layers on the host, vectorised
+        over the queries. Returns each query's layer-0 entry slot."""
+        q = queries.shape[0]
+        cur = np.full(q, self._entry_slot, dtype=np.int64)
+        qn = (queries * queries).sum(axis=1)
+        ev = self._store.vectors[self._entry_slot][None, :]
+        cur_d = self._dist_rows_cmp(
+            queries, np.broadcast_to(ev, (q, 1, self._dim)),
+            np.broadcast_to(self._sqn0[self._entry_slot], (q, 1)), an=qn)[:, 0]
+        for level in range(self._max_level, 0, -1):
+            adj = self._upper.get(level)
+            if adj is None:
+                continue
+            for _ in range(64):  # safety cap; greedy converges fast
+                neigh = adj[cur]                      # [Q, M]
+                mask = neigh >= 0
+                if not mask.any():
+                    break
+                safe = np.maximum(neigh, 0)
+                nd = self._dist_rows_cmp(queries, self._store.vectors[safe], self._sqn0[safe],
+                                         an=qn)
+                nd = np.where(mask, nd, np.inf)
+                best = nd.argmin(axis=1)
+                bd = nd[np.arange(q), best]
+                move = bd < cur_d
+                if not move.any():
+                    break
+                cur = np.where(move, neigh[np.arange(q), best], cur)
+                cur_d = np.where(move, bd, cur_d)
+        return cur.astype(np.int32)
 
     # -- mutation --------------------------------------------------------------
 
@@ -309,12 +440,11 @@ class HNSWIndex(BaseVectorIndex):
         self.add_batch(np.asarray(node.vector, dtype=np.float32)[None, :], [node.id])
 
     def add_batch(self, vectors: np.ndarray, ids: Iterable[int] | None = None) -> list[int]:
-        """Bulk-load an empty index (at least BULK_BUILD_MIN vectors) with
-        the staged kNN build. Inserting into a non-empty index, or fewer
-        vectors, takes the incremental rounds, which are not ported yet."""
+        """Insert vectors: the bulk build for at least BULK_BUILD_MIN vectors
+        into an empty index, insertion rounds otherwise (module docstring).
+        Returns the node IDs (auto-assigned when `ids` is None)."""
         vectors = np.atleast_2d(np.asarray(vectors, dtype=np.float32))
         self._check_dim(vectors)
-        _check_unported_env()
         if ids is None:
             first = reserve_node_ids(len(vectors))
             id_arr = np.arange(first, first + len(vectors), dtype=np.uint32)
@@ -322,22 +452,27 @@ class HNSWIndex(BaseVectorIndex):
             id_arr = np.asarray(list(ids), dtype=np.uint32)
             if len(id_arr) != len(vectors):
                 raise InvalidConfigError("ids and vectors length mismatch")
+        prepped = preprocess(vectors, self._distance_kind)
         with self._lock:
-            if not (self._store.n == 0 and self._entry_slot < 0 and len(vectors) >= BULK_BUILD_MIN):
-                raise InvalidConfigError(
-                    "comet_tpu_torch's HNSWIndex builds only by a bulk load of at least "
-                    f"{BULK_BUILD_MIN} vectors into an empty index; incremental insertion "
-                    f"is not ported yet ({_NEXT_SLICE})")
             for i in id_arr.tolist():
                 if self._store.contains(i):
                     raise InvalidConfigError(f"duplicate node ID {i}")
-            prepped = preprocess(vectors, self._distance_kind)
-            self._store.add_batch(id_arr, prepped)
-            self._grow_host()
-            levels = self._sample_levels(len(vectors))
-            self._levels[: len(vectors)] = levels
-            self._bulk_build(levels)
+            self._insert_preprocessed(id_arr, prepped)
         return id_arr.tolist()
+
+    def _insert_preprocessed(self, id_arr: np.ndarray, prepped: np.ndarray) -> None:
+        was_empty = self._store.n == 0 and self._entry_slot < 0
+        slots = self._store.add_batch(id_arr, prepped)
+        self._grow_host()
+        levels = self._sample_levels(len(slots))
+        self._levels[slots] = levels
+        self._sqn0[slots] = np.einsum("nd,nd->n", prepped, prepped)
+        if was_empty and len(slots) >= BULK_BUILD_MIN:
+            self._bulk_build(levels)
+            return
+        for lo in range(0, len(slots), BUILD_SUB_BATCH):
+            self._insert_round(np.asarray(slots[lo: lo + BUILD_SUB_BATCH]),
+                               levels[lo: lo + BUILD_SUB_BATCH])
 
     def _bulk_build(self, levels: np.ndarray) -> None:
         """Whole-graph construction (ops/graph_build.py) of a freshly
@@ -360,6 +495,158 @@ class HNSWIndex(BaseVectorIndex):
         self._max_level = max_level
         self._graph_version += 1
         self._routing_tables()
+
+    def _insert_round(self, sub: np.ndarray, sub_levels: np.ndarray) -> None:
+        """One insertion round of the new slots `sub` (reference
+        _insert_round, the graph beam's candidate pool)."""
+        cfg = self._cfg
+        self._sync_device()
+        version = self._graph_version
+        all_new = np.array(sub)
+        vecs = self._store.vectors[sub]
+        touched: set[int] = set()
+
+        if self._entry_slot < 0:
+            # bootstrap: the first node becomes the entry point
+            self._entry_slot = int(sub[0])
+            self._max_level = int(sub_levels[0])
+            for lvl in range(1, sub_levels[0] + 1):
+                self._ensure_level(lvl)
+            first, rest = sub[:1], sub[1:]
+            if len(rest) == 0:
+                self._graph_version += 1
+                self._scatter_device(all_new, np.asarray([], dtype=np.int64), version)
+                return
+            sub, sub_levels, vecs = rest, sub_levels[1:], vecs[1:]
+            touched.add(int(first[0]))
+
+        b = len(sub)
+        # candidate pool: the graph beam over the existing graph ...
+        entries = self._descend(vecs)
+        efc = cfg.ef_construction
+        dev_vecs, dev_sqn, _ = self._store.device_state()
+        cand_d, cand_s = beam_search_layer0(
+            torch.from_numpy(np.ascontiguousarray(vecs)).to(self._device),
+            torch.from_numpy(entries).to(self._device),
+            self._dev_adj, dev_vecs, dev_sqn,
+            torch.ones(self._store.capacity, dtype=torch.bool, device=self._device),
+            float("inf"), efc, efc, self._distance_kind,
+            (4 * efc + 32) // GRAPH_EXPAND + 16, GRAPH_EXPAND,
+            False,  # construction: the results are the final beam
+        )
+        cand_d = cand_d.cpu().numpy()
+        cand_s = cand_s.cpu().numpy()
+        # ... plus the exact candidates within the round, so that its new
+        # nodes can link to each other
+        if b > 1:
+            ip = vecs @ vecs.T
+            if self._distance_kind == DistanceKind.COSINE:
+                intra = 1.0 - np.clip(ip, -1.0, 1.0)
+            else:
+                sq = (vecs * vecs).sum(axis=1)
+                intra = np.maximum(sq[:, None] + sq[None, :] - 2.0 * ip, 0.0)
+                if self._distance_kind == DistanceKind.L2:
+                    intra = np.sqrt(intra)
+            np.fill_diagonal(intra, np.inf)
+            order = np.argsort(intra, axis=1, kind="stable")[:, : cfg.m]
+            intra_d = np.take_along_axis(intra, order, axis=1)
+            intra_s = sub[order]
+            cand_d = np.concatenate([cand_d, intra_d], axis=1)
+            cand_s = np.concatenate([cand_s, intra_s.astype(np.int32)], axis=1)
+            reorder = np.argsort(cand_d, axis=1, kind="stable")
+            cand_d = np.take_along_axis(cand_d, reorder, axis=1)
+            cand_s = np.take_along_axis(cand_s, reorder, axis=1)
+
+        m = cfg.m
+        # beam rows are duplicate-free and disjoint from the round's nodes:
+        # the forward neighbours are the first M finite candidates
+        finite = (cand_s != IDX_SENTINEL) & np.isfinite(cand_d)
+        neighbors = np.full((b, m), -1, dtype=np.int32)
+        for i in range(b):
+            row = cand_s[i][finite[i]][:m]
+            neighbors[i, : len(row)] = row
+        self._adj0[sub, :m] = neighbors
+        touched.update(int(s) for s in sub)
+
+        # reverse edges, batched over the round (hnsw_index.go:535-546, 667-694)
+        valid = neighbors >= 0
+        if valid.any():
+            nbr = neighbors[valid].astype(np.int64)
+            new = np.repeat(sub, valid.sum(axis=1))
+            uniq = self._batch_reverse_edges(self._adj0, 2 * m, nbr, new)
+            touched.update(int(u) for u in uniq)
+
+        # upper layers: forward rows per node, reverse edges per level
+        upper_pairs: dict[int, tuple[list, list]] = {}
+        for i in np.flatnonzero(sub_levels > 0):
+            slot = int(sub[i])
+            level = int(sub_levels[i])
+            css = cand_s[i][finite[i]]
+            for lvl in range(1, level + 1):
+                self._ensure_level(lvl)
+                at_level = css[self._levels[css] >= lvl][:m]
+                self._upper[lvl][slot, : len(at_level)] = at_level
+                if len(at_level):
+                    nbrs, news = upper_pairs.setdefault(lvl, ([], []))
+                    nbrs.extend(int(x) for x in at_level)
+                    news.extend([slot] * len(at_level))
+        for lvl, (nbrs, news) in upper_pairs.items():
+            self._batch_reverse_edges(self._upper[lvl], m, np.asarray(nbrs, dtype=np.int64),
+                                      np.asarray(news, dtype=np.int64))
+
+        best = int(np.argmax(sub_levels))
+        if int(sub_levels[best]) > self._max_level:
+            self._max_level = int(sub_levels[best])
+            self._entry_slot = int(sub[best])
+
+        self._graph_version += 1
+        self._scatter_device(all_new, np.fromiter(touched, dtype=np.int64), version)
+
+    def _batch_reverse_edges(self, adj: np.ndarray, capacity: int, nbr: np.ndarray,
+                             new: np.ndarray) -> np.ndarray:
+        """Append each reverse edge (new[i] into nbr[i]'s row) and prune
+        every overflowing row to its `capacity` nearest, in one vectorised
+        pass. Returns the touched rows."""
+        order = np.argsort(nbr, kind="stable")
+        nbr_s, new_s = nbr[order], new[order]
+        uniq, starts, counts = np.unique(nbr_s, return_index=True, return_counts=True)
+        maxc = int(counts.max())
+        w0 = capacity
+        cand_mat = np.full((len(uniq), w0 + maxc), -1, dtype=np.int64)
+        cand_mat[:, :w0] = adj[uniq]
+        rows = np.searchsorted(uniq, nbr_s)
+        cols = np.arange(len(nbr_s)) - starts[rows]
+        cand_mat[rows, w0 + cols] = new_s
+        # a mutual selection puts a new node in a row and in its appends
+        cm_valid = cand_mat >= 0
+        ordv = np.argsort(cand_mat, axis=1, kind="stable")
+        sv = np.take_along_axis(cand_mat, ordv, axis=1)
+        rep = np.zeros_like(cand_mat, dtype=bool)
+        rep[:, 1:] = sv[:, 1:] == sv[:, :-1]
+        dup = np.zeros_like(rep)
+        np.put_along_axis(dup, ordv, rep, axis=1)
+        keepable = cm_valid & ~dup
+        cand_mat = np.where(keepable, cand_mat, -1)
+
+        fill = keepable.sum(axis=1)
+        over = fill > w0
+        # rows within capacity: compact left, no distances needed
+        if (~over).any():
+            rows_u = np.flatnonzero(~over)
+            cm_u = cand_mat[rows_u]
+            order_u = np.argsort(cm_u < 0, axis=1, kind="stable")
+            adj[uniq[rows_u]] = np.take_along_axis(cm_u, order_u, axis=1)[:, :w0].astype(np.int32)
+        # overflowing rows: keep the nearest
+        if over.any():
+            rows_o = np.flatnonzero(over)
+            cm_o = cand_mat[rows_o]
+            safe = np.maximum(cm_o, 0)
+            d = self._dist_rows_cmp(self._store.vectors[uniq[rows_o]], self._store.vectors[safe],
+                                    self._sqn0[safe], an=self._sqn0[uniq[rows_o]])
+            d = np.where(cm_o >= 0, d, np.inf)
+            keep = np.argsort(d, axis=1, kind="stable")[:, :w0]
+            adj[uniq[rows_o]] = np.take_along_axis(cm_o, keep, axis=1).astype(np.int32)
+        return uniq
 
     def remove(self, node_id: int) -> None:
         """Soft delete: excluded from results, still routes traversal."""
@@ -390,6 +677,9 @@ class HNSWIndex(BaseVectorIndex):
             new_levels = np.full(old_cap, -1, dtype=np.int32)
             new_levels[:n_new] = self._levels[keep]
             self._levels = new_levels
+            new_sqn = np.zeros(old_cap, dtype=np.float32)
+            new_sqn[:n_new] = self._sqn0[keep]
+            self._sqn0 = new_sqn
             for lvl in list(self._upper):
                 self._upper[lvl] = remap_adj(self._upper[lvl], self._cfg.m)
             if n_new == 0:
@@ -551,6 +841,7 @@ class HNSWIndex(BaseVectorIndex):
         return sd, ss
 
     def _use_seed(self) -> bool:
+        """The seeded start serves the routing-table beam only."""
         if not self._cfg.seed_search:
             return False
         env = os.environ.get("COMET_HNSW_SEED", "")
@@ -599,16 +890,40 @@ class HNSWIndex(BaseVectorIndex):
             allowed = allowed & torch.from_numpy(np.ascontiguousarray(fmask)).to(self._device)
         # result admission == beam membership unless something filters
         fused = fmask is not None or builder._threshold > 0 or store.deleted > 0
-        chunks = self._beam_launch(qpad, allowed, builder._threshold, ef_pad, k_pad, fused,
-                                   k_eff, builder._wire_scores)
-        return ("hnsw", chunks, q_real, k_eff, store.ids)
+        tables = self._routing_tables()
+        if tables is None:
+            chunks = self._graph_launch(qpad, allowed, builder._threshold, ef_pad, k_pad, fused,
+                                        k_eff, builder._wire_scores)
+        else:
+            chunks = self._beam_launch(tables, qpad, allowed, builder._threshold, ef_pad, k_pad,
+                                       fused, k_eff, builder._wire_scores)
+        return ("hnsw", chunks, q_real, k_eff, store.ids, tables is not None)
 
-    def _beam_launch(self, qpad, allowed, threshold, ef_pad, k_pad, fused, k_eff,
+    def _graph_launch(self, qpad, allowed, threshold, ef_pad, k_pad, fused, k_eff,
+                      wire_scores=True):
+        """The graph beam (ops/graph.py) over each chunk of GRAPH_QUERY_CHUNK
+        queries from a host descent, for a graph whose routing table would
+        pass BLOCKED_TABLE_BYTES_MAX. Returns per chunk the device
+        (metric-space scores or None, slots) [chunk, k_eff]."""
+        vecs, sqnorms, _ = self._store.device_state()
+        thr = float(threshold_scalar(threshold))
+        chunks = []
+        for q0 in range(0, qpad.shape[0], GRAPH_QUERY_CHUNK):
+            qc = np.ascontiguousarray(qpad[q0: q0 + GRAPH_QUERY_CHUNK])
+            entries = torch.from_numpy(self._descend(qc)).to(self._device)
+            sd, ss = beam_search_layer0(
+                torch.from_numpy(qc).to(self._device), entries, self._dev_adj, vecs, sqnorms,
+                allowed, thr, ef_pad, k_pad, self._distance_kind,
+                (4 * ef_pad + 32) // GRAPH_EXPAND + 16, GRAPH_EXPAND, fused)
+            chunks.append((sd[:, :k_eff] if wire_scores else None, ss[:, :k_eff]))
+        return chunks
+
+    def _beam_launch(self, tables, qpad, allowed, threshold, ef_pad, k_pad, fused, k_eff,
                      wire_scores=True):
-        """The beam over each chunk of SEARCH_QUERY_CHUNK queries, each
-        padded to a multiple of 128. Returns per chunk the device (squared
-        scores or None, slots) [chunk, k_eff]."""
-        nbr_vecs, aux = self._routing_tables()
+        """The routing-table beam over each chunk of SEARCH_QUERY_CHUNK
+        queries, each padded to a multiple of 128. Returns per chunk the
+        device (squared scores or None, slots) [chunk, k_eff]."""
+        nbr_vecs, aux = tables
         vecs, sqnorms, _ = self._store.device_state()
         sq_thr = self._sq_threshold(threshold)
         seeded = self._use_seed()
@@ -617,10 +932,10 @@ class HNSWIndex(BaseVectorIndex):
             # row rather than expand every seed
             stop = min(self._cfg.seed_stop or max(2 * k_pad, 64), ef_pad)
             seed_k = min(self._cfg.seed_width or 128, stop)
-            max_iters = self._cfg.search_iters or max((2 * stop) // SEARCH_EXPAND // 2, 12)
+            max_iters = self._cfg.search_iters or max((2 * stop) // BEAM_EXPAND // 2, 12)
         else:
             stop = None
-            max_iters = self._cfg.search_iters or max(2 * ef_pad // SEARCH_EXPAND, 48)
+            max_iters = self._cfg.search_iters or max(2 * ef_pad // BEAM_EXPAND, 48)
         chunks = []
         for q0 in range(0, qpad.shape[0], SEARCH_QUERY_CHUNK):
             qc = qpad[q0: q0 + SEARCH_QUERY_CHUNK]
@@ -640,7 +955,8 @@ class HNSWIndex(BaseVectorIndex):
                 entries = self._descend_for_search(q)
             sd, ss = bk.beam_search_blocked(
                 q, entries, nbr_vecs, aux, vecs, sqnorms, allowed, sq_thr, ef_pad, k_pad,
-                SEARCH_EXPAND, max_iters, fused, seeds=seeds, stop=stop, qn=qn,
+                BEAM_EXPAND, max_iters, fused, seeds=seeds, stop=stop, qn=qn,
+                fuse=_use_fused_beam(),
             )
             chunks.append((sd[:, :k_eff] if wire_scores else None, ss[:, :k_eff]))
         return chunks
@@ -650,12 +966,14 @@ class HNSWIndex(BaseVectorIndex):
             q_in = handle[1]
             return (np.full((q_in, 0), INVALID_ID, dtype=np.uint32),
                     np.zeros((q_in, 0), dtype=np.float32))
-        _, chunks, q_real, k_eff, ids_arr = handle
+        _, chunks, q_real, k_eff, ids_arr, squared = handle
         slots = np.concatenate([i.cpu().numpy() for _, i in chunks])
         if chunks[0][0] is None:
             scores = np.zeros(slots.shape, dtype=np.float32)
         else:
-            scores = self._from_sq(np.concatenate([s.cpu().numpy() for s, _ in chunks]))
+            scores = np.concatenate([s.cpu().numpy() for s, _ in chunks])
+            if squared:
+                scores = self._from_sq(scores)
         scores = scores[:q_real, :k_eff]
         slots = slots[:q_real, :k_eff]
         hit = slots != IDX_SENTINEL
@@ -729,10 +1047,13 @@ class HNSWIndex(BaseVectorIndex):
             self._reset_seed()
             cap = self._store.capacity
             self._levels = np.full(cap, -1, dtype=np.int32)
+            self._sqn0 = np.zeros(cap, dtype=np.float32)
             self._adj0 = np.full((cap, 2 * m), -1, dtype=np.int32)
             self._upper = {}
             if n:
                 self._store.add_batch(ids.astype(np.uint32), vectors.astype(np.float32))
+                v32 = self._store.vectors[:n]
+                self._sqn0[:n] = (v32 * v32).sum(axis=1)
                 self._levels[:n] = levels
                 self._adj0[:n] = adj0
                 for lvl, arr in upper.items():

@@ -48,22 +48,26 @@ SIGNATURES = {
     # vout, iout, out_row, out_col, stream
     "comet_topk_rows_global": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P,
                                _P, _P, _LL, _LL, _P],
-    # q, qn, x, mask, thr, Q, N, d, cosine, assign, words, n_words,
+    # q, qn, x, mask, thr, Q, N, d, cosine, bf16, assign, words, n_words,
     # dist, gmin, stream
-    "comet_fused_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I,
+    "comet_fused_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
                          _P, _P, _I, _P, _P, _P],
     # q, qn, x, mask, probes, P, chunk_ids, cluster_ids, thr, G, S, d,
     # cosine, bf16, dist, gmin, stream
     "comet_sparse_scan": [_P, _P, _P, _P, _P, _I, _P, _P, ctypes.c_float,
                           _I, _I, _I, _I, _I, _P, _P, _P],
-    # qb, qn, nbr_vecs, aux, nodes, allowed, thr, Q, E, W, d, ndig, fused,
-    # nd, ns, adm, stream
-    "comet_gather_score": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I,
-                           _I, _I, _P, _P, _P, _P],
+    # qb, qn, vecs, aux, vec_stride, aux_stride, nodes, allowed, thr, Q, E,
+    # W, d, ndig, fused, nd, ns, adm, stream
+    "comet_gather_score": [_P, _P, _P, _P, _LL, _LL, _P, _P, ctypes.c_float, _I, _I,
+                           _I, _I, _I, _I, _P, _P, _P, _P],
     # bd, bs, be, nd, ns, rd, rs, adm, Q, ef, ew, expand, stop, kr, fused,
     # od, os, oe, misc, ord, ors, stream
     "comet_beam_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P],
+    # nodes, table, row_len, qb, qn, bd, bs, be, Q, ef, W, d, ndig, expand,
+    # stop, od, os, oe, misc, stream
+    "comet_fused_expand": [_P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,26 @@
-"""HNSW layer-0 beam search over neighbourhood-blocked tables: the merge
-step (kernel K4) and the in-loop scoring around it.
+"""HNSW layer-0 beam search over neighbourhood routing tables: the merge
+step (kernel K4), the in-loop scoring around it, and the fused expand
+kernel (K5) that does both in one launch.
 
-Counterpart of comet_tpu/ops/beam_kernel.py, search half, blocked layout.
-The beam of every query lives in query-major tensors ([Q, rows]; the
-reference keeps [rows, Q], queries on lanes). One iteration:
+Counterpart of comet_tpu/ops/beam_kernel.py, search half. The beam of every
+query lives in query-major tensors ([Q, rows]; the reference keeps [rows,
+Q], queries on lanes). A node's routing row holds its W neighbour vectors
+in bf16 and its aux row (bf16 squared norms and the base-128 digits of the
+neighbour slots), in one of two layouts:
+
+- blocked (`build_blocked_tables`): nbr_vecs [cap, W, d] and aux [cap,
+  (1 + ndig) W], two tables;
+- packed (`build_packed_table`): one [cap, W d + (1 + ndig) W] table, the
+  vectors and the aux planes of a node in one row; `aux` is None.
+
+One iteration of the split path:
 
   1. `gather_score`: the `expand` nodes picked last step are expanded: each
-     node's row of the blocked table (`nbr_vecs[node]`, W neighbour vectors
-     in bf16, and its aux row: bf16 squared norms and the base-128 digits
-     of the neighbour slots) is scored against the bf16 query, giving
-     ew = expand * W candidates (dist, slot) and, in fused mode, their
-     admission flags. On a CUDA tensor the kernel of csrc/gather_score.cu
-     does it (`SCORE_LAUNCHES`), on a CPU tensor `_gather_score_plain`.
+     node's row is scored against the bf16 query, giving ew = expand * W
+     candidates (dist, slot) and, in fused mode, their admission flags. On
+     a CUDA tensor the kernel of csrc/gather_score.cu does it, for either
+     layout (`SCORE_LAUNCHES` blocked, `PACKED_SCORE_LAUNCHES` packed), on
+     a CPU tensor `_gather_score_plain`.
   2. `beam_merge_step` (K4): beam + candidates sorted by (dist, slot,
      expanded desc), adjacent copies of a slot killed, the live rows
      compacted to the distinct top-ef, the next `expand` unexpanded rows
@@ -20,10 +29,16 @@ reference keeps [rows, Q], queries on lanes). One iteration:
      csrc/beam_merge.cu (`LAUNCHES` split, `FUSED_LAUNCHES` fused), on a
      CPU tensor `_merge_plain`.
 
+With `fuse` (COMET_HNSW_FUSE=1), an unfiltered search over the packed
+table runs both steps as one launch of K5, `fused_expand_merge`
+(csrc/fused_expand.cu, `FUSE_LAUNCHES`; on a CPU tensor
+`_fused_expand_plain`), which reads the expanded rows from the table
+itself. Its outputs are the split pair's bit for bit.
+
 Copies of a node sort adjacent only if their distances are bit-equal: the
 seed scan (ops/ivf_sparse, bf16 mode), the probe-starved entry start and
-the in-loop scoring all compute the inner product as `bf16_dot`
-(ops/distance.py), the FMA chain of the kernels.
+the in-loop scoring (split or fused) all compute the inner product as
+`bf16_dot` (ops/distance.py), the FMA chain of the kernels.
 
 The loop needs no per-iteration sync. Once a query is inactive its next
 nodes are all -1, so its candidates are all (+inf, SENT) and not admitted;
@@ -57,10 +72,13 @@ BEAM_PAD = (0x7F800000 << 32) | (SENT << 1) | 1
 RES_PAD = (0x7F800000 << 32) | SENT
 ALIVE_EVERY = 4      # iterations between reads of the active flags
 
-# Kernel launches: K4 split mode, K4 fused mode, the in-loop scoring.
+# Kernel launches: K4 split mode, K4 fused mode, the in-loop scoring over
+# the blocked and over the packed layout, K5.
 LAUNCHES = 0
 FUSED_LAUNCHES = 0
 SCORE_LAUNCHES = 0
+PACKED_SCORE_LAUNCHES = 0
+FUSE_LAUNCHES = 0
 
 
 def _next_pow2(x: int) -> int:
@@ -90,10 +108,26 @@ def _aux_planes(adj_rows: torch.Tensor, nsq: torch.Tensor, cap: int) -> torch.Te
 
 
 def _table_width(nbr_vecs: torch.Tensor, d: int) -> int:
-    """Neighbourhood width W of the blocked table [cap, W, d]."""
-    if nbr_vecs.ndim != 3 or nbr_vecs.shape[2] != d:
-        raise ValueError(f"nbr_vecs must be [cap, W, {d}], got {tuple(nbr_vecs.shape)}")
-    return nbr_vecs.shape[1]
+    """Neighbourhood width W of either layout: blocked [cap, W, d] or
+    packed [cap, W (d + 1 + ndig)]."""
+    if nbr_vecs.ndim == 3 and nbr_vecs.shape[2] == d:
+        return nbr_vecs.shape[1]
+    if nbr_vecs.ndim == 2:
+        cap, row_len = nbr_vecs.shape
+        per = d + 1 + _aux_digits(cap)
+        if row_len % per == 0 and row_len > 0:
+            return row_len // per
+    raise ValueError(f"nbr_vecs must be [cap, W, {d}] or [cap, W ({d} + 1 + ndig)], "
+                     f"got {tuple(nbr_vecs.shape)}")
+
+
+def _neighbour_rows(adj_rows: torch.Tensor, vectors: torch.Tensor, sqnorms: torch.Tensor,
+                    cap: int):
+    """The routing rows of adjacency rows [R, W]: (bf16 neighbour vectors
+    [R, W, d], aux rows [R, (1 + ndig) W]) for a cap-row table."""
+    nc = adj_rows.clamp_min(0).long()
+    nsq = torch.where(adj_rows >= 0, sqnorms[nc], torch.zeros((), device=vectors.device))
+    return vectors[nc].to(torch.bfloat16), _aux_planes(adj_rows, nsq, cap)
 
 
 def build_blocked_tables(adj: torch.Tensor, vectors: torch.Tensor, sqnorms: torch.Tensor,
@@ -108,33 +142,76 @@ def build_blocked_tables(adj: torch.Tensor, vectors: torch.Tensor, sqnorms: torc
     aux = torch.empty((cap, (1 + _aux_digits(cap)) * w), dtype=torch.bfloat16,
                       device=vectors.device)
     for lo in range(0, cap, chunk):
-        a = adj[lo:lo + chunk]
-        nc = a.clamp_min(0).long()
-        nbr_vecs[lo:lo + chunk] = vectors[nc].to(torch.bfloat16)
-        nsq = torch.where(a >= 0, sqnorms[nc], torch.zeros((), device=vectors.device))
-        aux[lo:lo + chunk] = _aux_planes(a, nsq, cap)
+        nbr_vecs[lo:lo + chunk], aux[lo:lo + chunk] = _neighbour_rows(
+            adj[lo:lo + chunk], vectors, sqnorms, cap)
     return nbr_vecs, aux
+
+
+def update_blocked_rows(nbr_vecs, aux, rows, adj_rows, vectors, sqnorms):
+    """Rewrite the blocked rows `rows` [R] (int64) from their adjacency rows
+    [R, W] after an insertion round, in place. Returns (nbr_vecs, aux)."""
+    nbr_vecs[rows], aux[rows] = _neighbour_rows(adj_rows, vectors, sqnorms, nbr_vecs.shape[0])
+    return nbr_vecs, aux
+
+
+def _packed_rows(adj_rows, vectors, sqnorms, cap: int) -> torch.Tensor:
+    nv, ar = _neighbour_rows(adj_rows, vectors, sqnorms, cap)
+    return torch.cat([nv.reshape(nv.shape[0], -1), ar], dim=1)
+
+
+def build_packed_table(adj: torch.Tensor, vectors: torch.Tensor, sqnorms: torch.Tensor,
+                       chunk: int = 1 << 16) -> torch.Tensor:
+    """The packed routing table: one bf16 row per node holding its W
+    neighbour vectors and its aux planes, [cap, W d + (1 + ndig) W]; its
+    scored outputs are the blocked pair's bit for bit. Built in row chunks
+    (reference build_packed_table_chunked: the one-shot gather is twice the
+    table)."""
+    cap, w = adj.shape
+    d = vectors.shape[1]
+    packed = torch.empty((cap, w * d + (1 + _aux_digits(cap)) * w), dtype=torch.bfloat16,
+                         device=vectors.device)
+    for lo in range(0, cap, chunk):
+        packed[lo:lo + chunk] = _packed_rows(adj[lo:lo + chunk], vectors, sqnorms, cap)
+    return packed
+
+
+def update_packed_rows(packed, rows, adj_rows, vectors, sqnorms) -> torch.Tensor:
+    """Rewrite the packed rows `rows` [R] (int64) from their adjacency rows
+    [R, W], in place. Returns the table."""
+    packed[rows] = _packed_rows(adj_rows, vectors, sqnorms, packed.shape[0])
+    return packed
 
 
 # -- in-loop scoring ---------------------------------------------------------------
 
 
+def _gather_rows(nbr_vecs, aux, nc, d: int):
+    """The routing rows of nodes nc [...]: (vectors [..., W, d] bf16, aux
+    rows [..., (1 + ndig) W] float32), from either layout."""
+    w = _table_width(nbr_vecs, d)
+    if aux is None:
+        rows = nbr_vecs[nc]
+        return rows[..., :w * d].unflatten(-1, (w, d)), rows[..., w * d:].to(torch.float32)
+    return nbr_vecs[nc], aux[nc].to(torch.float32)
+
+
 def _gather_score_plain(qb, qn, nbr_vecs, aux, nodes, allowed, thr: float, fused: bool):
-    """Plain PyTorch version of csrc/gather_score.cu. Returns (nd [Q, ew]
-    float32, ns [Q, ew] int32, adm [Q, ew] int32 or None)."""
+    """Plain PyTorch version of csrc/gather_score.cu, either layout.
+    Returns (nd [Q, ew] float32, ns [Q, ew] int32, adm [Q, ew] int32 or
+    None)."""
     q_n, e_n = nodes.shape
-    _, w, _ = nbr_vecs.shape
-    ndig = aux.shape[1] // w - 1
     node_ok = nodes >= 0
     nc = nodes.clamp_min(0).long()
-    ar = aux[nc].to(torch.float32)                        # [Q, E, (1 + ndig) W]
+    nv, ar = _gather_rows(nbr_vecs, aux, nc, qb.shape[1])   # [Q, E, W, d], [Q, E, (1 + ndig) W]
+    w = nv.shape[2]
+    ndig = ar.shape[-1] // w - 1
     nsq = ar[..., :w]
     a1 = ar[..., w:2 * w]
     for i in range(1, ndig):
         a1 = a1 + ar[..., (i + 1) * w:(i + 2) * w] * float(128 ** i)
     neigh = a1.to(torch.int32) - 1                        # [Q, E, W]
     ok = node_ok[:, :, None] & (neigh >= 0)
-    ip = bf16_dot(qb[:, None, None, :], nbr_vecs[nc])     # [Q, E, W]
+    ip = bf16_dot(qb[:, None, None, :], nv)               # [Q, E, W]
     nd = torch.clamp_min((qn[:, None, None] + nsq) - 2.0 * ip, 0.0)
     nd = torch.where(ok, nd, torch.full_like(nd, INF)).reshape(q_n, e_n * w)
     ns = torch.where(ok, neigh, torch.full_like(neigh, SENT)).reshape(q_n, e_n * w)
@@ -145,42 +222,66 @@ def _gather_score_plain(qb, qn, nbr_vecs, aux, nodes, allowed, thr: float, fused
     return nd, ns, adm.to(torch.int32)
 
 
+def _row_pointers(nbr_vecs, aux, d: int):
+    """(W, ndig, vectors pointer, aux pointer, vector row stride, aux row
+    stride) of either layout, strides in elements, for the kernels."""
+    w = _table_width(nbr_vecs, d)
+    if aux is None:
+        row_len = nbr_vecs.shape[1]
+        base = nbr_vecs.data_ptr()
+        return (w, row_len // w - d - 1, base, base + 2 * w * d, row_len, row_len)
+    return (w, aux.shape[1] // w - 1, nbr_vecs.data_ptr(), aux.data_ptr(), w * d,
+            aux.shape[1])
+
+
 def _gather_score_cuda(qb, qn, nbr_vecs, aux, nodes, allowed, thr: float, fused: bool):
     """Launch csrc/gather_score.cu. Returns (nd, ns, adm or None), [Q, ew]."""
-    global SCORE_LAUNCHES
+    global SCORE_LAUNCHES, PACKED_SCORE_LAUNCHES
     lib = _build.library()
     q_n, e_n = nodes.shape
-    _, w, d = nbr_vecs.shape
-    ndig = aux.shape[1] // w - 1
+    d = qb.shape[1]
+    w, ndig, vp, ap, vs, as_ = _row_pointers(nbr_vecs, aux, d)
     dev = qb.device
     nd = torch.empty((q_n, e_n * w), dtype=torch.float32, device=dev)
     ns = torch.empty((q_n, e_n * w), dtype=torch.int32, device=dev)
     adm = torch.empty((q_n, e_n * w), dtype=torch.int32, device=dev) if fused else None
     code = lib.comet_gather_score(
-        qb.data_ptr(), qn.data_ptr(), nbr_vecs.data_ptr(), aux.data_ptr(), nodes.data_ptr(),
+        qb.data_ptr(), qn.data_ptr(), vp, ap, vs, as_, nodes.data_ptr(),
         allowed.data_ptr() if fused else None, thr, q_n, e_n, w, d, ndig, int(fused),
         nd.data_ptr(), ns.data_ptr(), adm.data_ptr() if fused else None,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    SCORE_LAUNCHES += 1
+    if aux is None:
+        PACKED_SCORE_LAUNCHES += 1
+    else:
+        SCORE_LAUNCHES += 1
     _build.check(code, "gather_score")
     return nd, ns, adm
 
 
-def gather_score(qb, qn, nbr_vecs, aux, nodes, allowed, thr: float, fused: bool):
-    """Score the neighbourhoods of `nodes` [Q, E] (-1 = none) against the
-    bf16 queries qb [Q, d] (norms qn [Q] float32, of the float32 queries).
-    Returns (nd [Q, E W] float32, ns [Q, E W] int32, adm [Q, E W] int32
-    admission flags, or None unless `fused`)."""
-    if not qb.dtype == nbr_vecs.dtype == aux.dtype == torch.bfloat16:
+def _check_tables(qb, nbr_vecs, aux, nodes):
+    if not qb.dtype == nbr_vecs.dtype == torch.bfloat16 or (
+            aux is not None and aux.dtype != torch.bfloat16):
         raise ValueError("qb, nbr_vecs and aux must be bfloat16")
     if nodes.dtype != torch.int32 or nodes.ndim != 2 or nodes.shape[0] != qb.shape[0]:
         raise ValueError(f"nodes must be int32 [{qb.shape[0]}, E], got {nodes.dtype} "
                          f"{tuple(nodes.shape)}")
+    if (aux is None and nbr_vecs.ndim != 2) or (aux is not None and nbr_vecs.ndim != 3):
+        raise ValueError("aux goes with the blocked table [cap, W, d], None with the packed one")
     _table_width(nbr_vecs, qb.shape[1])
+
+
+def gather_score(qb, qn, nbr_vecs, aux, nodes, allowed, thr: float, fused: bool):
+    """Score the neighbourhoods of `nodes` [Q, E] (-1 = none) against the
+    bf16 queries qb [Q, d] (norms qn [Q] float32, of the float32 queries),
+    over the blocked tables (nbr_vecs, aux) or the packed table (nbr_vecs,
+    aux=None). Returns (nd [Q, E W] float32, ns [Q, E W] int32, adm [Q,
+    E W] int32 admission flags, or None unless `fused`)."""
+    _check_tables(qb, nbr_vecs, aux, nodes)
     thr = float(thr)
-    args = (qb.contiguous(), qn.contiguous(), nbr_vecs.contiguous(), aux.contiguous(),
-            nodes.contiguous(), allowed.contiguous(), thr, fused)
+    args = (qb.contiguous(), qn.contiguous(), nbr_vecs.contiguous(),
+            aux.contiguous() if aux is not None else None, nodes.contiguous(),
+            allowed.contiguous() if fused else None, thr, fused)
     if use_plain(qb):
         return _gather_score_plain(*args)
     return _gather_score_cuda(*args)
@@ -320,6 +421,71 @@ def beam_merge_step(
     return _merge_cuda(*args, ef, ew, expand, fused, kr, stop)
 
 
+# -- K5: expand, score and merge in one launch ------------------------------------------
+
+
+def _fused_expand_plain(nodes, packed, qb, qn, bd, bs, be, ef, expand, stop):
+    """Plain PyTorch version of K5: the split pair's plain versions, the
+    packed-table scoring then the split merge."""
+    w = _table_width(packed, qb.shape[1])
+    nd, ns, _ = _gather_score_plain(qb, qn, packed, None, nodes, None, INF, False)
+    od, osl, oe, misc, _, _ = _merge_plain(bd, bs, be, nd, ns, None, None, None, ef,
+                                           expand * w, expand, False, 0, stop)
+    return od, osl, oe, misc
+
+
+def _fused_expand_cuda(nodes, packed, qb, qn, bd, bs, be, ef, expand, stop):
+    """Launch K5 (csrc/fused_expand.cu)."""
+    global FUSE_LAUNCHES
+    lib = _build.library()
+    q_n, d = qb.shape
+    w = _table_width(packed, d)
+    row_len = packed.shape[1]
+    dev = qb.device
+    od = torch.empty((q_n, ef), dtype=torch.float32, device=dev)
+    osl = torch.empty((q_n, ef), dtype=torch.int32, device=dev)
+    oe = torch.empty((q_n, ef), dtype=torch.int32, device=dev)
+    misc = torch.empty((q_n, MISC_ROWS), dtype=torch.int32, device=dev)
+    code = lib.comet_fused_expand(
+        nodes.data_ptr(), packed.data_ptr(), row_len, qb.data_ptr(), qn.data_ptr(),
+        bd.data_ptr(), bs.data_ptr(), be.data_ptr(), q_n, ef, w, d, row_len // w - d - 1,
+        expand, stop, od.data_ptr(), osl.data_ptr(), oe.data_ptr(), misc.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    FUSE_LAUNCHES += 1
+    _build.check(code, "fused_expand")
+    return od, osl, oe, misc
+
+
+def fused_expand_merge(nodes, packed, qb, qn, beam_d, beam_s, beam_e, *, ef: int,
+                       expand: int, stop: int | None = None):
+    """One iteration of an unfiltered search over the packed table in one
+    step (reference fused_expand_merge, which takes the rows gathered
+    beforehand; this one reads them from the table): score the
+    neighbourhoods of `nodes` [Q, expand] (-1 = none) against qb [Q, d]
+    bf16 (norms qn [Q]), then the split merge of beam_merge_step. Returns
+    (beam_d', beam_s', beam_e', misc), bit-equal to gather_score followed
+    by beam_merge_step(fused=False)."""
+    if stop is None:
+        stop = ef
+    _check_tables(qb, packed, None, nodes)
+    q_n = qb.shape[0]
+    if nodes.shape[1] != expand or not 1 <= expand < MISC_ROWS:
+        raise ValueError(f"nodes must be [{q_n}, expand] with 1 <= expand < {MISC_ROWS}, "
+                         f"got {tuple(nodes.shape)}, expand={expand}")
+    if not 1 <= stop <= ef:
+        raise ValueError(f"stop={stop} outside [1, {ef}]")
+    for name, t, dt in (("beam_d", beam_d, torch.float32), ("beam_s", beam_s, torch.int32),
+                        ("beam_e", beam_e, torch.int32)):
+        if tuple(t.shape) != (q_n, ef) or t.dtype != dt or t.device != qb.device:
+            raise ValueError(f"{name} must be {dt} {(q_n, ef)} on {qb.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    args = [t.contiguous() for t in (nodes, packed, qb, qn, beam_d, beam_s, beam_e)]
+    if use_plain(qb):
+        return _fused_expand_plain(*args, ef, expand, stop)
+    return _fused_expand_cuda(*args, ef, expand, stop)
+
+
 # -- search ------------------------------------------------------------------------------
 
 
@@ -415,16 +581,21 @@ def _search_finalize(queries, qn, vectors, sqnorms, allowed, sq_thresh,
 
 def beam_search_blocked(queries, entry, nbr_vecs, aux, vectors, sqnorms, allowed,
                         sq_thresh: float, ef: int, k: int, expand: int, max_iters: int,
-                        fused: bool, seeds=None, stop: int | None = None, qn=None):
-    """Lockstep beam search of every query over the blocked tables.
+                        fused: bool, seeds=None, stop: int | None = None, qn=None,
+                        fuse: bool = False):
+    """Lockstep beam search of every query over the routing tables.
 
     queries [Q, d] float32 (preprocessed), entry [Q] int32 layer-0 entry
     slots, nbr_vecs [cap, W, d] and aux [cap, (1 + ndig) W] bf16
-    (`build_blocked_tables`), vectors [cap, d] and sqnorms [cap] float32,
+    (`build_blocked_tables`) or the packed table and aux None
+    (`build_packed_table`), vectors [cap, d] and sqnorms [cap] float32,
     allowed [cap] bool (result admission), sq_thresh on the squared
     distance (+inf disables). `seeds` = (seed_d, seed_s) [Q, n_seed <= ef]
     starts from a seed scan; `stop` is the termination row (default ef);
     `qn` the query norms the seeds were scored with (`row_sqnorms`).
+    `fuse` runs each iteration as one K5 launch where the reference does
+    (packed table, no result set: `fuse and aux is None and not fused`);
+    the split path serves the rest.
     Returns (dist [Q, k] squared, slots [Q, k] int32), ascending with the
     slot tie-break, empty = (+inf, SENT)."""
     d = queries.shape[1]
@@ -438,14 +609,19 @@ def beam_search_blocked(queries, entry, nbr_vecs, aux, vectors, sqnorms, allowed
         queries, qn, entry, vectors, sqnorms, allowed, sq_thresh,
         ef, expand, fused, kr, seed_d, seed_s,
     )
+    fuse = fuse and aux is None and not fused
     for it in range(int(max_iters)):
-        nd, ns, adm = gather_score(qb, qn, nbr_vecs, aux, nodes, allowed, sq_thresh, fused)
-        beam_d, beam_s, beam_e, misc, rd2, rs2 = beam_merge_step(
-            beam_d, beam_s, beam_e, nd, ns, res_d, res_s, adm,
-            ef=ef, ew=ew, expand=expand, fused=fused, kr=kr, stop=stop,
-        )
-        if fused:
-            res_d, res_s = rd2, rs2
+        if fuse:
+            beam_d, beam_s, beam_e, misc = fused_expand_merge(
+                nodes, nbr_vecs, qb, qn, beam_d, beam_s, beam_e, ef=ef, expand=expand, stop=stop)
+        else:
+            nd, ns, adm = gather_score(qb, qn, nbr_vecs, aux, nodes, allowed, sq_thresh, fused)
+            beam_d, beam_s, beam_e, misc, rd2, rs2 = beam_merge_step(
+                beam_d, beam_s, beam_e, nd, ns, res_d, res_s, adm,
+                ef=ef, ew=ew, expand=expand, fused=fused, kr=kr, stop=stop,
+            )
+            if fused:
+                res_d, res_s = rd2, rs2
         nodes = misc[:, :expand].contiguous()
         if (it + 1) % ALIVE_EVERY == 0 and not bool((misc[:, expand] > 0).any()):
             break

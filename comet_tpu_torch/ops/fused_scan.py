@@ -1,15 +1,16 @@
 """Exact flat scan: fused distances + group select (kernel K2), and the
 pipelines around it.
 
-Counterpart of comet_tpu/ops/pallas_scan.py (float32 corpus): the flat
-mode and the nprobe (IVF) mode of `fused_dist_select`, `flat_topk_pipeline`
-and `ivf_topk_pipeline`.
+Counterpart of comet_tpu/ops/pallas_scan.py: the flat mode (float32 or
+bfloat16 corpus) and the nprobe (IVF) mode of `fused_dist_select`,
+`flat_topk_pipeline` and `ivf_topk_pipeline`.
 
 `fused_dist_select` returns the masked, thresholded distance matrix and the
 exact top-kb 128-row groups of every query, ranked by (group minimum,
 group id). On a CUDA tensor the distances and group minima come from the
 kernel of `csrc/fused_scan.cu` (see the note there), counted in `LAUNCHES`
-(flat mode) or `NPROBE_LAUNCHES` (nprobe mode), and the group choice from
+(flat mode), `NPROBE_LAUNCHES` (nprobe mode) or `BF16_LAUNCHES` (the
+flat mode's bf16 operand), and the group choice from
 K1 (ops/sortnet.py). On a CPU tensor both stages run their plain PyTorch
 versions; the device alone decides.
 
@@ -19,6 +20,12 @@ the kb kept groups and selects the exact top-k of those candidates with K1.
 Exactness is the block-select bound of ops/topk.block_topk: with
 contiguous groups, ordering groups by (min, id) is consistent with ordering
 rows by (score, slot), so keeping min(k, n_groups) groups keeps the top-k.
+
+With a bfloat16 corpus (flat `storage="bfloat16"`, pallas_scan.py:82-93)
+the queries are rounded to bf16 for the product, which accumulates the
+exact bf16 products in float32 from 0 in ascending depth (`bf16_dot`, the
+kernel's FMA chain); `qn` stays the norm of the float32 queries
+(pallas_scan.py:187) and the mask the float32 squared norms.
 
 The mask vector carries the validity of each row: for L2 it holds the
 squared norms with +inf on invalid rows, for cosine 0 with +inf on invalid
@@ -41,7 +48,12 @@ import numpy as np
 import torch
 
 from comet_tpu_torch.ops import _build
-from comet_tpu_torch.ops.distance import f32_matmul, pairwise_scores_from_norms, sqrt_f32
+from comet_tpu_torch.ops.distance import (
+    bf16_dot,
+    f32_matmul,
+    pairwise_scores_from_norms,
+    sqrt_f32,
+)
 from comet_tpu_torch.ops.sortnet import topk_rows, use_plain
 from comet_tpu_torch.ops.topk import IDX_SENTINEL
 from comet_tpu_torch.types import DistanceKind
@@ -49,9 +61,11 @@ from comet_tpu_torch.types import DistanceKind
 GROUP = 128   # rows per selection group
 TQ = 256      # queries per pipeline chunk: bounds dist at TQ * N floats
 
-# Kernel launches made by `_fused_scan_cuda`: flat mode, nprobe mode.
+# Kernel launches made by `_fused_scan_cuda`: flat mode, nprobe mode, the
+# flat mode's bf16 operand.
 LAUNCHES = 0
 NPROBE_LAUNCHES = 0
+BF16_LAUNCHES = 0
 
 
 def _probe_words(probes: torch.Tensor, nlist: int) -> torch.Tensor:
@@ -78,9 +92,16 @@ def _probe_member(probes: torch.Tensor, assign: torch.Tensor, nlist: int) -> tor
 def _fused_dist_select_plain(queries, corpus, mask_vec, thr: float, cosine: bool,
                              assign=None, probes=None, nlist: int = 0):
     """Plain PyTorch distances and group minima, in the kernel's order of
-    operations; nprobe mode when `assign` is given. Returns
-    (dist [Q, N], gmin [Q, N // GROUP])."""
-    if cosine:
+    operations; nprobe mode when `assign` is given, the bf16 operand for a
+    bfloat16 corpus. Returns (dist [Q, N], gmin [Q, N // GROUP])."""
+    if corpus.dtype == torch.bfloat16:
+        ip = bf16_dot(queries.to(torch.bfloat16)[:, None, :], corpus[None, :, :])
+        if cosine:
+            dist = (1.0 - torch.clamp(ip, -1.0, 1.0)) + mask_vec[None, :]
+        else:
+            qn = (queries * queries).sum(dim=1, keepdim=True)
+            dist = torch.clamp_min((qn + mask_vec[None, :]) - 2.0 * ip, 0.0)
+    elif cosine:
         dist = pairwise_scores_from_norms(
             queries, corpus, mask_vec, DistanceKind.COSINE
         ) + mask_vec[None, :]
@@ -99,14 +120,16 @@ def _fused_dist_select_plain(queries, corpus, mask_vec, thr: float, cosine: bool
 
 def _fused_scan_cuda(queries, corpus, mask_vec, thr: float, cosine: bool,
                      assign=None, probes=None, nlist: int = 0):
-    """Launch K2 (nprobe mode when `assign` is given). Returns
-    (dist [Q, N], gmin [Q, N // GROUP])."""
-    global LAUNCHES, NPROBE_LAUNCHES
+    """Launch K2 (nprobe mode when `assign` is given, the bf16 operand for a
+    bfloat16 corpus). Returns (dist [Q, N], gmin [Q, N // GROUP])."""
+    global LAUNCHES, NPROBE_LAUNCHES, BF16_LAUNCHES
     lib = _build.library()
     q_n, d = queries.shape
     n = corpus.shape[0]
     dev = queries.device
     qn = (queries * queries).sum(dim=1)
+    bf16 = corpus.dtype == torch.bfloat16
+    q = queries.to(torch.bfloat16).contiguous() if bf16 else queries
     words, n_words = None, 0
     if assign is not None:
         words = _probe_words(probes, nlist)
@@ -114,14 +137,16 @@ def _fused_scan_cuda(queries, corpus, mask_vec, thr: float, cosine: bool,
     dist = torch.empty((q_n, n), dtype=torch.float32, device=dev)
     gmin = torch.empty((q_n, n // GROUP), dtype=torch.float32, device=dev)
     code = lib.comet_fused_scan(
-        queries.data_ptr(), qn.data_ptr(), corpus.data_ptr(),
-        mask_vec.data_ptr(), thr, q_n, n, d, int(cosine),
+        q.data_ptr(), qn.data_ptr(), corpus.data_ptr(),
+        mask_vec.data_ptr(), thr, q_n, n, d, int(cosine), int(bf16),
         assign.data_ptr() if assign is not None else None,
         words.data_ptr() if words is not None else None, n_words,
         dist.data_ptr(), gmin.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if assign is None:
+    if bf16:
+        BF16_LAUNCHES += 1
+    elif assign is None:
         LAUNCHES += 1
     else:
         NPROBE_LAUNCHES += 1
@@ -131,7 +156,7 @@ def _fused_scan_cuda(queries, corpus, mask_vec, thr: float, cosine: bool,
 
 def fused_dist_select(
     queries: torch.Tensor,    # [Q, d] float32
-    corpus: torch.Tensor,     # [N, d] float32, N % GROUP == 0
+    corpus: torch.Tensor,     # [N, d] float32 or bfloat16, N % GROUP == 0
     mask_vec: torch.Tensor,   # [N] float32 additive mask (+inf = invalid)
     threshold: float,         # +inf disables
     kb: int,                  # groups to keep per query
@@ -151,7 +176,7 @@ def fused_dist_select(
     if mask_vec.shape != (n,):
         raise ValueError(f"mask_vec must be [{n}], got {tuple(mask_vec.shape)}")
     for name, t in (("queries", queries), ("corpus", corpus), ("mask_vec", mask_vec)):
-        if t.dtype != torch.float32:
+        if t.dtype != torch.float32 and not (name == "corpus" and t.dtype == torch.bfloat16):
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if t.device != queries.device:
             raise ValueError(f"{name} is on {t.device}, queries on {queries.device}")
@@ -159,6 +184,8 @@ def fused_dist_select(
         raise ValueError(f"kb={kb} outside [1, {n // GROUP}]")
     if (assign is None) != (probes is None):
         raise ValueError("nprobe mode needs both assign and probes")
+    if assign is not None and corpus.dtype != torch.float32:
+        raise ValueError("nprobe mode needs a float32 corpus")
     if assign is not None:
         if assign.shape != (n,) or assign.dtype != torch.int32:
             raise ValueError(f"assign must be int32 [{n}], got {assign.dtype} {tuple(assign.shape)}")
@@ -209,7 +236,7 @@ def _chunk_topk(qc, corpus, mask_vec, thr, k, kb, cosine, sqrt_out,
 
 def flat_topk_pipeline(
     queries: torch.Tensor,    # [Q, d] float32
-    corpus: torch.Tensor,     # [N, d] float32
+    corpus: torch.Tensor,     # [N, d] float32 or bfloat16
     mask_vec: torch.Tensor,   # [N] float32 additive mask
     threshold: float,         # on the SQUARED distance for L2; +inf disables
     k: int,

@@ -353,3 +353,166 @@ def test_loop_exit_matches_early_exit(every, monkeypatch):
     np.testing.assert_array_equal(ps, rs)
     np.testing.assert_allclose(pd, rd, rtol=1e-4, atol=1e-4)
     assert (len(calls) == 48) == (every == 1000)
+
+
+# -- the packed table and K5 -----------------------------------------------------------
+
+
+def _bits16(t):
+    """bf16 tensor / array -> its raw 16 bits as int64 numpy."""
+    if isinstance(t, torch.Tensor):
+        return t.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    return np.asarray(t).view(np.uint16).astype(np.int64)
+
+
+@pytest.mark.parametrize("cap", [512, 20000])
+def test_packed_table_and_row_updates_match_reference(cap):
+    """build_packed_table, update_packed_rows and update_blocked_rows give
+    the reference's bf16 bits (Gaussian data: the bf16 rounding is part of
+    the comparison)."""
+    rng = np.random.default_rng(cap + 1)
+    n, w, d = 400, 8, 16
+    vectors = np.zeros((cap, d), np.float32)
+    vectors[:n] = rng.normal(size=(n, d))
+    sqn = (vectors * vectors).sum(axis=1).astype(np.float32)
+    adj = rng.integers(-1, n, size=(cap, w)).astype(np.int32)
+    adj[7, 3] = cap - 1
+    j = lambda a: jnp.asarray(a)  # noqa: E731
+    t = torch.from_numpy
+    rp = ref.build_packed_table(j(adj), j(vectors), j(sqn))
+    pp = bk.build_packed_table(t(adj), t(vectors), t(sqn), chunk=100)
+    np.testing.assert_array_equal(_bits16(pp), _bits16(rp))
+    assert pp.shape == (cap, w * d + (1 + bk._aux_digits(cap)) * w)
+    assert bk._table_width(pp, d) == ref._table_width(rp, d) == w
+    rows = np.array([3, 17, 64, 101], np.int64)
+    adj2 = adj.copy()
+    adj2[rows] = rng.integers(-1, n, size=(len(rows), w))
+    rp2 = ref.update_packed_rows(rp, j(rows), j(adj2[rows]), j(vectors), j(sqn))
+    pp2 = bk.update_packed_rows(pp, t(rows), t(adj2[rows]), t(vectors), t(sqn))
+    np.testing.assert_array_equal(_bits16(pp2), _bits16(rp2))
+    np.testing.assert_array_equal(_bits16(pp2), _bits16(bk.build_packed_table(
+        t(adj2), t(vectors), t(sqn))))
+    rv, ra = ref.build_blocked_tables(j(adj), j(vectors), j(sqn))
+    rv2, ra2 = ref.update_blocked_rows(rv, ra, j(rows), j(adj2[rows]), j(vectors), j(sqn))
+    pv, pa = bk.build_blocked_tables(t(adj), t(vectors), t(sqn))
+    pv2, pa2 = bk.update_blocked_rows(pv, pa, t(rows), t(adj2[rows]), t(vectors), t(sqn))
+    np.testing.assert_array_equal(_bits16(pv2), _bits16(rv2))
+    np.testing.assert_array_equal(_bits16(pa2), _bits16(ra2))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_gather_score_packed_matches_blocked_and_reference(fused):
+    """The packed layout scores bit-equal to the blocked one and to the
+    reference's packed `_gather_score`; W = 4, d = 16, cap 512 makes rows
+    of 152 bytes, most of them off a 16-byte boundary."""
+    rng = np.random.default_rng(14)
+    n, cap, w, d, e = 300, 512, 4, 16, 4
+    vectors, sqn, adj = _graph(rng, n, cap, w, d)
+    t = torch.from_numpy
+    packed = bk.build_packed_table(t(adj), t(vectors), t(sqn))
+    nv, aux = bk.build_blocked_tables(t(adj), t(vectors), t(sqn))
+    q = rng.integers(0, 256, size=(Q, d)).astype(np.float32)
+    nodes = rng.integers(-1, n, size=(Q, e)).astype(np.int32)
+    nodes[0] = -1
+    qn = (q * q).sum(axis=1)
+    qb = t(q).to(torch.bfloat16)
+    allowed = t(rng.random(cap) < 0.7)
+    got = bk.gather_score(qb, t(qn), packed, None, t(nodes), allowed, 3e5, fused)
+    want = bk.gather_score(qb, t(qn), nv, aux, t(nodes), allowed, 3e5, fused)
+    for g, wv in zip(got, want):
+        assert (g is None) == (wv is None)
+        if g is not None:
+            assert torch.equal(g, wv)
+    rpk = ref.build_packed_table(jnp.asarray(adj), jnp.asarray(vectors), jnp.asarray(sqn))
+    rnd, rns, _ = ref._gather_score(jnp.asarray(q).astype(jnp.bfloat16), jnp.asarray(qn), rpk,
+                                    None, jnp.asarray(nodes.T), e * w)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(rnd).T)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(rns).T)
+    assert np.isinf(got[0].numpy()[0]).all() and np.isfinite(got[0].numpy()).any()
+
+
+def _fuse_case():
+    """The reference test's shape (tests/test_beam_kernel.py): cap 512,
+    d 16, W 4, E 4, ef 32, 128 queries; small integers, holes in the
+    adjacency and finished queries."""
+    rng = np.random.default_rng(15)
+    cap, d, w, e, ef = 512, 16, 4, 4, 32
+    vectors = rng.integers(-2, 3, size=(cap, d)).astype(np.float32)
+    sqn = (vectors * vectors).sum(axis=1).astype(np.float32)
+    adj = rng.integers(0, cap, size=(cap, w)).astype(np.int32)
+    adj[rng.random(size=adj.shape) < 0.2] = -1
+    queries = rng.integers(-2, 3, size=(Q, d)).astype(np.float32)
+    nodes = rng.integers(0, cap, size=(e, Q)).astype(np.int32)
+    nodes[rng.random(size=nodes.shape) < 0.15] = -1
+    beam = make_state(rng, ef, e * w, Q, cap=cap)[:3]
+    return vectors, sqn, adj, queries, nodes, beam, ef, e
+
+
+@lru_cache(maxsize=None)
+def _ref_fused_expand(stop):
+    vectors, sqn, adj, queries, nodes, beam, ef, e = _fuse_case()
+    packed = ref.build_packed_table(jnp.asarray(adj), jnp.asarray(vectors), jnp.asarray(sqn))
+    rows = packed[jnp.maximum(jnp.asarray(nodes), 0)]
+    qb = jnp.asarray(queries).astype(jnp.bfloat16)
+    qn = jnp.asarray((queries * queries).sum(axis=1))
+    out = ref.fused_expand_merge(
+        jnp.asarray(nodes), rows, qb, qn, *(jnp.asarray(a) for a in beam), ef=ef, W=adj.shape[1],
+        d=vectors.shape[1], ndig=ref._aux_digits(len(adj)), expand=e, stop=stop, interpret=True)
+    return [np.asarray(a) for a in out]
+
+
+@pytest.mark.parametrize("stop", [None, 16])
+def test_fused_expand_merge_matches_reference(stop):
+    """K5's plain version (the CPU path of fused_expand_merge) against the
+    reference's Pallas kernel in interpret mode, and against the port's
+    split pair."""
+    vectors, sqn, adj, queries, nodes, beam, ef, e = _fuse_case()
+    t = torch.from_numpy
+    packed = bk.build_packed_table(t(adj), t(vectors), t(sqn))
+    qb = t(queries).to(torch.bfloat16)
+    qn = t((queries * queries).sum(axis=1))
+    bd, bs, be = (_t(a) for a in beam)
+    nt = _t(nodes)
+    got = bk.fused_expand_merge(nt, packed, qb, qn, bd, bs, be, ef=ef, expand=e, stop=stop)
+    for g, r in zip(got, _ref_fused_expand(stop)):
+        np.testing.assert_array_equal(g.numpy(), r.T)
+    nd, ns, _ = bk.gather_score(qb, qn, packed, None, nt, None, np.inf, False)
+    split = bk.beam_merge_step(bd, bs, be, nd, ns, ef=ef, ew=e * adj.shape[1], expand=e,
+                               fused=False, stop=stop)
+    for g, sv in zip(got, split):
+        assert torch.equal(g, sv)
+
+
+def _port_search_layout(case, layout):
+    fused, thr, seeded, stop, starved = CASES[case]
+    vectors, sqn, adj, queries, entry, allowed = _search_graph()
+    t = torch.from_numpy
+    if layout == "blocked":
+        nv, aux = bk.build_blocked_tables(t(adj), t(vectors), t(sqn))
+    else:
+        nv, aux = bk.build_packed_table(t(adj), t(vectors), t(sqn)), None
+    seeds = tuple(t(a) for a in _seeds(list(starved))) if seeded else None
+    allow = allowed if fused else np.ones(CAP_G, bool)
+    sd, ss = bk.beam_search_blocked(
+        t(queries), t(entry), nv, aux, t(vectors), t(sqn), t(allow),
+        float(np.float32(_threshold())) if thr else float("inf"), EF, K, E, 48, fused,
+        seeds=seeds, stop=stop, fuse=layout == "fused")
+    return sd.numpy(), ss.numpy()
+
+
+@pytest.mark.parametrize("layout", ["packed", "fused"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_search_layouts_match_blocked(case, layout, monkeypatch):
+    """Whole searches over the packed table, split or with K5 (which the
+    result-set cases leave to the split path, as the reference does),
+    array-equal to the blocked search and to the reference."""
+    calls = []
+    real = bk.fused_expand_merge
+    monkeypatch.setattr(bk, "fused_expand_merge", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    pd, ps = _port_search_layout(case, layout)
+    bd, bs = _port_search_layout(case, "blocked")
+    np.testing.assert_array_equal(ps, bs)
+    np.testing.assert_array_equal(pd, bd)
+    rd, rs = _ref_search(case)
+    np.testing.assert_array_equal(ps, rs)
+    assert bool(calls) == (layout == "fused" and not CASES[case][0])

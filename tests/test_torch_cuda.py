@@ -460,17 +460,162 @@ def test_hnsw_index_cuda_matches_plain_and_cpu(dev, seeded, monkeypatch):
 
 
 def test_hnsw_cuda_raises_where_the_port_has_no_path(dev, monkeypatch):
+    """The calls that raised before insertion, the packed table, K5 and the
+    graph beam were ported now run on the card: an add below the bulk-build
+    size, the fused switch, and a table past the cap (graph beam)."""
     import comet_tpu_torch.indexes.hnsw as hnsw
-    from comet_tpu_torch import HNSWIndex, InvalidConfigError
+    from comet_tpu_torch import HNSWIndex
 
     x = np.random.default_rng(2).integers(0, 256, size=(5000, 16)).astype(np.float32)
     idx = HNSWIndex(16, DistanceKind.L2, device="cuda")
-    with pytest.raises(InvalidConfigError, match="ROADMAP"):
-        idx.add_batch(x[:100])
+    idx.add_batch(x[:100])
+    assert idx.count() == 100
     monkeypatch.setenv("COMET_HNSW_FUSE", "1")
-    with pytest.raises(InvalidConfigError, match="ROADMAP"):
-        idx.add_batch(x)
+    fused = HNSWIndex(16, DistanceKind.L2, device="cuda")
+    fused.add_batch(x)
+    assert fused.search_batch(x[:5], k=1)[1][:, 0].tolist() == [0.0] * 5
     monkeypatch.delenv("COMET_HNSW_FUSE")
     monkeypatch.setattr(hnsw, "BLOCKED_TABLE_BYTES_MAX", 1 << 10)
-    with pytest.raises(InvalidConfigError, match="BLOCKED_TABLE_BYTES_MAX"):
-        HNSWIndex(16, DistanceKind.L2, device="cuda").add_batch(x)
+    big = HNSWIndex(16, DistanceKind.L2, device="cuda")
+    big.add_batch(x)
+    assert big.search_batch(x[:5], k=1)[1][:, 0].tolist() == [0.0] * 5
+
+
+# -- the packed table, K5, K2's bf16 operand -------------------------------------------
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("d,w", [(128, 32), (16, 4), (100, 12)])
+def test_gather_score_packed_kernel_matches_plain(dev, d, w, fused):
+    """The packed layout bit-equal to its plain version and to the blocked
+    layout; d = 16, W = 4 gives 152-byte rows (cap 4096, ndig 2), so most
+    rows start off a 16-byte boundary."""
+    bk, rng, x, q, adj, sqn, _, _, _ = _seed_loop_case(dev, d=d, w=w)
+    n = x.shape[0]
+    nodes = torch.from_numpy(rng.integers(-1, n, size=(q.shape[0], 8)).astype(np.int32)).to(dev)
+    adj[nodes[0, 0].clamp_min(0).long(), w // 2:] = -1
+    nbr_vecs, aux = bk.build_blocked_tables(adj, x, sqn)
+    packed = bk.build_packed_table(adj, x, sqn)
+    allowed = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    qb, qn = q.to(torch.bfloat16), (q * q).sum(dim=1)
+    before = (bk.SCORE_LAUNCHES, bk.PACKED_SCORE_LAUNCHES)
+    got = bk.gather_score(qb, qn, packed, None, nodes, allowed, 250.0, fused)
+    torch.cuda.synchronize()
+    assert (bk.SCORE_LAUNCHES, bk.PACKED_SCORE_LAUNCHES) == (before[0], before[1] + 1)
+    want = bk._gather_score_plain(qb, qn, packed, None, nodes, allowed, 250.0, fused)
+    blocked = bk.gather_score(qb, qn, nbr_vecs, aux, nodes, allowed, 250.0, fused)
+    for g, wv, b in zip(got, want, blocked):
+        assert (g is None) == (wv is None) == (b is None)
+        if g is not None:
+            assert torch.equal(g, wv) and torch.equal(g, b)
+
+
+@pytest.mark.parametrize("q_n,ef,expand,w,d,stop", [
+    (2048, 256, 8, 32, 128, None), (2048, 256, 8, 32, 128, 64), (300, 64, 4, 8, 16, 16),
+    (130, 32, 23, 4, 16, None),
+])
+def test_fused_expand_kernel_matches_plain(dev, q_n, ef, expand, w, d, stop):
+    """K5 bit-equal to its plain version (the split pair's plain versions)
+    and to the split pair's kernels, on Gaussian data and a random beam."""
+    from comet_tpu_torch.ops import beam_kernel as bk
+
+    rng = np.random.default_rng(q_n + ef + d)
+    n = 4096
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32)).to(dev)
+    adj = torch.from_numpy(rng.integers(-1, n, size=(n, w)).astype(np.int32)).to(dev)
+    sqn = (x * x).sum(dim=1)
+    packed = bk.build_packed_table(adj, x, sqn)
+    state = [torch.from_numpy(a).to(dev) for a in _merge_state(rng, q_n, ef, 8, cap=n)]
+    nodes = torch.from_numpy(rng.integers(-1, n, size=(q_n, expand)).astype(np.int32)).to(dev)
+    qb, qn = q.to(torch.bfloat16), (q * q).sum(dim=1)
+    before = bk.FUSE_LAUNCHES
+    got = bk.fused_expand_merge(nodes, packed, qb, qn, *state[:3], ef=ef, expand=expand,
+                                stop=stop)
+    torch.cuda.synchronize()
+    assert bk.FUSE_LAUNCHES == before + 1
+    want = bk._fused_expand_plain(nodes, packed, qb, qn, *state[:3], ef, expand, stop or ef)
+    nd, ns, _ = bk.gather_score(qb, qn, packed, None, nodes, None, float("inf"), False)
+    split = bk.beam_merge_step(*state[:3], nd, ns, ef=ef, ew=expand * w, expand=expand,
+                               fused=False, stop=stop)
+    for g, wv, sv in zip(got, want, split):
+        assert torch.equal(g, wv) and torch.equal(g, sv)
+    assert (got[3][:, expand] == 1).any()
+
+
+@pytest.mark.parametrize("cosine", [False, True])
+@pytest.mark.parametrize("q_n,n,d", [(300, 4096, 20), (64, 1024, 128), (256, 8192, 128)])
+def test_fused_dist_select_bf16_kernel_matches_plain(dev, cosine, q_n, n, d):
+    """K2's bf16 operand on Gaussian (non-integer) data: bit-equal to the
+    plain version, which sums the exact bf16 products in the kernel's
+    order; launches count apart from the float32 mode's."""
+    rng = np.random.default_rng(q_n + n + cosine)
+    q, x, mask = _scan_inputs(rng, q_n, n, d, True)
+    if not cosine:
+        q, x = q * 3.0, x * 3.0
+        mask = np.where(np.isinf(mask), np.inf, (x * x).sum(axis=1)).astype(np.float32)
+    qt, mt = torch.from_numpy(q).to(dev), torch.from_numpy(mask).to(dev)
+    xb = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+    before = (fused_scan.LAUNCHES, fused_scan.BF16_LAUNCHES)
+    dist, gsel = fused_scan.fused_dist_select(qt, xb, mt, float("inf"), 8, cosine)
+    torch.cuda.synchronize()
+    assert (fused_scan.LAUNCHES, fused_scan.BF16_LAUNCHES) == (before[0], before[1] + 1)
+    want_d, want_gmin = fused_scan._fused_dist_select_plain(qt, xb, mt, float("inf"), cosine)
+    assert torch.equal(dist, want_d)
+    assert torch.equal(gsel, sortnet._topk_rows_plain(want_gmin, None, 8)[1])
+    assert torch.isfinite(dist).any()
+
+
+@pytest.mark.parametrize("rerank", [False, True])
+def test_flat_bf16_index_cuda_matches_cpu(dev, rerank):
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 256, size=(9000, 32)).astype(np.float32)
+    q = rng.integers(0, 256, size=(70, 32)).astype(np.float32)
+    out = []
+    for device in ("cuda", "cpu"):
+        idx = FlatIndex(32, DistanceKind.L2, storage="bfloat16", rerank=rerank, device=device)
+        idx.add_batch(x, ids=range(10, 9010))
+        idx.remove(12)
+        out.append(idx.search_batch(q, k=20) + idx.search_batch(q, k=20, threshold=300.0))
+    for got, want in zip(*out):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("switch", ["COMET_HNSW_PACKED", "COMET_HNSW_FUSE"])
+def test_hnsw_insert_packed_fused_cuda_matches_plain_and_cpu(dev, switch, monkeypatch):
+    """Insertion on the card builds the CPU index's graph (integer data),
+    the in-place tables equal fresh builds, and the packed / fused searches
+    equal the plain beam and the CPU index."""
+    from comet_tpu_torch import HNSWConfig, HNSWIndex
+    from comet_tpu_torch.ops import beam_kernel as bk
+
+    monkeypatch.setenv(switch, "1")
+    monkeypatch.setenv("COMET_HNSW_SEED", "1")
+    rng = np.random.default_rng(23)
+    x = rng.integers(0, 256, size=(7000, 32)).astype(np.float32)
+    q = rng.integers(0, 256, size=(300, 32)).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        idx = HNSWIndex(32, DistanceKind.L2, HNSWConfig(m=8, ef_construction=64, ef_search=64),
+                        device=device)
+        idx.add_batch(x[:5000], ids=range(1, 5001))
+        idx.search_batch(q, k=10)
+        idx.add_batch(x[5000:], ids=range(5001, 7001))
+        out[device] = (idx, idx.search_batch(q, k=10))
+    idx, res = out["cuda"]
+    np.testing.assert_array_equal(idx._adj0, out["cpu"][0]._adj0)
+    vecs, sqn, _ = idx._store.device_state()
+    adj = torch.from_numpy(idx._adj0).to(dev)
+    assert torch.equal(idx._tables[True][0], bk.build_packed_table(adj, vecs, sqn))
+    before = (bk.FUSE_LAUNCHES, bk.PACKED_SCORE_LAUNCHES)
+    again = idx.search_batch(q, k=10)
+    ran = (bk.FUSE_LAUNCHES - before[0], bk.PACKED_SCORE_LAUNCHES - before[1])
+    # an unfiltered search runs K5 alone, or the packed scoring alone
+    assert (ran[0] > 0, ran[1] > 0) == ((True, False) if switch == "COMET_HNSW_FUSE"
+                                        else (False, True))
+    with _plain_versions():
+        plain = idx.search_batch(q, k=10)
+    for got, want, cpu in zip(again, plain, out["cpu"][1]):
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, cpu)
+    np.testing.assert_array_equal(res[0], again[0])

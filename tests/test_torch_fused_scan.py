@@ -91,6 +91,65 @@ def test_fused_dist_select_matches_reference(cosine):
     np.testing.assert_array_equal(gsel, order[:, :KB])
 
 
+@lru_cache(maxsize=None)
+def _ref_fds_bf16(cosine):
+    q, x, mask = _bf16_scan_data(cosine)
+    corpus_t = jnp.asarray(np.ascontiguousarray(x.T)).astype(jnp.bfloat16)
+    dist, gsel = ref.fused_dist_select(
+        jnp.asarray(q), corpus_t, jnp.asarray(mask), jnp.asarray(np.float32(FDS_THR[cosine])), KB,
+        cosine=cosine, interpret=True)
+    return np.asarray(dist), np.asarray(gsel)[0].T
+
+
+def _bf16_scan_data(cosine):
+    """Exact in bf16: small integers (L2) or four +-0.5 entries (cosine)."""
+    if not cosine:
+        return _data(256, 2048, False, seed=12)
+    rng = np.random.default_rng(13)
+    q, x = _signs(rng, 256), _signs(rng, 2048)
+    valid = np.ones(2048, dtype=bool)
+    valid[::7] = False
+    return q, x, np.where(valid, 0.0, np.inf).astype(np.float32)
+
+
+@pytest.mark.parametrize("cosine", [False, True], ids=["l2", "cosine"])
+def test_fused_dist_select_bf16_matches_reference(cosine):
+    """K2's bf16 operand (its plain version here) against the reference's
+    kernel over a bf16 corpus in interpret mode: dist array-equal, the same
+    groups in (min, id) order; qn from the float32 queries."""
+    q, x, mask = _bf16_scan_data(cosine)
+    rdist, rgsel = _ref_fds_bf16(cosine)
+    qt, xt, mt = _torch_args(q, x, mask)
+    dist, gsel = fused_scan.fused_dist_select(qt, xt.to(torch.bfloat16), mt, FDS_THR[cosine],
+                                              KB, cosine)
+    np.testing.assert_array_equal(dist.numpy(), rdist)
+    np.testing.assert_array_equal(np.sort(gsel.numpy(), axis=1), np.sort(rgsel, axis=1))
+    assert np.isinf(rdist[:, ::7]).all() and np.isfinite(rdist).any()
+    # bf16 products, float32 query norms: a query off the bf16 grid
+    qo = torch.from_numpy(q) + 1.0 / 512
+    d_off = fused_scan.fused_dist_select(qo, xt.to(torch.bfloat16), mt, np.inf, KB, cosine)[0]
+    ip = qo.to(torch.bfloat16).float() @ xt.to(torch.bfloat16).float().T
+    want = ((1.0 - ip.clamp(-1, 1)) + mt if cosine
+            else torch.clamp_min(((qo * qo).sum(1, keepdim=True) + mt) - 2.0 * ip, 0.0))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(d_off[fin], want[fin], rtol=1e-6, atol=1e-4)
+
+
+def test_pipeline_bf16_matches_float32_on_exact_data():
+    """flat_topk_pipeline over a bf16 corpus equals the float32 pipeline
+    where bf16 holds the data exactly."""
+    q, x, mask = _data(300, 4096, False, seed=14)
+    qt, xt, mt = _torch_args(q, x, mask)
+    want = fused_scan.flat_topk_pipeline(qt, xt, mt, 500.0, 10, sqrt_out=True)
+    got = fused_scan.flat_topk_pipeline(qt, xt.to(torch.bfloat16), mt, 500.0, 10, sqrt_out=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="float32 corpus"):
+        fused_scan.fused_dist_select(qt[:4], xt.to(torch.bfloat16), mt, 1.0, 4,
+                                     assign=torch.zeros(4096, dtype=torch.int32),
+                                     probes=torch.zeros((4, 1), dtype=torch.int32), nlist=1)
+
+
 def test_infinite_mask_survives_epilogue():
     """+inf rows stay +inf through max(qn + inf - 2ip, 0) and the threshold."""
     q = torch.full((3, 4), 100.0)

@@ -32,7 +32,7 @@ from comet_tpu.ops import beam_kernel as ref_bk
 from comet_tpu.ops import ivf_sparse as ref_sp
 from comet_tpu.ops.distance import preprocess as ref_preprocess
 from comet_tpu.types import DistanceKind as RefKind
-from comet_tpu_torch import DistanceKind, HNSWConfig, HNSWIndex, InvalidConfigError
+from comet_tpu_torch import DistanceKind, HNSWConfig, HNSWIndex
 from comet_tpu_torch.indexes.base import INVALID_ID
 
 from oracle import distances_np, preprocess_np, recall_at_k, topk_np
@@ -336,26 +336,42 @@ def test_bulk_build_through_the_public_api(monkeypatch):
 
 
 def test_unported_paths_raise(monkeypatch):
-    """Incremental insertion, the packed table, the fused expand kernel and
-    a table past the cap raise, naming the roadmap."""
+    """The calls that raised before insertion, the packed table, the fused
+    expand kernel and the graph beam were ported now succeed: an add below
+    the bulk-build size, an add into a non-empty index, a bulk build under
+    each switch, and a table past the cap (tests/test_torch_hnsw_insert.py
+    and tests/test_torch_beam_kernel.py hold them to the reference)."""
     monkeypatch.setattr(port_hnsw, "BULK_BUILD_MIN", 512)
     x, _ = _data("l2")
-    idx = HNSWIndex(D, DistanceKind.L2, HNSWConfig(m=M), device="cpu")
-    with pytest.raises(InvalidConfigError, match="ROADMAP"):
-        idx.add_batch(x[:100])                         # too few for the bulk build
+
+    def cfg():
+        return HNSWConfig(m=M, ef_construction=32, ef_search=32)
+
+    idx = HNSWIndex(D, DistanceKind.L2, cfg(), device="cpu")
+    idx.add_batch(x[:100])                                  # too few for the bulk build
+    assert idx.count() == 100 and idx._max_level >= 0
+    idx = HNSWIndex(D, DistanceKind.L2, cfg(), device="cpu")
     idx.add_batch(x[:600], ids=np.arange(1, 601))
-    with pytest.raises(InvalidConfigError, match="ROADMAP"):
-        idx.add_batch(x[600:1200], ids=np.arange(601, 1201))   # not empty
+    want = idx.search_batch(x[:50], k=5)
+    idx.add_batch(x[600:700], ids=np.arange(601, 701))      # not empty
+    np.testing.assert_array_equal(idx.search_batch(x[600:700], k=1)[0][:, 0],
+                                  np.arange(601, 701))
     for var in ("COMET_HNSW_PACKED", "COMET_HNSW_FUSE"):
         monkeypatch.setenv(var, "1")
-        fresh = HNSWIndex(D, DistanceKind.L2, HNSWConfig(m=M), device="cpu")
-        with pytest.raises(InvalidConfigError, match="ROADMAP"):
-            fresh.add_batch(x[:600], ids=np.arange(1, 601))
+        fresh = HNSWIndex(D, DistanceKind.L2, cfg(), device="cpu")
+        fresh.add_batch(x[:600], ids=np.arange(1, 601))
+        got = fresh.search_batch(x[:50], k=5)
+        assert True in fresh._tables and False not in fresh._tables
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
         monkeypatch.delenv(var)
     monkeypatch.setattr(port_hnsw, "BLOCKED_TABLE_BYTES_MAX", 1 << 10)
-    big = HNSWIndex(D, DistanceKind.L2, HNSWConfig(m=M), device="cpu")
-    with pytest.raises(InvalidConfigError, match="BLOCKED_TABLE_BYTES_MAX"):
-        big.add_batch(x[:600], ids=np.arange(1, 601))
+    big = HNSWIndex(D, DistanceKind.L2, cfg(), device="cpu")
+    big.add_batch(x[:600], ids=np.arange(1, 601))
+    ids, scores = big.search_batch(x[:50], k=1)
+    assert big._tables == {}
+    np.testing.assert_array_equal(ids[:, 0], np.arange(1, 51))
+    np.testing.assert_array_equal(scores[:, 0], 0.0)
 
 
 def test_empty_index_returns_no_rows():
