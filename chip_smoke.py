@@ -47,10 +47,11 @@
    beside the pair; the packed scoring also on 152-byte rows.
 7. HNSW insertion: N_INSERT held-out rows of the same generator added to
    the 1M graph in rounds of 512 (the first grows the capacity to 2^21 and
-   rebuilds the device state; the others update it in place), timed; the
-   blocked and packed tables held equal to fresh builds; seeded, classic
-   and fused searches of the grown index with recall@100 against its exact
-   ids; one `add`; searches after removing 1% of the ids; a cosine index
+   rebuilds the device state; the others update it in place), timed: the
+   first half over the blocked table, the second over the packed one (the
+   index holds one table), each held equal to a fresh build after its
+   half; fused, seeded and classic searches of the grown index with
+   recall@100 against its exact ids; one `add`; searches after removing 1% of the ids; a cosine index
    of 2^16 rows. Every HNSW search's ids and scores must be array-equal to
    the plain beam (the same index with every wrapper on its plain version,
    on the card). K4 (both modes), K3's bf16 mode and the scoring kernel
@@ -910,12 +911,38 @@ def check_k5_packed_scoring(cap_k5, cap_score, report, dev, tag, time_ms):
           f"({report['gather_score_packed']['bound'][1]}) {tag}")
 
 
+def table_equals_fresh_build(index, dev):
+    """The device adjacency against the host graph, and the resident routing
+    table, updated in place, against a fresh build of its layout. Returns
+    the layout's name."""
+    from comet_tpu_torch.ops import beam_kernel as bk
+
+    vecs, sqn, _ = index._store.device_state()
+    adj = torch.from_numpy(index._adj0).to(dev)
+    if not torch.equal(index._dev_adj, adj):
+        raise AssertionError("the device adjacency differs from the host graph")
+    packed, (tab, aux) = index._table
+    if packed:
+        same = aux is None and torch.equal(tab, bk.build_packed_table(adj, vecs, sqn))
+    else:
+        fresh = bk.build_blocked_tables(adj, vecs, sqn)
+        same = torch.equal(tab, fresh[0]) and torch.equal(aux, fresh[1])
+        del fresh
+    del adj, tab, aux
+    torch.cuda.empty_cache()
+    name = "packed" if packed else "blocked"
+    if not same:
+        raise AssertionError(f"the {name} table updated in place differs from a fresh build")
+    return name
+
+
 def insertion_phase(index, queries, extra, dev, tag, time_ms, profile):
     """Part of section 7 of the module docstring: `extra` held-out rows
-    added to the 1M graph in BUILD_SUB_BATCH rounds, the in-place tables
-    against fresh builds, seeded / classic / fused searches on the grown
-    index against the plain beam with recall@K against its exact ids, and
-    one `add`."""
+    added to the 1M graph in BUILD_SUB_BATCH rounds, the first half over the
+    blocked table and the second over the packed one (COMET_HNSW_PACKED=1;
+    the index holds one table), each table after its half against a fresh
+    build; fused / seeded / classic searches on the grown index against the
+    plain beam with recall@K against its exact ids, and one `add`."""
     from comet_tpu_torch import VectorNode
     from comet_tpu_torch.indexes import hnsw as hnsw_mod
     from comet_tpu_torch.ops import beam_kernel as bk
@@ -923,53 +950,59 @@ def insertion_phase(index, queries, extra, dev, tag, time_ms, profile):
 
     n0, cap0 = index._store.n, index._store.capacity
     sub = hnsw_mod.BUILD_SUB_BATCH
-    times = []
+    half = len(extra) // 2
+    times = {"blocked": [], "packed": []}
     for lo in range(0, len(extra), sub):
-        rows = extra[lo: lo + sub]
-        row_ids = np.arange(n0 + 1 + lo, n0 + 1 + lo + len(rows))
-        t0 = time.perf_counter()
-        if profile and lo == sub:      # the second round: in place
-            profile_window(lambda: index.add_batch(rows, ids=row_ids))
-        else:
-            index.add_batch(rows, ids=row_ids)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        layout = "packed" if lo >= half else "blocked"
+        with env_set(COMET_HNSW_PACKED="1" if layout == "packed" else None):
+            if lo == half:
+                checked = table_equals_fresh_build(index, dev)
+                t0 = time.perf_counter()
+                index._routing_tables()        # the switch replaces the blocked table
+                torch.cuda.synchronize()
+                t_switch = time.perf_counter() - t0
+            rows = extra[lo: lo + sub]
+            row_ids = np.arange(n0 + 1 + lo, n0 + 1 + lo + len(rows))
+            t0 = time.perf_counter()
+            if profile and lo == sub:      # the second round: in place
+                profile_window(lambda: index.add_batch(rows, ids=row_ids))
+            else:
+                index.add_batch(rows, ids=row_ids)
+            torch.cuda.synchronize()
+            times[layout].append(time.perf_counter() - t0)
+            if index._table is None or ("packed" if index._table[0] else "blocked") != layout:
+                raise AssertionError(f"the {layout} table is not the one resident")
+    with env_set(COMET_HNSW_PACKED="1"):
+        checked = [checked, table_equals_fresh_build(index, dev)]
     cap = index._store.capacity
-    steady = (len(extra) - sub) / sum(times[1:])
+    first = times["blocked"][0]
+    blocked, packed = times["blocked"][1:], times["packed"]
+    total = first + sum(blocked) + sum(packed)
     print(f"HNSW insertion of {len(extra)} held-out rows into the {n0}-row graph (efC "
-          f"{index.config.ef_construction}, {len(times)} rounds of {sub}): "
-          f"{len(extra) / sum(times):.1f} vectors/s over all rounds; the first round {times[0]:.3f} s (capacity {cap0} -> {cap}, "
-          f"device mirror and the resident tables {sorted(index._tables)} (True = packed) rebuilt "
-          f"at ndig {bk._aux_digits(cap)}); the other rounds {steady:.1f} vectors/s, in place "
-          f"(median round {statistics.median(times[1:]):.3f} s) {tag}")
+          f"{index.config.ef_construction}, {len(extra) // sub} rounds of {sub}, one routing "
+          f"table resident): {len(extra) / total:.1f} vectors/s over all rounds; the first round "
+          f"{first:.3f} s (capacity {cap0} -> {cap}, device mirror and the blocked table rebuilt "
+          f"at ndig {bk._aux_digits(cap)}); blocked rounds 2-{len(blocked) + 1} "
+          f"{len(blocked) * sub / sum(blocked):.1f} vectors/s in place (median round "
+          f"{statistics.median(blocked):.3f} s); the packed table built in {t_switch:.3f} s; "
+          f"packed rounds {len(blocked) + 2}-{len(extra) // sub} "
+          f"{len(packed) * sub / sum(packed):.1f} vectors/s in place (median round "
+          f"{statistics.median(packed):.3f} s) {tag}")
+    print(f"the {' and '.join(checked)} tables updated in place equal fresh builds on the "
+          f"adjacency after their rounds ({index._store.n} rows, capacity {cap})")
     vecs, sqn, valid = index._store.device_state()
-    adj = torch.from_numpy(index._adj0).to(dev)
-    if not torch.equal(index._dev_adj, adj):
-        raise AssertionError("the device adjacency differs from the host graph")
-    if sorted(index._tables) != [False, True]:
-        raise AssertionError(f"both routing tables should be resident: {sorted(index._tables)}")
-    for packed, (tab, aux) in index._tables.items():
-        if packed:
-            same = torch.equal(tab, bk.build_packed_table(adj, vecs, sqn))
-        else:
-            fresh = bk.build_blocked_tables(adj, vecs, sqn)
-            same = torch.equal(tab, fresh[0]) and torch.equal(aux, fresh[1])
-            del fresh
-        torch.cuda.empty_cache()
-        if not same:
-            raise AssertionError(f"the {'packed' if packed else 'blocked'} table updated in place "
-                                 f"differs from a fresh build")
-    print(f"the blocked and packed tables updated in place equal fresh builds on the final "
-          f"adjacency ({index._store.n} rows, capacity {cap})")
-    del adj
     q = torch.from_numpy(queries).to(dev)
     mask = torch.where(valid, sqn, torch.full_like(sqn, float("inf")))
-    true_ids = fused_scan.flat_topk_pipeline(q, vecs, mask, float("inf"), K)[1].cpu().numpy() + 1
+    with uncounted():              # the exact ids are a check, not the main path
+        true_ids = fused_scan.flat_topk_pipeline(q, vecs, mask, float("inf"), K)[1]
+        true_ids = true_ids.cpu().numpy() + 1
     del q, mask
     torch.cuda.empty_cache()
     new_hits = int((true_ids > n0).sum())
-    for name, envs in (("seeded", {}), ("classic", {"COMET_HNSW_SEED": "0"}),
-                       ("fused", {"COMET_HNSW_FUSE": "1"})):
+    # fused first, on the packed table the last rounds kept; then the
+    # blocked table is rebuilt (in the seeded search's first batch)
+    for name, envs in (("fused", {"COMET_HNSW_FUSE": "1"}), ("seeded", {}),
+                       ("classic", {"COMET_HNSW_SEED": "0"})):
         with env_set(**envs):
             ids_, _, first, qps = hnsw_search_checked(index, f"grown {name}", queries,
                                                       rounds=ROUNDS)

@@ -16,7 +16,7 @@ package's).
   candidate pool plus the exact candidates within the round, the nearest M
   as forward edges, batched reverse edges with pruning, upper-layer links
   and entry-point promotion. Each round then writes the touched adjacency
-  rows into the device adjacency and the resident routing tables in place;
+  rows into the device adjacency and the resident routing table in place;
   only a capacity growth or a replaced graph (flush, load) rebuilds them.
 - Search: a lockstep beam over bf16 routing tables (ops/beam_kernel.py),
   blocked by default, packed with COMET_HNSW_PACKED=1; in-loop scoring,
@@ -180,10 +180,10 @@ class HNSWIndex(BaseVectorIndex):
         self._rng = np.random.default_rng(seed)
         self._graph_version = 0
         # device state of the graph, current at (graph version, capacity)
-        # _dev_key: the layer-0 adjacency and the resident routing tables,
-        # {packed: (nbr_vecs, aux or None)}
+        # _dev_key: the layer-0 adjacency and the one resident routing table,
+        # (packed, (nbr_vecs, aux or None)) in the layout last selected
         self._dev_adj = None
-        self._tables: dict[bool, tuple] = {}
+        self._table = None
         self._dev_key = None
         # level >= 1 member tables for the entry choice
         self._dev_l1 = None
@@ -327,21 +327,26 @@ class HNSWIndex(BaseVectorIndex):
 
     def _sync_device(self) -> None:
         """Bring the device state to the current graph and capacity: upload
-        the layer-0 adjacency and rebuild every resident routing table when
-        the graph was replaced or the capacity changed (insertion rounds
-        keep them current in place, `_scatter_device`)."""
+        the layer-0 adjacency and rebuild the resident routing table, in the
+        layout the switch selects, when the graph was replaced or the
+        capacity changed (insertion rounds keep both current in place,
+        `_scatter_device`)."""
         key = (self._graph_version, self._store.capacity)
         if self._dev_key == key:
             return
-        layouts = list(self._tables)
-        self._tables = {}     # free the old state before the new
+        had_table = self._table is not None
+        self._table = None    # free the old state before the new
         self._dev_adj = None
         self._dev_adj = torch.from_numpy(self._adj0).to(self._device)
         self._dev_key = key
-        for packed in layouts:
-            self._build_tables(packed)
+        if had_table:
+            self._build_table(_use_packed_table())
 
-    def _build_tables(self, packed: bool):
+    def _build_table(self, packed: bool):
+        """Build the routing table in one layout, after freeing the resident
+        one: the index holds one table, as the reference does. None when it
+        would pass BLOCKED_TABLE_BYTES_MAX."""
+        self._table = None
         if self._table_bytes(packed) > BLOCKED_TABLE_BYTES_MAX:
             return None
         vecs, sqnorms, _ = self._store.device_state()
@@ -349,26 +354,28 @@ class HNSWIndex(BaseVectorIndex):
             tables = (bk.build_packed_table(self._dev_adj, vecs, sqnorms), None)
         else:
             tables = bk.build_blocked_tables(self._dev_adj, vecs, sqnorms)
-        self._tables[packed] = tables
+        self._table = (packed, tables)
         return tables
 
     def _routing_tables(self):
-        """The routing tables of the current graph in the layout the switch
+        """The routing table of the current graph in the layout the switch
         selects, (nbr_vecs, aux) blocked or (packed, None), built on first
-        use; None when the table would pass BLOCKED_TABLE_BYTES_MAX."""
+        use or when the switch changed; None when the table would pass
+        BLOCKED_TABLE_BYTES_MAX."""
         self._sync_device()
         packed = _use_packed_table()
-        if packed in self._tables:
-            return self._tables[packed]
-        return self._build_tables(packed)
+        if self._table is not None and self._table[0] == packed:
+            return self._table[1]
+        return self._build_table(packed)
 
-    def _scatter_device(self, slots: np.ndarray, touched: np.ndarray, version: int) -> None:
+    def _scatter_device(self, touched: np.ndarray, version: int) -> None:
         """After an insertion round that moved the graph on from `version`:
-        the round's new vectors and touched adjacency rows to the device
-        adjacency and mirror (ops/graph.scatter_graph_update), and the
-        touched rows of every resident routing table, in place. Device state
-        that was not current before the round stays stale and is rebuilt at
-        its next use."""
+        the touched adjacency rows to the device adjacency
+        (ops/graph.scatter_graph_update, with no vector rows: the slot store
+        already wrote the round's vectors and norms into its mirror) and to
+        the resident routing table, in place. Device state that was not
+        current before the round stays stale and is rebuilt at its next
+        use."""
         cap = self._store.capacity
         if self._dev_key != (version, cap):
             return
@@ -376,12 +383,10 @@ class HNSWIndex(BaseVectorIndex):
         vecs, sqnorms, _ = self._store.device_state()
         rows = torch.from_numpy(np.asarray(touched, dtype=np.int64)).to(dev)
         adj_rows = torch.from_numpy(self._adj0[touched]).to(dev)
-        vec_rows = np.asarray(slots, dtype=np.int64)
-        scatter_graph_update(vecs, sqnorms, self._dev_adj,
-                             torch.from_numpy(vec_rows).to(dev),
-                             torch.from_numpy(self._store.vectors[vec_rows]).to(dev),
-                             rows, adj_rows)
-        for packed, (nbr_vecs, aux) in self._tables.items():
+        no_rows = rows[:0]
+        scatter_graph_update(vecs, sqnorms, self._dev_adj, no_rows, vecs[no_rows], rows, adj_rows)
+        if self._table is not None:
+            packed, (nbr_vecs, aux) = self._table
             if packed:
                 bk.update_packed_rows(nbr_vecs, rows, adj_rows, vecs, sqnorms)
             else:
@@ -502,7 +507,6 @@ class HNSWIndex(BaseVectorIndex):
         cfg = self._cfg
         self._sync_device()
         version = self._graph_version
-        all_new = np.array(sub)
         vecs = self._store.vectors[sub]
         touched: set[int] = set()
 
@@ -515,7 +519,7 @@ class HNSWIndex(BaseVectorIndex):
             first, rest = sub[:1], sub[1:]
             if len(rest) == 0:
                 self._graph_version += 1
-                self._scatter_device(all_new, np.asarray([], dtype=np.int64), version)
+                self._scatter_device(np.asarray([], dtype=np.int64), version)
                 return
             sub, sub_levels, vecs = rest, sub_levels[1:], vecs[1:]
             touched.add(int(first[0]))
@@ -600,7 +604,7 @@ class HNSWIndex(BaseVectorIndex):
             self._entry_slot = int(sub[best])
 
         self._graph_version += 1
-        self._scatter_device(all_new, np.fromiter(touched, dtype=np.int64), version)
+        self._scatter_device(np.fromiter(touched, dtype=np.int64), version)
 
     def _batch_reverse_edges(self, adj: np.ndarray, capacity: int, nbr: np.ndarray,
                              new: np.ndarray) -> np.ndarray:

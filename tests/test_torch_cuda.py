@@ -459,7 +459,7 @@ def test_hnsw_index_cuda_matches_plain_and_cpu(dev, seeded, monkeypatch):
         np.testing.assert_array_equal(got, want)
 
 
-def test_hnsw_cuda_raises_where_the_port_has_no_path(dev, monkeypatch):
+def test_hnsw_cuda_insert_fuse_and_graph_beam_paths_run(dev, monkeypatch):
     """The calls that raised before insertion, the packed table, K5 and the
     graph beam were ported now run on the card: an add below the bulk-build
     size, the fused switch, and a table past the cap (graph beam)."""
@@ -606,7 +606,9 @@ def test_hnsw_insert_packed_fused_cuda_matches_plain_and_cpu(dev, switch, monkey
     np.testing.assert_array_equal(idx._adj0, out["cpu"][0]._adj0)
     vecs, sqn, _ = idx._store.device_state()
     adj = torch.from_numpy(idx._adj0).to(dev)
-    assert torch.equal(idx._tables[True][0], bk.build_packed_table(adj, vecs, sqn))
+    packed, (table, aux) = idx._table
+    assert packed and aux is None
+    assert torch.equal(table, bk.build_packed_table(adj, vecs, sqn))
     before = (bk.FUSE_LAUNCHES, bk.PACKED_SCORE_LAUNCHES)
     again = idx.search_batch(q, k=10)
     ran = (bk.FUSE_LAUNCHES - before[0], bk.PACKED_SCORE_LAUNCHES - before[1])

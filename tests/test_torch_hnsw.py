@@ -361,7 +361,7 @@ def test_unported_paths_raise(monkeypatch):
         fresh = HNSWIndex(D, DistanceKind.L2, cfg(), device="cpu")
         fresh.add_batch(x[:600], ids=np.arange(1, 601))
         got = fresh.search_batch(x[:50], k=5)
-        assert True in fresh._tables and False not in fresh._tables
+        assert fresh._table[0] is True
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
         monkeypatch.delenv(var)
@@ -369,7 +369,7 @@ def test_unported_paths_raise(monkeypatch):
     big = HNSWIndex(D, DistanceKind.L2, cfg(), device="cpu")
     big.add_batch(x[:600], ids=np.arange(1, 601))
     ids, scores = big.search_batch(x[:50], k=1)
-    assert big._tables == {}
+    assert big._table is None
     np.testing.assert_array_equal(ids[:, 0], np.arange(1, 51))
     np.testing.assert_array_equal(scores[:, 0], 0.0)
 

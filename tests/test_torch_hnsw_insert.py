@@ -24,12 +24,14 @@ from functools import lru_cache
 
 import numpy as np
 import pytest
+import torch
 
 import comet_tpu.indexes.hnsw as ref_hnsw
 import comet_tpu_torch.indexes.hnsw as port_hnsw
 from comet_tpu.core.node import VectorNode as RefNode
 from comet_tpu.types import DistanceKind as RefKind
 from comet_tpu_torch import DistanceKind, HNSWConfig, HNSWIndex, VectorNode
+from comet_tpu_torch.ops import beam_kernel as port_bk
 
 D, M, EFC, EF = 16, 8, 64, 64
 N_BULK, N_ADD = 600, 700
@@ -137,6 +139,37 @@ def test_single_add_matches_reference():
     assert ids[0, 0] == 90001 and scores[0, 0] == 0.0
 
 
+@pytest.mark.parametrize("packed", [False, True])
+def test_one_routing_table_updated_in_place(packed, monkeypatch):
+    """The index holds one routing table, in the layout the switch selects:
+    an insertion round writes its touched rows into it, to a fresh build's
+    values, and a changed switch replaces it with the other layout, with
+    the same results."""
+    monkeypatch.setenv("COMET_HNSW_PACKED", "1" if packed else "0")
+    _, pc = _copies("bulk")
+    q = _x()[-100:]
+    pc.search_batch(q, k=5)
+    table = pc._table[1][0]
+    x = _x()[N_BULK + N_ADD: N_BULK + N_ADD + 188]
+    pc.add_batch(x, ids=np.arange(50001, 50001 + len(x)))
+    layout, (nbr_vecs, aux) = pc._table
+    assert layout == packed and nbr_vecs is table       # updated, not rebuilt
+    vecs, sqn, _ = pc._store.device_state()
+    adj = torch.from_numpy(pc._adj0)
+    assert torch.equal(pc._dev_adj, adj)
+    if packed:
+        assert aux is None and torch.equal(nbr_vecs, port_bk.build_packed_table(adj, vecs, sqn))
+    else:
+        fresh = port_bk.build_blocked_tables(adj, vecs, sqn)
+        assert torch.equal(nbr_vecs, fresh[0]) and torch.equal(aux, fresh[1])
+    want = pc.search_batch(q, k=5)
+    monkeypatch.setenv("COMET_HNSW_PACKED", "0" if packed else "1")
+    got = pc.search_batch(q, k=5)
+    assert pc._table[0] == (not packed)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 def test_remove_flush_then_add_matches_reference():
     rc, pc = _copies("empty")
     for i in range(3, N_ADD, 7):
@@ -218,7 +251,7 @@ def test_graph_beam_search_matches_reference(scenario, monkeypatch):
             pc.remove(i)
     want = rc.search_batch(q, k=10, **kw)
     got = pc.search_batch(q, k=10, **kw)
-    assert pc._tables == {} and pc._seed_state is None
+    assert pc._table is None and pc._seed_state is None
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     hits = got[0][got[0] != 0xFFFFFFFF]
