@@ -7,8 +7,17 @@
    the sources in this checkout.
 2. Holds each kernel of the flat path against its plain PyTorch version on
    the card at the main path's shapes: K1 (top-k select, csrc/topk.cu) and
-   K2 (fused distance scan, csrc/fused_scan.cu). Times are CUDA-event
-   medians of 5; K1 is also timed against `torch.topk`, its yardstick.
+   K2 (fused distance scan, csrc/fused_scan.cu). K1 is timed at the flat
+   path's two selects on the flat path's own inputs (the group minima of
+   256 queries, [256, 8192] with k = 128, and the candidates of their kept
+   groups, [256, 16384] with k = 100) beside `torch.topk(dim=1,
+   largest=False)`, its yardstick, and in the reference's column layout.
+   Then K1 (widths 1 to 65539, k 1 to 8192, ties, signed zeros, +inf and
+   repeated keys, both layouts) and all three modes of K2 (Q 1-300, d
+   1-128, N 128-4096, with and without a threshold) are held to their plain
+   versions at edge shapes. Times are CUDA-event medians of 5, each launch
+   queued behind a device-side sleep so that the host's enqueue time stays
+   out of it.
 3. Drives the flat path through the public API at the users' size: a
    FlatIndex of 1,048,576 x 128 SIFT-range integer vectors (L2), searched
    with 2048 queries at k = 100. On integer data every float32 distance is
@@ -16,7 +25,8 @@
    (ops/topk.block_topk) on the card and, for 64 queries, to a float64 brute
    force on the host. Then a search with a doc-ID filter and a threshold,
    and a cosine index at the same size. The kernel launches of the L2
-   searches are counted and reported.
+   searches are counted and reported. `--profile` adds a torch.profiler
+   breakdown of two steady batches.
 4. Flat bf16 storage: K2's bf16 operand held bit-equal to its plain version
    on 256 queries x 1M x 128 and timed, then FlatIndex(storage="bfloat16")
    without and with `rerank` at the same size: ids and scores array-equal
@@ -67,6 +77,7 @@ their launches, errors, times and bounds, and the line before that the card.
 """
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -1171,6 +1182,112 @@ def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, 
     return {"report": report, "launches": launches}
 
 
+K1_EDGE_KS = (1, 8, 100, 128, 1000, 8192)
+
+
+def k1_edge_rows(rng, width):
+    """Ten rows: random, values 0..3, all equal, +-0.0 and +inf, and
+    repeated (value, index) pairs, two of each; with their indices."""
+    v = np.empty((10, width), np.float32)
+    v[0:2] = rng.normal(size=(2, width))
+    v[2:4] = rng.integers(0, 4, size=(2, width))
+    v[4:6] = 2.5
+    v[6:8] = rng.choice(np.array([-0.0, 0.0, np.inf], np.float32), size=(2, width))
+    v[8:10] = rng.integers(0, 3, size=(2, width))
+    idx = np.argsort(rng.random((10, width)), axis=1).astype(np.int32)
+    idx[8:10] = rng.integers(0, 5, size=(2, width))
+    return v, idx
+
+
+def k2_edge_cases(q_n, d, n, dev):
+    """K2's three modes at one shape: (name, queries, corpus, mask, kwargs,
+    cosine, exact). Integer data make float32 L2 exact; the bf16 operand is
+    bit-equal to its plain version on any data."""
+    from comet_tpu_torch.ops.distance import preprocess
+    from comet_tpu_torch.types import DistanceKind
+
+    g = np.random.default_rng(q_n * 10007 + d * 101 + n)
+    inf = torch.tensor(float("inf"), device=dev)
+    valid = torch.from_numpy(g.random(n) > 0.1).to(dev)
+    q = torch.from_numpy(g.integers(0, 256, size=(q_n, d)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(g.integers(0, 256, size=(n, d)).astype(np.float32)).to(dev)
+    qg = torch.from_numpy(3.0 * g.normal(size=(q_n, d)).astype(np.float32)).to(dev)
+    xg = torch.from_numpy(3.0 * g.normal(size=(n, d)).astype(np.float32)).to(dev)
+    qc = torch.from_numpy(preprocess(g.normal(size=(q_n, d)).astype(np.float32),
+                                     DistanceKind.COSINE)).to(dev)
+    xc = torch.from_numpy(preprocess(g.normal(size=(n, d)).astype(np.float32),
+                                     DistanceKind.COSINE)).to(dev)
+    zero = torch.zeros((), device=dev)
+    probe = dict(assign=torch.from_numpy(g.integers(-1, 70, size=n).astype(np.int32)).to(dev),
+                 probes=torch.from_numpy(g.integers(0, 70, size=(q_n, 8)).astype(np.int32)).to(dev),
+                 nlist=70)
+    return (
+        ("float32 L2", q, x, torch.where(valid, (x * x).sum(1), inf), {}, False, True),
+        ("float32 cosine", qc, xc, torch.where(valid, zero, inf), {}, True, False),
+        ("nprobe L2", q, x, torch.where(valid, (x * x).sum(1), inf), probe, False, True),
+        ("bf16 L2", qg, xg.to(torch.bfloat16), torch.where(valid, (xg * xg).sum(1), inf), {},
+         False, True),
+        ("bf16 cosine", qc, xc.to(torch.bfloat16), torch.where(valid, zero, inf), {}, True, True),
+    )
+
+
+def edge_checks(dev, rng, tag):
+    """K1 and K2's three modes against their plain versions at edge shapes."""
+    from comet_tpu_torch.ops import fused_scan, sortnet
+
+    t0 = time.perf_counter()
+    n_k1 = 0
+    for k in K1_EDGE_KS:
+        kp = sortnet.k_pow2(k)
+        for w in sorted({1, kp - 1, kp, kp + 1, 4095, 4097, 16384, 16385, 65539}):
+            v, ix = k1_edge_rows(rng, w)
+            vt, it = torch.from_numpy(v).to(dev), torch.from_numpy(ix).to(dev)
+            vc, ic = vt.T.contiguous(), it.T.contiguous()
+            for run, plain in ((lambda: sortnet.topk_rows(vt, it, k), lambda: sortnet._topk_rows_plain(vt, it, k)),
+                               (lambda: sortnet.topk_rows(vt, None, k), lambda: sortnet._topk_rows_plain(vt, None, k)),
+                               (lambda: sortnet.topk_cl(vc, ic, k), lambda: sortnet._topk_cl_plain(vc, ic, k))):
+                before = sortnet.LAUNCHES
+                got = run()
+                if kp <= sortnet.KP_MAX and sortnet.LAUNCHES != before + 1:
+                    raise AssertionError(f"K1 took {sortnet.LAUNCHES - before} launches at width {w}, k {k}")
+                want = plain()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"K1 differs from its plain version at width {w}, k {k}")
+                n_k1 += 1
+    n_k2 = 0
+    k2_err = 0.0
+    for q_n, d, n in itertools.product((1, 127, 128, 129, 300), (1, 3, 20, 100, 128),
+                                       (128, 384, 4096)):
+        kb = min(8, n // 128)
+        for name, q, x, mask, kw, cosine, exact in k2_edge_cases(q_n, d, n, dev):
+            full = fused_scan._fused_dist_select_plain(q, x, mask, float("inf"), cosine, **kw)[0]
+            fin = full[torch.isfinite(full)]
+            thr_cut = float(fin.median()) if fin.numel() else float("inf")
+            for thr in (float("inf"), thr_cut):
+                dist, gsel = fused_scan.fused_dist_select(q, x, mask, thr, kb, cosine, **kw)
+                pdist, pgmin = fused_scan._fused_dist_select_plain(q, x, mask, thr, cosine, **kw)
+                pgsel = sortnet._topk_rows_plain(pgmin, None, kb)[1][:, :kb]
+                where = f"{name} at Q={q_n}, d={d}, N={n}, threshold {thr:g}"
+                if exact:
+                    if not (torch.equal(dist, pdist) and torch.equal(gsel, pgsel)):
+                        raise AssertionError(f"K2 {where} differs from its plain version")
+                else:
+                    both = torch.isfinite(dist) & torch.isfinite(pdist)
+                    torch.testing.assert_close(dist[both], pdist[both], rtol=1e-5, atol=1e-6)
+                    flip = torch.isfinite(dist) != torch.isfinite(pdist)
+                    near = torch.where(torch.isfinite(dist), dist, pdist)[flip]
+                    if ((near - thr).abs() > 1e-6 + 1e-5 * abs(thr)).any():
+                        raise AssertionError(f"K2 {where}: a masked entry differs")
+                    if both.any():
+                        k2_err = max(k2_err, (dist[both] - pdist[both]).abs().max().item())
+                n_k2 += 1
+    torch.cuda.synchronize()
+    print(f"edge shapes: K1 equal to its plain version in {n_k1} selects (k {K1_EDGE_KS}, "
+          f"widths 1-65539, both layouts and idx=None, one launch each for k_pow2 <= "
+          f"{sortnet.KP_MAX}); K2's float32, nprobe and bf16 modes equal to their plain "
+          f"versions in {n_k2} scans (cosine float32 allclose(1e-5, 1e-6), max abs err "
+          f"{k2_err:.3g}) ({time.perf_counter() - t0:.1f} s) {tag}")
+
 
 def sortnet_rows_plain(gmin, kb):
     from comet_tpu_torch.ops import sortnet
@@ -1182,8 +1299,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace two steady IVF and HNSW batches and one insertion round "
-                         "with torch.profiler")
+                    help="trace two steady flat, IVF and HNSW batches and one insertion "
+                         "round with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1220,6 +1337,7 @@ def main():
         for _ in range(reps):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)   # the launch is queued while the card sleeps
             a.record()
             fn()
             b.record()
@@ -1320,8 +1438,37 @@ def main():
     k2_bytes = 4 * (256 * DIM + N * DIM + N + 256 * N + 256 * (N // 128))
     report["fused_dist_select"] = dict(err=k2_err, ms=k2_ms, plain_ms=k2_plain, library_ms=None,
                                        bound=bound(k2_bytes, 2 * 256 * N * DIM))
-    del q_dev, invalid
+
+    # K1 at the flat path's two selects, on the flat path's own inputs: the
+    # group minima of 256 queries and the candidates of their kept groups
+    dist, gmin = fused_scan._fused_scan_cuda(q_dev, x_dev, (x_dev * x_dev).sum(dim=1),
+                                             float("inf"), False)
+    gsel = sortnet._topk_rows_plain(gmin, None, 128)[1]
+    cand = torch.gather(dist.view(256, N // 128, 128), 1,
+                        gsel.long()[:, :, None].expand(256, 128, 128)).reshape(256, 128 * 128)
+    cidx = (gsel[:, :, None] * 128
+            + torch.arange(128, dtype=torch.int32, device=dev)).reshape(256, 128 * 128)
+    del dist
+    for what, vals, idx, k in (("group select", gmin, None, 128),
+                               ("candidate select", cand, cidx, K)):
+        gv, gi = sortnet.topk_rows(vals, idx, k)
+        pv, pi = sortnet._topk_rows_plain(vals, idx, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(gi, pi) and torch.equal(gv, pv)):
+            raise AssertionError(f"K1 {what} differs from its plain version")
+        ms = time_ms(lambda: sortnet.topk_rows(vals, idx, k))
+        pms = time_ms(lambda: sortnet._topk_rows_plain(vals, idx, k))
+        lms = time_ms(lambda: torch.topk(vals, k, dim=1, largest=False))
+        print(f"K1 topk_rows {what} {list(vals.shape)} k={k}"
+              f"{', idx=None' if idx is None else ''}: equal to plain; kernel {ms:.4f} ms, "
+              f"plain {pms:.3f} ms, torch.topk(dim=1, largest=False) {lms:.4f} ms {tag}")
+    # the candidates' values and indices read once, k_pow2 = 128 keys of each row written
+    report["topk_cl"] = dict(err=k1_err, ms=ms, plain_ms=pms, library_ms=lms,
+                             bound=bound(256 * 128 * 128 * 8 + 256 * 128 * 8, 0))
+    del q_dev, invalid, gmin, gsel, cand, cidx
     torch.cuda.empty_cache()
+
+    edge_checks(dev, rng, tag)
 
     # -- 3. the main path at the users' size ----------------------------------
     ids = np.arange(1, N + 1, dtype=np.uint32)
@@ -1350,6 +1497,8 @@ def main():
         raise AssertionError("repeated searches differ")
     if got_ids.shape != (BATCH, K) or not np.isfinite(got_scores).all():
         raise AssertionError(f"bad result shape {got_ids.shape} or non-finite scores")
+    if args.profile:
+        profile_window(lambda: [index.search_batch(queries, k=K) for _ in range(2)])
 
     qs_all = torch.from_numpy(queries).to(dev)
     all_valid = torch.ones(N, dtype=torch.bool, device=dev)

@@ -22,29 +22,30 @@
 //
 // What bounds it on an H100: 2 * Q * N * d float32 operations against a
 // Q * N * 4-byte distance write and an N * d * 4-byte corpus read per
-// query block, so at d = 128 the CUDA-core FMA rate bounds it (about 64
-// operations per byte written). In nprobe mode the function needs only the
-// products of rows in a query's probed clusters (about 1 % of them at
-// nprobe 10 of 1024 lists), so the distance write bounds it; this kernel
-// still computes every product, adding one 4-byte cluster id per row and
-// one bit test per distance, and so takes the flat mode's time.
+// 128-query block, so at d = 128 the CUDA-core FMA rate bounds it (256 x 1M
+// x 128 is 68.7 GFLOP, 1.026 ms at 67 TFLOP/s; the 1 GiB distance write
+// alone is 0.32 ms). In nprobe mode the function needs only the products
+// of rows in a query's probed clusters (about 1 % of them at nprobe 10 of
+// 1024 lists), so the distance write bounds it; this kernel still computes
+// every product, adding one 4-byte cluster id per row and one bit test per
+// distance, and so takes the flat mode's time. The bf16 operand halves the
+// corpus bytes; the CUDA-core FMA rate bounds it as in float32 (the TPU's
+// bf16 MXU pass has no counterpart here: a tensor-core product would sum
+// in another order).
 //
-// bf16 operand: the same tile with T = bf16_t. scan_tile.cuh widens bf16
-// to float32 as it stages the slices, so each distance is the `dot_fma`
-// chain from 0 in ascending depth over exact bf16 products, the order of
-// ops/distance.bf16_dot, the plain version's. Bytes halve on the corpus;
-// the CUDA-core FMA rate bounds it as in float32 (the TPU's bf16 MXU pass
-// has no counterpart here: a tensor-core product would sum in another
-// order).
-//
-// Design: a classic register-tiled product (scan_tile.cuh). A block owns
-// 64 queries x 128 corpus rows (exactly one selection group), stages
-// 32-wide slices of the depth through shared memory, and each of its 256
-// threads accumulates a 4 x 8 tile in registers. The epilogue reduces each
-// thread's 8 distances to a minimum and finishes the group minimum with
-// warp shuffles, so gmin costs no extra pass over dist. Blocks are ordered
-// query-block fastest, so the blocks that read one corpus tile run close
-// together and share it through L2.
+// Design: the register-tiled product of fused_tile.cuh (see the note
+// there): a block owns 128 queries x 128 corpus rows (exactly one
+// selection group), 256 threads each accumulate an 8 x 8 tile, 16-deep
+// slices are double-buffered in shared memory with the next slice's loads
+// in flight during this slice's FMAs. Each distance is the `dot_fma` chain
+// from 0 in ascending depth, as in the 64 x 128 tile of scan_tile.cuh that
+// K3 still uses, so both give bit-equal distances. The epilogue reduces
+// each thread's 8 distances of a query to a minimum and finishes the group
+// minimum with warp shuffles, so gmin costs no extra pass over dist. Blocks
+// are ordered query-block fastest, so the blocks that read one corpus tile
+// run close together and share it through L2. No TF32 and no tensor-core
+// product: a lower-precision product or another sum order flips neighbour
+// order (ops/distance.py).
 //
 // nprobe mode: the Pallas kernel ORs nprobe compares per element. Here the
 // wrapper turns each query's probes into a bitmask of ceil(nlist / 32)
@@ -54,29 +55,60 @@
 // read-only cache, where a 256-query chunk's masks (256 x nlist / 8 bytes)
 // stay resident.
 
-#include "scan_tile.cuh"
+#include <stdint.h>
+#include <stdlib.h>
 
-template <int MODE, typename T>
-__global__ void __launch_bounds__(SCAN_THREADS) fused_scan_kernel(
+#include "fused_tile.cuh"
+
+template <int MODE, typename T, bool VEC, bool ASYNC>
+__global__ void __launch_bounds__(FT_THREADS, 2) fused_scan_kernel(
     const T* __restrict__ q, const float* __restrict__ qn,
     const T* __restrict__ x, const float* __restrict__ mask, float thr,
     int Q, int N, int d, int cosine, const int* __restrict__ assign,
     const unsigned* __restrict__ words, int n_words,
     float* __restrict__ dist, float* __restrict__ gmin)
 {
-    const int n_qblocks = (Q + SCAN_BM - 1) / SCAN_BM;
+    const int n_qblocks = (Q + FT_BM - 1) / FT_BM;
     const int qb = blockIdx.x % n_qblocks;
     const int g = blockIdx.x / n_qblocks;
-    const int q0 = qb * SCAN_BM;
-    const long long n0 = (long long)g * SCAN_BN;
-    scan_tile<MODE, T>(
-        q + (long long)q0 * d, qn + q0, min(SCAN_BM, Q - q0),
+    const int q0 = qb * FT_BM;
+    const long long n0 = (long long)g * FT_BN;
+    fused_tile<MODE, T, VEC, ASYNC>(
+        q + (long long)q0 * d, qn + q0, min(FT_BM, Q - q0),
         x + n0 * d, mask + n0, d, thr, cosine,
         MODE == SCAN_ROW_BITS ? assign + n0 : nullptr,
-        MODE == SCAN_ROW_BITS ? words + (long long)q0 * n_words : nullptr,
-        n_words, nullptr,
+        MODE == SCAN_ROW_BITS ? words + (long long)q0 * n_words : nullptr, n_words,
         dist + (long long)q0 * N + n0, N,
-        gmin + (long long)q0 * (N / SCAN_BN) + g, N / SCAN_BN);
+        gmin + (long long)q0 * (N / FT_BN) + g, N / FT_BN);
+}
+
+template <int MODE, typename T>
+static void launch(unsigned blocks, cudaStream_t s, const void* q, const float* qn,
+                   const void* x, const float* mask, float thr, int Q, int N, int d,
+                   int cosine, const int* assign, const unsigned* words, int n_words,
+                   float* dist, float* gmin)
+{
+    // 16-byte loads need 16-byte aligned rows
+    const bool vec = d % (16 / sizeof(T)) == 0 &&
+        ((uintptr_t)q % 16 == 0) && ((uintptr_t)x % 16 == 0);
+    const char* env = getenv("COMET_K2_ASYNC");
+    if constexpr (sizeof(T) == 4) {
+        if (env != nullptr && env[0] == '1') {
+            fused_scan_kernel<MODE, T, false, true><<<blocks, FT_THREADS, 0, s>>>(
+                (const T*)q, qn, (const T*)x, mask, thr, Q, N, d, cosine, assign, words,
+                n_words, dist, gmin);
+            return;
+        }
+    }
+    if (vec) {
+        fused_scan_kernel<MODE, T, true, false><<<blocks, FT_THREADS, 0, s>>>(
+            (const T*)q, qn, (const T*)x, mask, thr, Q, N, d, cosine, assign, words,
+            n_words, dist, gmin);
+    } else {
+        fused_scan_kernel<MODE, T, false, false><<<blocks, FT_THREADS, 0, s>>>(
+            (const T*)q, qn, (const T*)x, mask, thr, Q, N, d, cosine, assign, words,
+            n_words, dist, gmin);
+    }
 }
 
 // assign == NULL: flat mode; otherwise nprobe mode with `words`, n_words
@@ -88,27 +120,24 @@ extern "C" int comet_fused_scan(
     const unsigned* words, int n_words, float* dist, float* gmin,
     void* stream)
 {
-    if (Q < 1 || N < SCAN_BN || N % SCAN_BN != 0 || d < 1) {
+    if (Q < 1 || N < FT_BN || N % FT_BN != 0 || d < 1) {
         return (int)cudaErrorInvalidValue;
     }
     if (assign != nullptr && (words == nullptr || n_words < 1 || bf16)) {
         return (int)cudaErrorInvalidValue;
     }
-    const long long blocks = (long long)((Q + SCAN_BM - 1) / SCAN_BM) * (N / SCAN_BN);
+    const long long blocks = (long long)((Q + FT_BM - 1) / FT_BM) * (N / FT_BN);
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (bf16) {
-        fused_scan_kernel<SCAN_ALL, bf16_t><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(
-            (const bf16_t*)q, qn, (const bf16_t*)x, mask, thr, Q, N, d, cosine, nullptr,
-            nullptr, 0, dist, gmin);
+        launch<SCAN_ALL, bf16_t>((unsigned)blocks, s, q, qn, x, mask, thr, Q, N, d, cosine,
+                                 nullptr, nullptr, 0, dist, gmin);
     } else if (assign == nullptr) {
-        fused_scan_kernel<SCAN_ALL, float><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(
-            (const float*)q, qn, (const float*)x, mask, thr, Q, N, d, cosine, nullptr,
-            nullptr, 0, dist, gmin);
+        launch<SCAN_ALL, float>((unsigned)blocks, s, q, qn, x, mask, thr, Q, N, d, cosine,
+                                nullptr, nullptr, 0, dist, gmin);
     } else {
-        fused_scan_kernel<SCAN_ROW_BITS, float><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(
-            (const float*)q, qn, (const float*)x, mask, thr, Q, N, d, cosine, assign, words,
-            n_words, dist, gmin);
+        launch<SCAN_ROW_BITS, float>((unsigned)blocks, s, q, qn, x, mask, thr, Q, N, d,
+                                     cosine, assign, words, n_words, dist, gmin);
     }
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
-// The tile product and epilogue shared by K2 (fused_scan.cu) and K3
-// (ivf_sparse.cu).
+// The tile product and epilogue of K3 (ivf_sparse.cu). K2 (fused_scan.cu)
+// runs its own 128 x 128 tile (fused_tile.cuh) with the same sum order and
+// epilogue, built on the definitions here (`dot_fma`, bf16 widening, the
+// probe modes), as are the in-loop scoring kernels (neighbour_score.cuh).
 //
 // One block of SCAN_THREADS threads computes a SCAN_BM x SCAN_BN tile of
 // distances, SCAN_BM queries against SCAN_BN corpus rows (one 128-row

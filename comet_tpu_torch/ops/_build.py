@@ -40,10 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 SIGNATURES = {
-    # vals, idx, in_row, in_col, kin, rows, width, chunk, k, kout,
+    # vals, idx, in_row, in_col, rows, width, kp, scratch,
     # vout, iout, out_row, out_col, stream
-    "comet_topk_pass": [_P, _P, _LL, _LL, _P, _I, _I, _I, _I, _P,
-                        _P, _P, _LL, _LL, _P],
+    "comet_topk_select": [_P, _P, _LL, _LL, _I, _I, _I, _P,
+                          _P, _P, _LL, _LL, _P],
     # vals, idx, in_row, in_col, rows, width, n_pad, k, keys,
     # vout, iout, out_row, out_col, stream
     "comet_topk_rows_global": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P,

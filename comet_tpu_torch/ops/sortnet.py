@@ -7,12 +7,13 @@ selection with a row per query, [L, C] in and [L, k_pow2] out, which is the
 layout the search pipeline produces; its `idx` may be None, meaning the
 index of a candidate is its position in the row.
 
-On a CUDA tensor both launch the kernels of `csrc/topk.cu` (see the note
-there) and count each launch in `LAUNCHES`: one per pass, or, for k above
-CHUNK_MAX / 2, which sorts whole rows in device memory, one to pack the
-keys, one per bitonic stage and one to unpack. On a CPU tensor they run the
-plain PyTorch versions, `_topk_cl_plain` and `_topk_rows_plain`; the
-device alone decides. Any other device raises.
+On a CUDA tensor both launch the kernel of `csrc/topk.cu` (see the note
+there) and count each launch in `LAUNCHES`: one launch per select, a radix
+select per row or, for rows no wider than 2 k_pow2, a direct sort. A k_pow2
+above KP_MAX sorts whole rows in device memory instead: one launch to pack
+the keys, one per bitonic stage and one to unpack. On a CPU tensor they
+run the plain PyTorch versions, `_topk_cl_plain` and `_topk_rows_plain`;
+the device alone decides. Any other device raises.
 
 -0.0 is returned as +0.0 by both versions (it compares equal to +0.0 in
 the ordering, and no distance on the search path is -0.0).
@@ -25,8 +26,8 @@ import torch
 from comet_tpu_torch.ops import _build
 from comet_tpu_torch.ops.topk import IDX_SENTINEL, lexsort_topk
 
-CHUNK_MIN = 4096    # keys per block in a multi-pass select
-CHUNK_MAX = 16384   # keys per block at most: 128 KiB of shared memory
+KP_MAX = 8192       # largest k_pow2 of the one-launch select
+SMEM_KEYS = 16384   # a row's keys held in shared memory at most (128 KiB)
 
 # Kernel launches made by `_topk_cuda`.
 LAUNCHES = 0
@@ -91,9 +92,8 @@ def _same_strides(vals, idx):
 
 
 def _topk_cuda(vals, idx, k, rows, width, in_row, in_col, rows_out):
-    """Launch K1: passes over chunks in shared memory until one chunk per
-    row remains, or, for k above CHUNK_MAX / 2, one sort of whole rows in
-    device memory."""
+    """Launch K1: one select of every row or, for k_pow2 above KP_MAX, one
+    sort of whole rows in device memory."""
     global LAUNCHES
     lib = _build.library()
     kp = k_pow2(k)
@@ -102,12 +102,11 @@ def _topk_cuda(vals, idx, k, rows, width, in_row, in_col, rows_out):
     shape = (rows, kp) if rows_out else (kp, rows)
     out_row, out_col = (kp, 1) if rows_out else (1, rows)
     idx_ptr = idx.data_ptr() if idx is not None else None
-    chunk_max = max(CHUNK_MIN, 2 * kp)
-    if chunk_max > CHUNK_MAX:
+    vout = torch.empty(shape, dtype=torch.float32, device=dev)
+    iout = torch.empty(shape, dtype=torch.int32, device=dev)
+    if kp > KP_MAX:
         n_pad = _next_pow2(max(width, kp))
         keys = torch.empty((rows, n_pad), dtype=torch.int64, device=dev)
-        vout = torch.empty(shape, dtype=torch.float32, device=dev)
-        iout = torch.empty(shape, dtype=torch.int32, device=dev)
         code = lib.comet_topk_rows_global(
             vals.data_ptr(), idx_ptr, in_row, in_col, rows, width, n_pad, kp,
             keys.data_ptr(), vout.data_ptr(), iout.data_ptr(),
@@ -117,33 +116,19 @@ def _topk_cuda(vals, idx, k, rows, width, in_row, in_col, rows_out):
         LAUNCHES += 2 + log_n * (log_n + 1) // 2   # pack, stages, unpack
         _build.check(code, "topk_rows_global")
         return vout, iout
-    keys = None
-    while True:
-        chunk = min(chunk_max, max(_next_pow2(width), kp))
-        n_chunks = -(-width // chunk)
-        final = n_chunks == 1
-        if final:
-            vout = torch.empty(shape, dtype=torch.float32, device=dev)
-            iout = torch.empty(shape, dtype=torch.int32, device=dev)
-            kout = None
-        else:
-            kout = torch.empty((rows, n_chunks * kp), dtype=torch.int64, device=dev)
-        code = lib.comet_topk_pass(
-            vals.data_ptr() if keys is None else None,
-            idx_ptr if keys is None else None,
-            in_row, in_col,
-            keys.data_ptr() if keys is not None else None,
-            rows, width, chunk, kp,
-            kout.data_ptr() if kout is not None else None,
-            vout.data_ptr() if final else None,
-            iout.data_ptr() if final else None,
-            out_row if final else 0, out_col if final else 0, stream,
-        )
-        LAUNCHES += 1
-        _build.check(code, "topk_pass")
-        if final:
-            return vout, iout
-        keys, width = kout, n_chunks * kp
+    # rows wider than 2 kp take the radix select; past SMEM_KEYS their keys
+    # live in a scratch row in device memory
+    scratch = None
+    if width > 2 * kp and width > SMEM_KEYS:
+        scratch = torch.empty((rows, width), dtype=torch.int64, device=dev)
+    code = lib.comet_topk_select(
+        vals.data_ptr(), idx_ptr, in_row, in_col, rows, width, kp,
+        scratch.data_ptr() if scratch is not None else None,
+        vout.data_ptr(), iout.data_ptr(), out_row, out_col, stream,
+    )
+    LAUNCHES += 1
+    _build.check(code, "topk_select")
+    return vout, iout
 
 
 def topk_cl(vals: torch.Tensor, idx: torch.Tensor, k: int):

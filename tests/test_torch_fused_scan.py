@@ -135,6 +135,69 @@ def test_fused_dist_select_bf16_matches_reference(cosine):
     torch.testing.assert_close(d_off[fin], want[fin], rtol=1e-6, atol=1e-4)
 
 
+# Ragged shapes: Q = 129 (the port takes any Q; the reference runs 256
+# queries, the first 129 of which are these) and d = 3.
+RAGGED_Q, RAGGED_D = 129, 3
+RAGGED_THR = {"l2": 60.0, "cosine": 1.0, "bf16": 60.0}
+
+
+def _ragged_data(mode):
+    rng = np.random.default_rng(40)
+    q = np.zeros((256, RAGGED_D), np.float32)
+    if mode == "cosine":
+        q[:RAGGED_Q] = rng.normal(size=(RAGGED_Q, RAGGED_D))
+        q[:RAGGED_Q] /= np.linalg.norm(q[:RAGGED_Q], axis=1, keepdims=True)
+        x = rng.normal(size=(2048, RAGGED_D)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        base = np.zeros(2048, np.float32)
+    else:
+        q[:RAGGED_Q] = rng.integers(0, 16, size=(RAGGED_Q, RAGGED_D))
+        x = rng.integers(0, 16, size=(2048, RAGGED_D)).astype(np.float32)
+        base = (x * x).sum(axis=1)
+    valid = np.ones(2048, dtype=bool)
+    valid[::7] = False
+    return q, x, np.where(valid, base, np.inf).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _ref_ragged(mode):
+    q, x, mask = _ragged_data(mode)
+    corpus_t = jnp.asarray(np.ascontiguousarray(x.T))
+    if mode == "bf16":
+        corpus_t = corpus_t.astype(jnp.bfloat16)
+    dist, gsel = ref.fused_dist_select(
+        jnp.asarray(q), corpus_t, jnp.asarray(mask), jnp.asarray(np.float32(RAGGED_THR[mode])),
+        KB, cosine=mode == "cosine", interpret=True)
+    return np.asarray(dist)[:RAGGED_Q], np.asarray(gsel)[0].T[:RAGGED_Q]
+
+
+@pytest.mark.parametrize("mode", ["l2", "cosine", "bf16"])
+def test_fused_dist_select_ragged_q_and_d_match_reference(mode):
+    """Q = 129 and d = 3, the ragged edges of the kernel's tile: the plain
+    version, which the card holds the kernel to, against the reference's
+    kernel in interpret mode (exact data: dist array-equal; cosine on normal
+    floats: the reference's bar), the kept groups in (min, id) order."""
+    q, x, mask = _ragged_data(mode)
+    rdist, rgsel = _ref_ragged(mode)
+    qt, xt, mt = _torch_args(np.ascontiguousarray(q[:RAGGED_Q]), x, mask)
+    if mode == "bf16":
+        xt = xt.to(torch.bfloat16)
+    dist, gsel = fused_scan.fused_dist_select(qt, xt, mt, RAGGED_THR[mode], KB, mode == "cosine")
+    dist, gsel = dist.numpy(), gsel.numpy()
+    assert dist.shape == (RAGGED_Q, 2048) and gsel.shape == (RAGGED_Q, KB)
+    np.testing.assert_array_equal(np.isinf(dist), np.isinf(rdist))
+    assert np.isinf(dist[:, ::7]).all() and np.isfinite(dist).any()
+    if mode == "cosine":
+        fin = np.isfinite(rdist)
+        np.testing.assert_allclose(dist[fin], rdist[fin], rtol=1e-4, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(dist, rdist)
+        np.testing.assert_array_equal(np.sort(gsel, axis=1), np.sort(rgsel, axis=1))
+    gmin = dist.reshape(RAGGED_Q, -1, fused_scan.GROUP).min(axis=2)
+    order = np.lexsort((np.broadcast_to(np.arange(gmin.shape[1]), gmin.shape), gmin), axis=1)
+    np.testing.assert_array_equal(gsel, order[:, :KB])
+
+
 def test_pipeline_bf16_matches_float32_on_exact_data():
     """flat_topk_pipeline over a bf16 corpus equals the float32 pipeline
     where bf16 holds the data exactly."""

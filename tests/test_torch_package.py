@@ -77,8 +77,8 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 def test_launch_error_code_raises():
     with pytest.raises(RuntimeError, match="error 1"):
-        _build.check(1, "topk_pass")
-    _build.check(0, "topk_pass")
+        _build.check(1, "topk_select")
+    _build.check(0, "topk_select")
 
 
 def test_cuda_index_without_card_raises():

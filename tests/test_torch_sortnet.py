@@ -69,6 +69,52 @@ def test_topk_rows_matches_reference(k):
     np.testing.assert_array_equal(pv.numpy().T, rv)
 
 
+# Repeated keys at a width just past k_pow2 (C = 129 for k = 100): values
+# and indices both repeat in the "pairs" columns, so whole (value, index)
+# keys repeat across the boundary.
+EDGE_K = 100
+EDGE_C = sortnet.k_pow2(EDGE_K) + 1
+EDGE_CASES = {"random": slice(0, 30), "ties": slice(30, 60), "equal": slice(60, 90),
+              "pairs": slice(90, 130)}
+
+
+def _edge_inputs():
+    rng = np.random.default_rng(77)
+    v = np.empty((EDGE_C, L_REAL), np.float32)
+    v[:, EDGE_CASES["random"]] = rng.normal(size=(EDGE_C, 30))
+    v[:, EDGE_CASES["ties"]] = rng.integers(0, 4, size=(EDGE_C, 30))
+    v[:, EDGE_CASES["equal"]] = 2.5
+    v[:, EDGE_CASES["pairs"]] = rng.integers(0, 3, size=(EDGE_C, 40))
+    idx = np.stack([rng.permutation(EDGE_C) for _ in range(L_REAL)], axis=1).astype(np.int32)
+    idx[:, EDGE_CASES["pairs"]] = rng.integers(0, 5, size=(EDGE_C, 40))
+    return v, idx
+
+
+@lru_cache(maxsize=None)
+def _edge_reference():
+    v, idx = _edge_inputs()
+    rv, ri = ref.topk_cl(jnp.asarray(v), jnp.asarray(idx), EDGE_K, interpret=True)
+    return np.asarray(rv), np.asarray(ri)
+
+
+@pytest.mark.parametrize("layout", ["cl", "rows"])
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_repeated_keys_just_past_kp_match_reference(case, layout):
+    """The plain versions, which the card holds the kernel to, select what
+    the reference selects where keys repeat across the boundary."""
+    v, idx = _edge_inputs()
+    rv, ri = _edge_reference()
+    if layout == "cl":
+        pv, pi = sortnet.topk_cl(torch.from_numpy(v), torch.from_numpy(idx), EDGE_K)
+    else:
+        pv, pi = sortnet.topk_rows(torch.from_numpy(v.T.copy()), torch.from_numpy(idx.T.copy()),
+                                   EDGE_K)
+        pv, pi = pv.T, pi.T
+    cols = EDGE_CASES[case]
+    np.testing.assert_array_equal(pi.numpy()[:, cols], ri[:, cols])
+    np.testing.assert_array_equal(pv.numpy()[:, cols], rv[:, cols])
+
+
 def test_signed_zero_comes_back_positive():
     """-0.0 ties +0.0 and is ordered by index; the port returns it as +0.0
     (the reference keeps the sign bit; the two compare equal)."""
