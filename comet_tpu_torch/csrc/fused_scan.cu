@@ -56,11 +56,10 @@
 // stay resident.
 
 #include <stdint.h>
-#include <stdlib.h>
 
 #include "fused_tile.cuh"
 
-template <int MODE, typename T, bool VEC, bool ASYNC>
+template <int MODE, typename T, bool VEC>
 __global__ void __launch_bounds__(FT_THREADS, 2) fused_scan_kernel(
     const T* __restrict__ q, const float* __restrict__ qn,
     const T* __restrict__ x, const float* __restrict__ mask, float thr,
@@ -73,7 +72,7 @@ __global__ void __launch_bounds__(FT_THREADS, 2) fused_scan_kernel(
     const int g = blockIdx.x / n_qblocks;
     const int q0 = qb * FT_BM;
     const long long n0 = (long long)g * FT_BN;
-    fused_tile<MODE, T, VEC, ASYNC>(
+    fused_tile<MODE, T, VEC>(
         q + (long long)q0 * d, qn + q0, min(FT_BM, Q - q0),
         x + n0 * d, mask + n0, d, thr, cosine,
         MODE == SCAN_ROW_BITS ? assign + n0 : nullptr,
@@ -91,21 +90,12 @@ static void launch(unsigned blocks, cudaStream_t s, const void* q, const float* 
     // 16-byte loads need 16-byte aligned rows
     const bool vec = d % (16 / sizeof(T)) == 0 &&
         ((uintptr_t)q % 16 == 0) && ((uintptr_t)x % 16 == 0);
-    const char* env = getenv("COMET_K2_ASYNC");
-    if constexpr (sizeof(T) == 4) {
-        if (env != nullptr && env[0] == '1') {
-            fused_scan_kernel<MODE, T, false, true><<<blocks, FT_THREADS, 0, s>>>(
-                (const T*)q, qn, (const T*)x, mask, thr, Q, N, d, cosine, assign, words,
-                n_words, dist, gmin);
-            return;
-        }
-    }
     if (vec) {
-        fused_scan_kernel<MODE, T, true, false><<<blocks, FT_THREADS, 0, s>>>(
+        fused_scan_kernel<MODE, T, true><<<blocks, FT_THREADS, 0, s>>>(
             (const T*)q, qn, (const T*)x, mask, thr, Q, N, d, cosine, assign, words,
             n_words, dist, gmin);
     } else {
-        fused_scan_kernel<MODE, T, false, false><<<blocks, FT_THREADS, 0, s>>>(
+        fused_scan_kernel<MODE, T, false><<<blocks, FT_THREADS, 0, s>>>(
             (const T*)q, qn, (const T*)x, mask, thr, Q, N, d, cosine, assign, words,
             n_words, dist, gmin);
     }

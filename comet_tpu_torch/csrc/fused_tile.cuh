@@ -34,8 +34,9 @@
 // 64 x 128 tile this replaces and of ops/distance.bf16_dot, so distances
 // are bit-equal to both on any data. Zero padding past d adds exact zeros
 // to a sum that is never -0.0, which leaves it unchanged. The epilogue is
-// scan_tile.cuh's, in its order: L2 max((qn + mask) - 2 ip, 0), cosine
-// (1 - clip(ip)) + mask, the threshold, then the probe bit (SCAN_ROW_BITS).
+// scan_tile.cuh's `scan_distance`, then `probe_in`, in its order: L2
+// max((qn + mask) - 2 ip, 0), cosine (1 - clip(ip)) + mask, the threshold,
+// then the probe bit (SCAN_ROW_BITS).
 
 #pragma once
 
@@ -107,38 +108,44 @@ __device__ __forceinline__ void ft_store(float (*S)[FT_BM], const float (&v)[FT_
     }
 }
 
+// Whether cluster a (-1: none) has its bit set in a query's probe bitmask
+// of n_words words.
+__device__ __forceinline__ bool probe_in(const unsigned* __restrict__ words, int n_words, int a) {
+    return a >= 0 && (a >> 5) < n_words && ((__ldg(words + (a >> 5)) >> (a & 31)) & 1u);
+}
+
 // Tile position of a thread's i-th query or row (i in 0..7): t*4 + i for
 // the first four, 64 + t*4 + (i - 4) for the others.
 __device__ __forceinline__ int ft_pos(int t, int i) { return t * 4 + (i < 4 ? i : 60 + i); }
 
-// The inner step shared by both products: four 16-byte shared-memory
-// loads (this thread's 8 queries and 8 rows at depth kk) and 64 FMAs.
-template <int STRIDE>
-__device__ __forceinline__ void ft_step(const float (*As)[STRIDE], const float (*Bs)[STRIDE],
-                                        int kk, int tx, int ty, float (&acc)[8][8]) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 4 + 64]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4 + 64]);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            acc[i][j] = dot_fma(a[i], b[j], acc[i][j]);
-}
-
-// The product with register prefetch: the next slice is loaded into
-// registers before this slice's FMAs and stored after them.
-template <typename T, bool VEC>
-__device__ __forceinline__ void ft_product_regs(
-    const T* __restrict__ q, int q_valid, const T* __restrict__ x, int d, float (&acc)[8][8])
+// q, qn: the tile's first query row (row stride d) and its squared norm;
+// q_valid of the FT_BM queries exist. x, mask: the tile's first corpus row
+// (row stride d) and its mask; all FT_BN rows exist. dist: entry (query 0,
+// row 0) of the tile, row stride dist_stride; gmin: the group minimum of
+// query 0, row stride gmin_stride. MODE SCAN_ALL or SCAN_ROW_BITS, with
+// assign (the tile's first row's cluster) and words (query 0's probe
+// bitmask, n_words words per query) as in scan_tile.cuh.
+template <int MODE, typename T, bool VEC>
+__device__ __forceinline__ void fused_tile(
+    const T* __restrict__ q, const float* __restrict__ qn, int q_valid,
+    const T* __restrict__ x, const float* __restrict__ mask, int d,
+    float thr, int cosine,
+    const int* __restrict__ assign, const unsigned* __restrict__ words, int n_words,
+    float* __restrict__ dist, long long dist_stride,
+    float* __restrict__ gmin, long long gmin_stride)
 {
     __shared__ __align__(16) float As[2][FT_BK][FT_BM];
     __shared__ __align__(16) float Bs[2][FT_BK][FT_BN];
-    const int tx = threadIdx.x % 16;
-    const int ty = threadIdx.x / 16;
+
+    const int tid = threadIdx.x;
+    const int tx = tid % 16;
+    const int ty = tid / 16;
+
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
     float ra[FT_PER_THREAD], rb[FT_PER_THREAD];
     ft_load<T, VEC>(q, q_valid, d, 0, ra);
@@ -156,104 +163,24 @@ __device__ __forceinline__ void ft_product_regs(
             ft_load<T, VEC>(x, FT_BN, d, (s + 1) * FT_BK, rb);
         }
 #pragma unroll
-        for (int kk = 0; kk < FT_BK; ++kk) ft_step<FT_BM>(As[cur], Bs[cur], kk, tx, ty, acc);
+        for (int kk = 0; kk < FT_BK; ++kk) {
+            const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
+            const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4 + 64]);
+            const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
+            const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4 + 64]);
+            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                    acc[i][j] = dot_fma(a[i], b[j], acc[i][j]);
+        }
         if (more) {
             ft_store<T>(As[cur ^ 1], ra);
             ft_store<T>(Bs[cur ^ 1], rb);
         }
         __syncthreads();
-    }
-}
-
-// cp.async helpers (sm_80+): a 4-byte copy from device to shared memory
-// that fills zeros when `ok` is false, and the group commit and wait.
-__device__ __forceinline__ void ft_cp_async4(float* dst, const float* src, bool ok) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(s), "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void ft_cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void ft_cp_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
-
-#define FT_AS 132   // padded row of the cp.async slices: 2-way bank conflicts at most
-
-// Issues the 4-byte copies of this thread's share of one operand's slice
-// [k0, k0 + FT_BK): lanes take 16 consecutive depths of two rows.
-__device__ __forceinline__ void ft_issue(float (*S)[FT_AS], const float* __restrict__ base,
-                                         int valid, int d, int k0) {
-#pragma unroll
-    for (int u = 0; u < FT_PER_THREAD; ++u) {
-        const int e = threadIdx.x + u * FT_THREADS;
-        const int row = e / FT_BK;
-        const int k = e % FT_BK;
-        const bool ok = row < valid && k0 + k < d;
-        ft_cp_async4(&S[k][row], ok ? base + (long long)row * d + k0 + k : base, ok);
-    }
-}
-
-// The product with cp.async: float32 operands copied straight into the
-// k-major slices, double-buffered, no registers held for the next slice.
-__device__ __forceinline__ void ft_product_async(
-    const float* __restrict__ q, int q_valid, const float* __restrict__ x, int d,
-    float (&acc)[8][8])
-{
-    __shared__ __align__(16) float As[2][FT_BK][FT_AS];
-    __shared__ __align__(16) float Bs[2][FT_BK][FT_AS];
-    const int tx = threadIdx.x % 16;
-    const int ty = threadIdx.x / 16;
-
-    ft_issue(As[0], q, q_valid, d, 0);
-    ft_issue(Bs[0], x, FT_BN, d, 0);
-    ft_cp_commit();
-    const int n_slices = (d + FT_BK - 1) / FT_BK;
-    for (int s = 0; s < n_slices; ++s) {
-        const int cur = s & 1;
-        if (s + 1 < n_slices) {
-            ft_issue(As[cur ^ 1], q, q_valid, d, (s + 1) * FT_BK);
-            ft_issue(Bs[cur ^ 1], x, FT_BN, d, (s + 1) * FT_BK);
-            ft_cp_commit();
-            ft_cp_wait<1>();
-        } else {
-            ft_cp_wait<0>();
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < FT_BK; ++kk) ft_step<FT_AS>(As[cur], Bs[cur], kk, tx, ty, acc);
-        __syncthreads();
-    }
-}
-
-// q, qn: the tile's first query row (row stride d) and its squared norm;
-// q_valid of the FT_BM queries exist. x, mask: the tile's first corpus row
-// (row stride d) and its mask; all FT_BN rows exist. dist: entry (query 0,
-// row 0) of the tile, row stride dist_stride; gmin: the group minimum of
-// query 0, row stride gmin_stride. MODE SCAN_ALL or SCAN_ROW_BITS, with
-// assign (the tile's first row's cluster) and words (query 0's probe
-// bitmask, n_words words per query) as in scan_tile.cuh. ASYNC (float32
-// only): the cp.async product in place of register prefetch.
-template <int MODE, typename T, bool VEC, bool ASYNC>
-__device__ __forceinline__ void fused_tile(
-    const T* __restrict__ q, const float* __restrict__ qn, int q_valid,
-    const T* __restrict__ x, const float* __restrict__ mask, int d,
-    float thr, int cosine,
-    const int* __restrict__ assign, const unsigned* __restrict__ words, int n_words,
-    float* __restrict__ dist, long long dist_stride,
-    float* __restrict__ gmin, long long gmin_stride)
-{
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-    if constexpr (ASYNC) {
-        ft_product_async(q, q_valid, x, d, acc);
-    } else {
-        ft_product_regs<T, VEC>(q, q_valid, x, d, acc);
     }
 
     float m_row[8];
@@ -273,20 +200,9 @@ __device__ __forceinline__ void fused_tile(
         float m = CUDART_INF_F;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-            const float ip = acc[i][j];
-            float dd;
-            if (cosine) {
-                const float c = fminf(fmaxf(ip, -1.0f), 1.0f);
-                dd = (1.0f - c) + m_row[j];
-            } else {
-                const float s = qni + m_row[j];
-                dd = fmaxf(s - 2.0f * ip, 0.0f);
-            }
-            dd = dd <= thr ? dd : CUDART_INF_F;
+            float dd = scan_distance(acc[i][j], qni, m_row[j], thr, cosine);
             if (MODE == SCAN_ROW_BITS) {
-                const int a = a_row[j];
-                const bool in = qok && a >= 0 && (a >> 5) < n_words &&
-                    ((__ldg(words + (long long)lq * n_words + (a >> 5)) >> (a & 31)) & 1u);
+                const bool in = qok && probe_in(words + (long long)lq * n_words, n_words, a_row[j]);
                 dd = in ? dd : CUDART_INF_F;
             }
             out[j] = dd;

@@ -91,8 +91,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) sparse_scan_kernel(
     }
     const long long r0 = (long long)chunk_ids[gs] * SPARSE_CHUNK + rh * SCAN_BN;
     scan_tile<SCAN_QUERY, T>(
-        q + q0 * d, qn + q0, SCAN_BM, x + r0 * d, mask + r0, d, thr, cosine,
-        nullptr, nullptr, 0, member,
+        q + q0 * d, qn + q0, SCAN_BM, x + r0 * d, mask + r0, d, thr, cosine, member,
         dtile, dist_stride, gtile, 2LL * S);
 }
 

@@ -1,7 +1,8 @@
 // The tile product and epilogue of K3 (ivf_sparse.cu). K2 (fused_scan.cu)
 // runs its own 128 x 128 tile (fused_tile.cuh) with the same sum order and
-// epilogue, built on the definitions here (`dot_fma`, bf16 widening, the
-// probe modes), as are the in-loop scoring kernels (neighbour_score.cuh).
+// epilogue, built on the definitions here (`dot_fma`, bf16 widening,
+// `scan_distance`, the modes), as are the in-loop scoring kernels
+// (neighbour_score.cuh).
 //
 // One block of SCAN_THREADS threads computes a SCAN_BM x SCAN_BN tile of
 // distances, SCAN_BM queries against SCAN_BN corpus rows (one 128-row
@@ -14,7 +15,7 @@
 // then the threshold (dist > thr -> +inf), then the probe mask of the mode:
 //   SCAN_ALL        no probe mask (flat scan);
 //   SCAN_ROW_BITS   +inf unless row n's cluster assign[n] has its bit set in
-//                   the query's probe bitmask (dense IVF scan);
+//                   the query's probe bitmask (dense IVF scan; K2's tile only);
 //   SCAN_QUERY      +inf for the queries flagged out in member_q, a per-query
 //                   flag in shared memory (block-sparse IVF scan, where the
 //                   whole tile belongs to one cluster).
@@ -53,19 +54,32 @@ __device__ __forceinline__ float to_f32(bf16_t x) { return __uint_as_float((unsi
 
 __device__ __forceinline__ float dot_fma(float a, float b, float acc) { return fmaf(a, b, acc); }
 
+// One distance from its inner product ip, in the reference's order of
+// operations: the metric (qni the query's squared norm, m the row's mask),
+// then the threshold.
+__device__ __forceinline__ float scan_distance(float ip, float qni, float m, float thr,
+                                               int cosine) {
+    float dd;
+    if (cosine) {
+        const float c = fminf(fmaxf(ip, -1.0f), 1.0f);
+        dd = (1.0f - c) + m;
+    } else {
+        const float s = qni + m;
+        dd = fmaxf(s - 2.0f * ip, 0.0f);
+    }
+    return dd <= thr ? dd : CUDART_INF_F;
+}
+
 // q, qn: the tile's first query row (row stride d) and its squared norm;
 // q_valid of the SCAN_BM queries exist. x, mask: the tile's first corpus
 // row (row stride d) and its mask; all SCAN_BN rows exist. dist: entry
 // (query 0, row 0) of the tile, row stride dist_stride; gmin: the group
-// minimum of query 0, row stride gmin_stride. words: the probe bitmask of
-// query 0, n_words words per query.
+// minimum of query 0, row stride gmin_stride. MODE SCAN_ALL or SCAN_QUERY.
 template <int MODE, typename T = float>
 __device__ __forceinline__ void scan_tile(
     const T* __restrict__ q, const float* __restrict__ qn, int q_valid,
     const T* __restrict__ x, const float* __restrict__ mask, int d,
-    float thr, int cosine,
-    const int* __restrict__ assign, const unsigned* __restrict__ words,
-    int n_words, const bool* member_q,
+    float thr, int cosine, const bool* member_q,
     float* __restrict__ dist, long long dist_stride,
     float* __restrict__ gmin, long long gmin_stride)
 {
@@ -114,12 +128,8 @@ __device__ __forceinline__ void scan_tile(
     }
 
     float m_row[SCAN_TN];
-    int a_row[SCAN_TN];
 #pragma unroll
-    for (int j = 0; j < SCAN_TN; ++j) {
-        m_row[j] = mask[tx * SCAN_TN + j];
-        a_row[j] = MODE == SCAN_ROW_BITS ? assign[tx * SCAN_TN + j] : 0;
-    }
+    for (int j = 0; j < SCAN_TN; ++j) m_row[j] = mask[tx * SCAN_TN + j];
 
 #pragma unroll
     for (int i = 0; i < SCAN_TM; ++i) {
@@ -131,24 +141,8 @@ __device__ __forceinline__ void scan_tile(
         float m = CUDART_INF_F;
 #pragma unroll
         for (int j = 0; j < SCAN_TN; ++j) {
-            const float ip = acc[i][j];
-            float dd;
-            if (cosine) {
-                const float c = fminf(fmaxf(ip, -1.0f), 1.0f);
-                dd = (1.0f - c) + m_row[j];
-            } else {
-                const float s = qni + m_row[j];
-                dd = fmaxf(s - 2.0f * ip, 0.0f);
-            }
-            dd = dd <= thr ? dd : CUDART_INF_F;
-            if (MODE == SCAN_ROW_BITS) {
-                const int a = a_row[j];
-                const bool in = qok && a >= 0 && (a >> 5) < n_words &&
-                    ((__ldg(words + (long long)lq * n_words + (a >> 5)) >> (a & 31)) & 1u);
-                dd = in ? dd : CUDART_INF_F;
-            } else if (MODE == SCAN_QUERY) {
-                dd = q_in ? dd : CUDART_INF_F;
-            }
+            float dd = scan_distance(acc[i][j], qni, m_row[j], thr, cosine);
+            if (MODE == SCAN_QUERY) dd = q_in ? dd : CUDART_INF_F;
             out[j] = dd;
             m = fminf(m, dd);
         }

@@ -46,7 +46,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdlib.h>
 
 typedef unsigned long long u64;
 
@@ -373,9 +372,7 @@ extern "C" int comet_topk_select(
     if (kp < 8 || kp > KP_MAX || (kp & (kp - 1)) != 0 || rows < 1 || width < 1) {
         return (int)cudaErrorInvalidValue;
     }
-    const char* force_radix = getenv("COMET_K1_RADIX");
-    const bool direct = width <= 2 * kp &&
-        !(force_radix != nullptr && force_radix[0] == '1' && width > kp);
+    const bool direct = width <= 2 * kp;
     if ((scratch != nullptr) != (!direct && width > SMEM_KEYS)) {
         return (int)cudaErrorInvalidValue;
     }

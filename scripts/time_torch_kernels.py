@@ -37,9 +37,6 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--staging", action="store_true",
-                    help="also time K2's float32 modes with cp.async staging "
-                         "(COMET_K2_ASYNC=1) in turns with register prefetch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_torch_kernels: torch.cuda.is_available() is False; this needs an NVIDIA card")
@@ -86,24 +83,6 @@ def main():
         q, x, mask, inf, False, assign, probes, NLIST))
     out["k2_bf16_ms"] = time_ms(lambda: fused_scan._fused_scan_cuda(q, xb, mask, inf, False))
 
-    if args.staging:
-        for turn in range(3):
-            for staging in ("0", "1"):
-                os.environ["COMET_K2_ASYNC"] = staging
-                key = "async" if staging == "1" else "regs"
-                out[f"k2_f32_{key}_ms_{turn}"] = time_ms(
-                    lambda: fused_scan._fused_scan_cuda(q, x, mask, inf, False))
-                out[f"k2_nprobe_{key}_ms_{turn}"] = time_ms(lambda: fused_scan._fused_scan_cuda(
-                    q, x, mask, inf, False, assign, probes, NLIST))
-        os.environ.pop("COMET_K2_ASYNC")
-        # the two stagings give the same distances
-        os.environ["COMET_K2_ASYNC"] = "1"
-        da, ga = fused_scan._fused_scan_cuda(q, x, mask, inf, False)
-        os.environ.pop("COMET_K2_ASYNC")
-        dr, gr = fused_scan._fused_scan_cuda(q, x, mask, inf, False)
-        out["k2_stagings_equal"] = bool(torch.equal(da, dr) and torch.equal(ga, gr))
-        del da, ga, dr, gr
-
     dist, gmin = fused_scan._fused_scan_cuda(q, x, mask, inf, False)
     gsel = sortnet.topk_rows(gmin, None, 128)[1]
     cand = torch.gather(dist.view(Q, N // 128, 128), 1,
@@ -114,21 +93,6 @@ def main():
     for name, vals, idx, k in (("group", gmin, None, 128), ("cand", cand, cidx, 100)):
         out[f"k1_{name}_ms"] = time_ms(lambda: sortnet.topk_rows(vals, idx, k))
         out[f"k1_{name}_topk_ms"] = time_ms(lambda: torch.topk(vals, k, dim=1, largest=False))
-    if args.staging:
-        # the HNSW finalize's select, [2048, 256] at k = 128: the direct sort
-        # against the radix select (COMET_K1_RADIX=1), in turns
-        fin = (torch.rand((2048, 256), device=dev, generator=gen) * 1e5).floor()
-        fidx = torch.randint(0, N, (2048, 256), device=dev, generator=gen, dtype=torch.int32)
-        for turn in range(3):
-            for radix in ("0", "1"):
-                os.environ["COMET_K1_RADIX"] = radix
-                key = "radix" if radix == "1" else "direct"
-                out[f"k1_finalize_{key}_ms_{turn}"] = time_ms(lambda: sortnet.topk_rows(fin, fidx, 128))
-        got = sortnet.topk_rows(fin, fidx, 128)
-        os.environ.pop("COMET_K1_RADIX")
-        want = sortnet.topk_rows(fin, fidx, 128)
-        out["k1_finalize_paths_equal"] = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
-        out["k1_finalize_topk_ms"] = time_ms(lambda: torch.topk(fin, 128, dim=1, largest=False))
     print(json.dumps(out), flush=True)
 
 
