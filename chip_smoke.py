@@ -1,6 +1,6 @@
 """Smoke run of comet_tpu_torch on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--kernels-only]
 
 1. Prints the card (name and power limit, as nvidia-smi gives them), the
    torch and CUDA versions, where nvcc is, and builds the CUDA kernels from
@@ -10,14 +10,16 @@
    K2 (fused distance scan, csrc/fused_scan.cu). K1 is timed at the flat
    path's two selects on the flat path's own inputs (the group minima of
    256 queries, [256, 8192] with k = 128, and the candidates of their kept
-   groups, [256, 16384] with k = 100) beside `torch.topk(dim=1,
+   groups, [256, 16384] with k = 100) and at the HNSW finalize's [2048,
+   256], k = 128 (rows cut from those candidates), beside `torch.topk(dim=1,
    largest=False)`, its yardstick, and in the reference's column layout.
-   Then K1 (widths 1 to 65539, k 1 to 8192, ties, signed zeros, +inf and
+   Times are CUDA-event medians of 5, the host's launch included.
+   `--kernels-only` stops here: a copy of this script placed at the root
+   of another checkout times that checkout's K1 and K2 the same way. Then
+   K1 (widths 1 to 65539, k 1 to 8192, ties, signed zeros, +inf and
    repeated keys, both layouts) and all three modes of K2 (Q 1-300, d
    1-128, N 128-4096, with and without a threshold) are held to their plain
-   versions at edge shapes. Times are CUDA-event medians of 5, each launch
-   queued behind a device-side sleep so that the host's enqueue time stays
-   out of it.
+   versions at edge shapes (ops/edge_cases.py).
 3. Drives the flat path through the public API at the users' size: a
    FlatIndex of 1,048,576 x 128 SIFT-range integer vectors (L2), searched
    with 2048 queries at k = 100. On integer data every float32 distance is
@@ -77,7 +79,6 @@ their launches, errors, times and bounds, and the line before that the card.
 """
 
 import argparse
-import itertools
 import json
 import os
 import statistics
@@ -1182,111 +1183,22 @@ def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, 
     return {"report": report, "launches": launches}
 
 
-K1_EDGE_KS = (1, 8, 100, 128, 1000, 8192)
-
-
-def k1_edge_rows(rng, width):
-    """Ten rows: random, values 0..3, all equal, +-0.0 and +inf, and
-    repeated (value, index) pairs, two of each; with their indices."""
-    v = np.empty((10, width), np.float32)
-    v[0:2] = rng.normal(size=(2, width))
-    v[2:4] = rng.integers(0, 4, size=(2, width))
-    v[4:6] = 2.5
-    v[6:8] = rng.choice(np.array([-0.0, 0.0, np.inf], np.float32), size=(2, width))
-    v[8:10] = rng.integers(0, 3, size=(2, width))
-    idx = np.argsort(rng.random((10, width)), axis=1).astype(np.int32)
-    idx[8:10] = rng.integers(0, 5, size=(2, width))
-    return v, idx
-
-
-def k2_edge_cases(q_n, d, n, dev):
-    """K2's three modes at one shape: (name, queries, corpus, mask, kwargs,
-    cosine, exact). Integer data make float32 L2 exact; the bf16 operand is
-    bit-equal to its plain version on any data."""
-    from comet_tpu_torch.ops.distance import preprocess
-    from comet_tpu_torch.types import DistanceKind
-
-    g = np.random.default_rng(q_n * 10007 + d * 101 + n)
-    inf = torch.tensor(float("inf"), device=dev)
-    valid = torch.from_numpy(g.random(n) > 0.1).to(dev)
-    q = torch.from_numpy(g.integers(0, 256, size=(q_n, d)).astype(np.float32)).to(dev)
-    x = torch.from_numpy(g.integers(0, 256, size=(n, d)).astype(np.float32)).to(dev)
-    qg = torch.from_numpy(3.0 * g.normal(size=(q_n, d)).astype(np.float32)).to(dev)
-    xg = torch.from_numpy(3.0 * g.normal(size=(n, d)).astype(np.float32)).to(dev)
-    qc = torch.from_numpy(preprocess(g.normal(size=(q_n, d)).astype(np.float32),
-                                     DistanceKind.COSINE)).to(dev)
-    xc = torch.from_numpy(preprocess(g.normal(size=(n, d)).astype(np.float32),
-                                     DistanceKind.COSINE)).to(dev)
-    zero = torch.zeros((), device=dev)
-    probe = dict(assign=torch.from_numpy(g.integers(-1, 70, size=n).astype(np.int32)).to(dev),
-                 probes=torch.from_numpy(g.integers(0, 70, size=(q_n, 8)).astype(np.int32)).to(dev),
-                 nlist=70)
-    return (
-        ("float32 L2", q, x, torch.where(valid, (x * x).sum(1), inf), {}, False, True),
-        ("float32 cosine", qc, xc, torch.where(valid, zero, inf), {}, True, False),
-        ("nprobe L2", q, x, torch.where(valid, (x * x).sum(1), inf), probe, False, True),
-        ("bf16 L2", qg, xg.to(torch.bfloat16), torch.where(valid, (xg * xg).sum(1), inf), {},
-         False, True),
-        ("bf16 cosine", qc, xc.to(torch.bfloat16), torch.where(valid, zero, inf), {}, True, True),
-    )
-
-
-def edge_checks(dev, rng, tag):
-    """K1 and K2's three modes against their plain versions at edge shapes."""
-    from comet_tpu_torch.ops import fused_scan, sortnet
+def edge_checks(dev, seed, tag):
+    """K1 and K2's three modes against their plain versions at edge shapes
+    (ops/edge_cases.py, the cases of the card tests)."""
+    from comet_tpu_torch.ops import edge_cases, sortnet
 
     t0 = time.perf_counter()
-    n_k1 = 0
-    for k in K1_EDGE_KS:
-        kp = sortnet.k_pow2(k)
-        for w in sorted({1, kp - 1, kp, kp + 1, 4095, 4097, 16384, 16385, 65539}):
-            v, ix = k1_edge_rows(rng, w)
-            vt, it = torch.from_numpy(v).to(dev), torch.from_numpy(ix).to(dev)
-            vc, ic = vt.T.contiguous(), it.T.contiguous()
-            for run, plain in ((lambda: sortnet.topk_rows(vt, it, k), lambda: sortnet._topk_rows_plain(vt, it, k)),
-                               (lambda: sortnet.topk_rows(vt, None, k), lambda: sortnet._topk_rows_plain(vt, None, k)),
-                               (lambda: sortnet.topk_cl(vc, ic, k), lambda: sortnet._topk_cl_plain(vc, ic, k))):
-                before = sortnet.LAUNCHES
-                got = run()
-                if kp <= sortnet.KP_MAX and sortnet.LAUNCHES != before + 1:
-                    raise AssertionError(f"K1 took {sortnet.LAUNCHES - before} launches at width {w}, k {k}")
-                want = plain()
-                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                    raise AssertionError(f"K1 differs from its plain version at width {w}, k {k}")
-                n_k1 += 1
-    n_k2 = 0
-    k2_err = 0.0
-    for q_n, d, n in itertools.product((1, 127, 128, 129, 300), (1, 3, 20, 100, 128),
-                                       (128, 384, 4096)):
-        kb = min(8, n // 128)
-        for name, q, x, mask, kw, cosine, exact in k2_edge_cases(q_n, d, n, dev):
-            full = fused_scan._fused_dist_select_plain(q, x, mask, float("inf"), cosine, **kw)[0]
-            fin = full[torch.isfinite(full)]
-            thr_cut = float(fin.median()) if fin.numel() else float("inf")
-            for thr in (float("inf"), thr_cut):
-                dist, gsel = fused_scan.fused_dist_select(q, x, mask, thr, kb, cosine, **kw)
-                pdist, pgmin = fused_scan._fused_dist_select_plain(q, x, mask, thr, cosine, **kw)
-                pgsel = sortnet._topk_rows_plain(pgmin, None, kb)[1][:, :kb]
-                where = f"{name} at Q={q_n}, d={d}, N={n}, threshold {thr:g}"
-                if exact:
-                    if not (torch.equal(dist, pdist) and torch.equal(gsel, pgsel)):
-                        raise AssertionError(f"K2 {where} differs from its plain version")
-                else:
-                    both = torch.isfinite(dist) & torch.isfinite(pdist)
-                    torch.testing.assert_close(dist[both], pdist[both], rtol=1e-5, atol=1e-6)
-                    flip = torch.isfinite(dist) != torch.isfinite(pdist)
-                    near = torch.where(torch.isfinite(dist), dist, pdist)[flip]
-                    if ((near - thr).abs() > 1e-6 + 1e-5 * abs(thr)).any():
-                        raise AssertionError(f"K2 {where}: a masked entry differs")
-                    if both.any():
-                        k2_err = max(k2_err, (dist[both] - pdist[both]).abs().max().item())
-                n_k2 += 1
+    for k, width in edge_cases.K1_CASES:
+        edge_cases.check_k1(dev, k, width, seed)
+    k2_err = max(edge_cases.check_k2(dev, q_n, d, n, seed) for q_n, d, n in edge_cases.K2_SHAPES)
     torch.cuda.synchronize()
-    print(f"edge shapes: K1 equal to its plain version in {n_k1} selects (k {K1_EDGE_KS}, "
-          f"widths 1-65539, both layouts and idx=None, one launch each for k_pow2 <= "
-          f"{sortnet.KP_MAX}); K2's float32, nprobe and bf16 modes equal to their plain "
-          f"versions in {n_k2} scans (cosine float32 allclose(1e-5, 1e-6), max abs err "
-          f"{k2_err:.3g}) ({time.perf_counter() - t0:.1f} s) {tag}")
+    print(f"edge shapes: K1 equal to its plain version in {3 * len(edge_cases.K1_CASES)} selects "
+          f"(k {edge_cases.K1_KS}, widths 1-65539, both layouts and idx=None, one launch each "
+          f"for k_pow2 <= {sortnet.KP_MAX}); K2's float32, nprobe and bf16 modes equal to their "
+          f"plain versions in {10 * len(edge_cases.K2_SHAPES)} scans (cosine float32 "
+          f"allclose(1e-5, 1e-6), max abs err {k2_err:.3g}) ({time.perf_counter() - t0:.1f} s) "
+          f"{tag}")
 
 
 def sortnet_rows_plain(gmin, kb):
@@ -1301,6 +1213,9 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="trace two steady flat, IVF and HNSW batches and one insertion "
                          "round with torch.profiler")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after holding K1 and K2 to their plain versions at the main "
+                         "path's shapes and timing them")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1337,7 +1252,6 @@ def main():
         for _ in range(reps):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(2_000_000)   # the launch is queued while the card sleeps
             a.record()
             fn()
             b.record()
@@ -1353,7 +1267,6 @@ def main():
 
     # -- 2. kernels against their plain versions -----------------------------
     report = {}
-    k1_err, k1_ms, k1_plain, k1_lib = 0.0, None, None, None
     for c in (8192, 16384):
         for case in ("random", "ties"):
             if case == "random":
@@ -1368,18 +1281,11 @@ def main():
             torch.cuda.synchronize()
             if not (torch.equal(gi, pi) and torch.equal(gv, pv)):
                 raise AssertionError(f"K1 differs from its plain version at C={c} ({case})")
-            fin = torch.isfinite(pv)
-            k1_err = max(k1_err, (gv[fin] - pv[fin]).abs().max().item())
             ms = time_ms(lambda: sortnet.topk_cl(vt, it, 128))
             pms = time_ms(lambda: sortnet._topk_cl_plain(vt, it, 128))
             lms = time_ms(lambda: torch.topk(vt, 128, dim=0, largest=False))
             print(f"K1 topk_cl C={c} L=256 k=128 {case}: equal to plain; "
                   f"kernel {ms:.3f} ms, plain {pms:.3f} ms, torch.topk {lms:.3f} ms {tag}")
-            if c == 16384 and case == "random":
-                k1_ms, k1_plain, k1_lib = ms, pms, lms
-    # (value, index) pairs read once, the k_pow2 = 128 best of 256 columns written
-    report["topk_cl"] = dict(err=k1_err, ms=k1_ms, plain_ms=k1_plain, library_ms=k1_lib,
-                             bound=bound(16384 * 256 * 8 + 128 * 256 * 8, 0))
 
     x_dev = torch.from_numpy(corpus).to(dev)
     q_dev = torch.from_numpy(queries[:256]).to(dev)
@@ -1449,26 +1355,37 @@ def main():
     cidx = (gsel[:, :, None] * 128
             + torch.arange(128, dtype=torch.int32, device=dev)).reshape(256, 128 * 128)
     del dist
+    fin_v = cand.view(2048, 2048)[:, :256].contiguous()
+    fin_i = cidx.view(2048, 2048)[:, :256].contiguous()
+    k1_rows = {}
     for what, vals, idx, k in (("group select", gmin, None, 128),
-                               ("candidate select", cand, cidx, K)):
+                               ("candidate select", cand, cidx, K),
+                               ("HNSW finalize", fin_v, fin_i, 128)):
         gv, gi = sortnet.topk_rows(vals, idx, k)
         pv, pi = sortnet._topk_rows_plain(vals, idx, k)
         torch.cuda.synchronize()
         if not (torch.equal(gi, pi) and torch.equal(gv, pv)):
             raise AssertionError(f"K1 {what} differs from its plain version")
+        fin = torch.isfinite(pv)
+        err = (gv[fin] - pv[fin]).abs().max().item() if fin.any() else 0.0
         ms = time_ms(lambda: sortnet.topk_rows(vals, idx, k))
         pms = time_ms(lambda: sortnet._topk_rows_plain(vals, idx, k))
         lms = time_ms(lambda: torch.topk(vals, k, dim=1, largest=False))
+        k1_rows[what] = (err, ms, pms, lms)
         print(f"K1 topk_rows {what} {list(vals.shape)} k={k}"
               f"{', idx=None' if idx is None else ''}: equal to plain; kernel {ms:.4f} ms, "
               f"plain {pms:.3f} ms, torch.topk(dim=1, largest=False) {lms:.4f} ms {tag}")
-    # the candidates' values and indices read once, k_pow2 = 128 keys of each row written
-    report["topk_cl"] = dict(err=k1_err, ms=ms, plain_ms=pms, library_ms=lms,
+    # the candidate select: its values and indices read once, k_pow2 = 128
+    # keys of each row written
+    err, ms, pms, lms = k1_rows["candidate select"]
+    report["topk_cl"] = dict(err=err, ms=ms, plain_ms=pms, library_ms=lms,
                              bound=bound(256 * 128 * 128 * 8 + 256 * 128 * 8, 0))
-    del q_dev, invalid, gmin, gsel, cand, cidx
+    del q_dev, invalid, gmin, gsel, cand, cidx, fin_v, fin_i
     torch.cuda.empty_cache()
+    if args.kernels_only:
+        return
 
-    edge_checks(dev, rng, tag)
+    edge_checks(dev, args.seed, tag)
 
     # -- 3. the main path at the users' size ----------------------------------
     ids = np.arange(1, N + 1, dtype=np.uint32)

@@ -8,14 +8,12 @@ which imports JAX, so that it needs only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 """
 
-import itertools
-
 import numpy as np
 import pytest
 import torch
 
 from comet_tpu_torch import DistanceKind, FlatIndex
-from comet_tpu_torch.ops import fused_scan, sortnet, topk
+from comet_tpu_torch.ops import edge_cases, fused_scan, sortnet, topk
 from comet_tpu_torch.ops.distance import sqrt_f32
 
 pytestmark = pytest.mark.cuda
@@ -68,48 +66,13 @@ def test_topk_rows_positions_as_indices(dev, k):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def _k1_edge_rows(rng, width):
-    """Ten rows: random, values 0..3, all equal, +-0.0 and +inf, and
-    repeated (value, index) pairs, two of each; with their indices."""
-    v = np.empty((10, width), np.float32)
-    v[0:2] = rng.normal(size=(2, width))
-    v[2:4] = rng.integers(0, 4, size=(2, width))
-    v[4:6] = 2.5
-    v[6:8] = rng.choice(np.array([-0.0, 0.0, np.inf], np.float32), size=(2, width))
-    v[8:10] = rng.integers(0, 3, size=(2, width))
-    idx = np.argsort(rng.random((10, width)), axis=1).astype(np.int32)
-    idx[8:10] = rng.integers(0, 5, size=(2, width))
-    return v, idx
-
-
-K1_EDGES = [
-    (k, w)
-    for k in (1, 8, 100, 128, 1000, 8192)
-    for w in sorted({1, sortnet.k_pow2(k) - 1, sortnet.k_pow2(k), sortnet.k_pow2(k) + 1,
-                     4095, 4097, 16384, 16385, 65539})
-]
-
-
-@pytest.mark.parametrize("k,width", K1_EDGES)
+@pytest.mark.parametrize("k,width", edge_cases.K1_CASES)
 def test_topk_select_edges_match_plain(dev, k, width):
     """One launch per select (k_pow2 <= KP_MAX), array-equal to the plain
     version in both layouts and with idx=None: widths around k_pow2, 2
     k_pow2 (direct sort against radix select) and SMEM_KEYS (shared memory
     against the scratch row), on ties, signed zeros, +inf and repeated keys."""
-    rng = np.random.default_rng(k * 100003 + width)
-    v, idx = _k1_edge_rows(rng, width)
-    vt, it = torch.from_numpy(v).to(dev), torch.from_numpy(idx).to(dev)
-    vc, ic = vt.T.contiguous(), it.T.contiguous()
-    for run, plain in ((lambda: sortnet.topk_rows(vt, it, k), lambda: sortnet._topk_rows_plain(vt, it, k)),
-                       (lambda: sortnet.topk_rows(vt, None, k), lambda: sortnet._topk_rows_plain(vt, None, k)),
-                       (lambda: sortnet.topk_cl(vc, ic, k), lambda: sortnet._topk_cl_plain(vc, ic, k))):
-        before = sortnet.LAUNCHES
-        got = run()
-        torch.cuda.synchronize()
-        assert sortnet.LAUNCHES == before + 1
-        want = plain()
-        assert torch.equal(got[1], want[1])
-        assert torch.equal(got[0], want[0])
+    edge_cases.check_k1(dev, k, width)
 
 
 def _scan_inputs(rng, q_n, n, d, cosine):
@@ -156,44 +119,13 @@ def test_fused_dist_select_kernel_matches_plain(dev, cosine, q_n, n, d):
         assert torch.equal(gsel, want_g)
 
 
-@pytest.mark.parametrize("q_n,d,n", list(itertools.product((1, 127, 128, 129, 300),
-                                                            (1, 3, 20, 100, 128),
-                                                            (128, 384, 4096))))
+@pytest.mark.parametrize("q_n,d,n", edge_cases.K2_SHAPES)
 def test_fused_scan_edges_match_plain(dev, q_n, d, n):
     """K2's three modes at ragged Q and d, with and without a threshold:
     float32 L2 and nprobe on integer data and the bf16 operand (L2 and
     cosine, Gaussian data) array-equal to the plain versions, float32
     cosine allclose(1e-5, 1e-6) with flips only at the threshold."""
-    rng = np.random.default_rng(q_n * 10007 + d * 101 + n)
-    q, x, mask = (torch.from_numpy(a).to(dev) for a in _scan_inputs(rng, q_n, n, d, False))
-    qc, xc, cmask = (torch.from_numpy(a).to(dev) for a in _scan_inputs(rng, q_n, n, d, True))
-    xg = 3.0 * xc
-    gmask = torch.where(torch.isinf(cmask), cmask, (xg * xg).sum(dim=1))
-    probe = dict(assign=torch.from_numpy(rng.integers(-1, 70, size=n).astype(np.int32)).to(dev),
-                 probes=torch.from_numpy(rng.integers(0, 70, size=(q_n, 8)).astype(np.int32)).to(dev),
-                 nlist=70)
-    kb = min(8, n // 128)
-    cases = [("f32 L2", q, x, mask, {}, False, True),
-             ("f32 cosine", qc, xc, cmask, {}, True, False),
-             ("nprobe", q, x, mask, probe, False, True),
-             ("bf16 L2", 3.0 * qc, xg.to(torch.bfloat16), gmask, {}, False, True),
-             ("bf16 cosine", qc, xc.to(torch.bfloat16), cmask, {}, True, True)]
-    for name, qq, xx, mm, kw, cosine, exact in cases:
-        full = fused_scan._fused_dist_select_plain(qq, xx, mm, float("inf"), cosine, **kw)[0]
-        fin = full[torch.isfinite(full)]
-        for thr in (float("inf"), float(fin.median()) if fin.numel() else 1.0):
-            dist, gsel = fused_scan.fused_dist_select(qq, xx, mm, thr, kb, cosine, **kw)
-            want_d, want_gmin = fused_scan._fused_dist_select_plain(qq, xx, mm, thr, cosine, **kw)
-            want_g = sortnet._topk_rows_plain(want_gmin, None, kb)[1][:, :kb]
-            if exact:
-                assert torch.equal(dist, want_d), (name, thr)
-                assert torch.equal(gsel, want_g), (name, thr)
-            else:
-                both = torch.isfinite(dist) & torch.isfinite(want_d)
-                torch.testing.assert_close(dist[both], want_d[both], rtol=1e-5, atol=1e-6)
-                flip = torch.isfinite(dist) != torch.isfinite(want_d)
-                near = torch.where(torch.isfinite(dist), dist, want_d)[flip]
-                assert ((near - thr).abs() <= 1e-6 + 1e-5 * abs(thr)).all(), (name, thr)
+    edge_cases.check_k2(dev, q_n, d, n)
 
 
 @pytest.mark.parametrize("k", [1, 100, 1000])
