@@ -5,21 +5,34 @@
 1. Prints the card (name and power limit, as nvidia-smi gives them), the
    torch and CUDA versions, where nvcc is, and builds the CUDA kernels from
    the sources in this checkout.
-2. Holds each kernel of the flat path against its plain PyTorch version on
-   the card at the main path's shapes: K1 (top-k select, csrc/topk.cu) and
-   K2 (fused distance scan, csrc/fused_scan.cu). K1 is timed at the flat
-   path's two selects on the flat path's own inputs (the group minima of
-   256 queries, [256, 8192] with k = 128, and the candidates of their kept
-   groups, [256, 16384] with k = 100) and at the HNSW finalize's [2048,
-   256], k = 128 (rows cut from those candidates), beside `torch.topk(dim=1,
-   largest=False)`, its yardstick, and in the reference's column layout.
+2. Holds each kernel against its plain PyTorch version on the card at the
+   main paths' shapes and times it: K1 (top-k select, csrc/topk.cu) and
+   K2 (fused distance scan, csrc/fused_scan.cu) first. K1 is timed at the
+   flat path's two selects on the flat path's own inputs (the group minima
+   of 256 queries, [256, 8192] with k = 128, and the candidates of their
+   kept groups, [256, 16384] with k = 100) and at the HNSW finalize's
+   [2048, 256], k = 128 (rows cut from those candidates), beside
+   `torch.topk(dim=1, largest=False)`, its yardstick, and in the
+   reference's column layout. Then K3 (block-sparse scan,
+   csrc/ivf_sparse.cu) on the IVF index of section 5 (nlist 1024 trained
+   on the first 100,000 rows) and the batch's own chunk lists: float32 at
+   nprobe 10 and its default step budget (S = 512), at the step budget the
+   IVF path learns on this batch, and the bf16 mode at the seed scan's
+   nprobe (16) and kb (32), each with its member share; K4 (beam merge,
+   csrc/beam_merge.cu) split and fused and K5 (csrc/fused_expand.cu) at
+   Q = 2048, ef = ew = kr = 256, E = 8, W = 32 on a beam state made from
+   the seed, K5 over a packed table of the corpus with a random adjacency.
    Times are CUDA-event medians of 5, the host's launch included.
    `--kernels-only` stops here: a copy of this script placed at the root
-   of another checkout times that checkout's K1 and K2 the same way. Then
+   of another checkout times that checkout's kernels the same way. Then
    K1 (widths 1 to 65539, k 1 to 8192, ties, signed zeros, +inf and
-   repeated keys, both layouts) and all three modes of K2 (Q 1-300, d
-   1-128, N 128-4096, with and without a threshold) are held to their plain
-   versions at edge shapes (ops/edge_cases.py).
+   repeated keys, both layouts), all three modes of K2 (Q 1-300, d 1-128,
+   N 128-4096, with and without a threshold), K3's two modes (0-128
+   probing queries a step, dead steps, S = 1, a zero-padded group, d
+   3-128, L2 and cosine, with and without a threshold) and K4 split and
+   fused (ties, copies, SENT and +inf rows, ew 7-300, beams and result
+   sets out of slot order) are held to their plain versions at edge
+   shapes (ops/edge_cases.py).
 3. Drives the flat path through the public API at the users' size: a
    FlatIndex of 1,048,576 x 128 SIFT-range integer vectors (L2), searched
    with 2048 queries at k = 100. On integer data every float32 distance is
@@ -33,11 +46,10 @@
    on 256 queries x 1M x 128 and timed, then FlatIndex(storage="bfloat16")
    without and with `rerank` at the same size: ids and scores array-equal
    to the float32 path (the data are exact in bf16), queries/s, launches.
-5. The IVF path at the reference's operating point: an IVFIndex over the
-   same corpus, nlist 1024 trained on the first 100,000 rows. Holds K2's
-   nprobe mode (256 queries x 1M rows, the index's probes at nprobe 10) and
-   K3 (block-sparse scan, csrc/ivf_sparse.cu, a 2048-query batch at nprobe
-   10) against their plain versions, then searches 2048 queries at k = 100
+5. The IVF path at the reference's operating point: the IVFIndex of
+   section 2 over the same corpus. Holds K2's nprobe mode (256 queries x
+   1M rows, the index's probes at nprobe 10) against its plain version,
+   then searches 2048 queries at k = 100
    for nprobe 1, 5, 10, 20 and 32 on the default (sparse) route: scores
    array-equal and ids equal, but for ties at the k-th score, to the plain
    probed-lists pipeline on the card, recall@100 against the flat path's
@@ -305,10 +317,195 @@ def profile_window(fn):
         print(f"  {100 * dev_us / busy:6.2f} %  {count:5d} x {dev_us / count:10.3f} us  {key[:90]}")
 
 
-def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, tag,
+def build_ivf(corpus, tag):
+    """The IVF index of sections 2 and 5: nlist NLIST trained on the first
+    N_TRAIN rows, then the whole corpus added."""
+    from comet_tpu_torch import DistanceKind, IVFIndex
+
+    ivf = IVFIndex(DIM, NLIST, DistanceKind.L2, device="cuda")
+    t0 = time.perf_counter()
+    ivf.train(corpus[:N_TRAIN])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf.add_batch(corpus, ids=np.arange(1, N + 1, dtype=np.uint32))
+    torch.cuda.synchronize()
+    print(f"IVF nlist={NLIST}: train on {N_TRAIN} rows {t_train:.3f} s, add_batch {N} x {DIM} "
+          f"{time.perf_counter() - t0:.3f} s {tag}")
+    return ivf
+
+
+def k3_section(ivf, queries, dev, tag, time_ms):
+    """K3 on the IVF index's cluster-major layout and the batch's own chunk
+    lists (section 2): float32 at nprobe 10 and its default step budget, at
+    the step budget the IVF path learns on this batch, and the bf16 mode at
+    the seed scan's nprobe (nlist / 64) and kb (32) over a bf16 copy of the
+    layout (mask: the float32 value of each row's bf16 squared norm). Each
+    is held array-equal to the plain version (distances and group minima)
+    and timed beside its member share, the (query, step) pairs whose query
+    probes the step's cluster over G x 128 x S. Returns the float32 entry
+    of the kernels line."""
+    from comet_tpu_torch.ops import ivf_sparse as sp
+    from comet_tpu_torch.ops.distance import bf16_round
+
+    inf = float("inf")
+    t0 = time.perf_counter()
+    st = ivf._device_sparse()
+    torch.cuda.synchronize()
+    print(f"IVF cluster-major layout: {st['nch_total']} chunks of {sp.CHUNK} rows, built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    q_all = torch.from_numpy(queries).to(dev)
+
+    def run(label, nprobe, S=0, bf16=False, kb_cap=0):
+        S0, _, MC = sp.default_budgets(nprobe, NLIST, st["nch_total"], st["max_chunks"])
+        S = S or S0
+        plan = sp.scan_plan(q_all, ivf._dev_centroids, ivf._order_key, st["chunk_start"],
+                            st["nchunks"], 128, nprobe, S, min(S, NLIST), MC, NLIST, False, kb_cap)
+        S = plan["S"]
+        corpus, mask, qn = st["corpus"], st["mask_vec"], None
+        if bf16:
+            corpus, mask = corpus.to(torch.bfloat16), bf16_round(mask)
+            qn = (plan["qsorted"] * plan["qsorted"]).sum(dim=1)
+        scan = (plan["qsorted"], corpus, mask, plan["probes"], plan["chunk_ids"],
+                plan["cluster_ids"])
+        dist, gmin = sp._sparse_scan_cuda(*scan, inf, False, qn)
+        pdist, pgmin = sp._sparse_scan_plain(*scan, inf, False, qn)
+        torch.cuda.synchronize()
+        if not (torch.equal(dist, pdist) and torch.equal(gmin, pgmin)):
+            raise AssertionError(f"K3 {label} differs from its plain version")
+        n_fin = int(torch.isfinite(pdist).sum())
+        del dist, gmin, pdist, pgmin
+        ms = time_ms(lambda: sp._sparse_scan_cuda(*scan, inf, False, qn))
+        pms = time_ms(lambda: sp._sparse_scan_plain(*scan, inf, False, qn))
+        g_n = BATCH // sp.QG
+        live = plan["cluster_ids"] >= 0
+        member = (plan["probes"].view(g_n, sp.QG, -1, 1)
+                  == plan["cluster_ids"].view(g_n, 1, 1, S)).any(dim=2)     # [G, QG, S]
+        chunks_read = int(torch.unique(plan["chunk_ids"][live]).numel())
+        esize = 2 if bf16 else 4
+        # queries (and their norms), probes and chunk lists, each listed
+        # chunk and its mask read once; dist and the group minima written
+        n_bytes = (esize * BATCH * DIM + 4 * (BATCH + BATCH * plan["probes"].shape[1]
+                                              + 2 * g_n * S + BATCH * S * sp.CHUNK
+                                              + BATCH * 2 * S)
+                   + chunks_read * sp.CHUNK * (esize * DIM + 4))
+        b = bound(n_bytes, 2 * DIM * float(member.sum()) * sp.CHUNK)
+        print(f"K3 {label}, {BATCH} queries, S={S} ({int(live.sum())} of {g_n * S} steps live, "
+              f"{chunks_read} chunks, member share {float(member.float().mean()):.4f}): dist and "
+              f"group minima equal to plain ({n_fin} finite entries); kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms; bound {b[0]:.3f} ms ({b[1]}) {tag}")
+        return dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None, bound=b)
+
+    entry = run("float32, nprobe 10", 10)
+    # the IVF path's first batch learns its step budget; the index forgets
+    # it again, so that section 5 starts from the default as a user would
+    ivf.search_batch(queries, k=K, nprobes=10)
+    learned = ivf._sparse_S_hint.pop((10, 128), 0)
+    if learned:
+        run("float32, nprobe 10, the step budget the IVF path learned", 10, S=learned)
+    else:
+        print("the IVF path learned no step budget on this batch (no overflow)")
+    run(f"bf16 mode, nprobe {NLIST // 64}, kb 32", NLIST // 64, bf16=True, kb_cap=32)
+    del q_all
+    torch.cuda.empty_cache()
+    return entry
+
+
+def beam_state(rng, q_n, ef, ew, kr, dev):
+    """A mid-search HNSW beam state, from rng: each query's beam holds ef
+    distinct slots sorted by (dist, slot), about half of them expanded; the
+    ew candidates mix fresh slots, copies of beam slots and copies among
+    themselves (each copy at its slot's one distance, a per-query table),
+    and 10 % empty (+inf, SENT) rows; a sorted result set of kr rows and
+    admission flags. Returns CUDA tensors (bd, bs, be, nd, ns, rd, rs, adm)."""
+    sent = 2**31 - 1
+    cap = 4 * (ef + ew + kr)
+    table = (rng.random((q_n, cap)) * 10).astype(np.float32)
+    perm = np.argsort(rng.random((q_n, cap)), axis=1)
+    take = lambda a, i: np.take_along_axis(a, i, axis=1)  # noqa: E731
+
+    def sorted_rows(slots):
+        dist = take(table, slots)
+        order = np.lexsort((slots, dist), axis=1)
+        return take(dist, order), take(slots, order)
+
+    bd, bs = sorted_rows(perm[:, :ef])
+    be = rng.integers(0, 2, size=(q_n, ef))
+    ns = np.where(rng.random((q_n, ew)) < 0.4, take(bs, rng.integers(0, ef, size=(q_n, ew))),
+                  perm[:, ef:ef + ew])
+    ns = np.where(rng.random((q_n, ew)) < 0.1, take(ns, rng.integers(0, ew, size=(q_n, ew))), ns)
+    nd = take(table, ns)
+    empty = rng.random((q_n, ew)) < 0.1
+    nd, ns = np.where(empty, np.inf, nd), np.where(empty, sent, ns)
+    rd, rs = sorted_rows(perm[:, ef + ew:ef + ew + kr])
+    adm = rng.random((q_n, ew)) < 0.5
+    out = (bd, bs, be, nd, ns, rd, rs, adm)
+    dts = (np.float32, np.int32, np.int32, np.float32, np.int32, np.float32, np.int32, np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(a.astype(t))).to(dev) for a, t in zip(out, dts)]
+
+
+def merge_compares(ef, ew):
+    """Compares of a merge sort of ew candidates and one merge with the
+    sorted ef-row beam: the operations a merge step needs."""
+    return ew * max(ew - 1, 1).bit_length() + ef + ew
+
+
+def beam_section(x_dev, queries, seed, dev, tag, time_ms):
+    """K4 (split and fused) and K5 at the HNSW path's shapes on a state made
+    from the seed (section 2): Q = BATCH, ef = ew = kr = 256 (ef_search 200
+    padded), expand 8; K5 over a packed routing table of the corpus with a
+    random W = 32 adjacency. Each held array-equal to its plain version and
+    timed."""
+    from comet_tpu_torch.ops import beam_kernel as bk
+
+    rng = np.random.default_rng((seed, 6))
+    ef = ew = kr = 256
+    expand, w = 8, 32
+    state = beam_state(rng, BATCH, ef, ew, kr, dev)
+    for fused in (False, True):
+        args = state[:5] + (state[5:] if fused else [None, None, None])
+        rest = (ef, ew, expand, fused, kr if fused else 0, ef)
+        got = bk._merge_cuda(*args, *rest)
+        want = bk._merge_plain(*args, *rest)
+        torch.cuda.synchronize()
+        for g, wv in zip(got, want):
+            if (g is None) != (wv is None) or (g is not None and not torch.equal(g, wv)):
+                raise AssertionError(f"K4 ({'fused' if fused else 'split'}) differs from its "
+                                     f"plain version on the seeded state")
+        ms = time_ms(lambda: bk._merge_cuda(*args, *rest))
+        pms = time_ms(lambda: bk._merge_plain(*args, *rest))
+        print(f"K4 beam merge ({'fused' if fused else 'split'}) Q={BATCH} ef={ef} ew={ew} "
+              f"expand={expand}{f' kr={kr}' if fused else ''}, a seeded state: equal to plain; "
+              f"kernel {ms:.4f} ms, plain {pms:.3f} ms {tag}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    adj = torch.randint(-1, N, (N, w), generator=gen, device=dev, dtype=torch.int32)
+    packed = bk.build_packed_table(adj, x_dev, (x_dev * x_dev).sum(dim=1))
+    del adj
+    nodes = torch.randint(-1, N, (BATCH, expand), generator=gen, device=dev, dtype=torch.int32)
+    q = torch.from_numpy(queries).to(dev)
+    qb, qn = q.to(torch.bfloat16), bk.row_sqnorms(q)
+    bd, bs, be = state[:3]
+    k5 = (nodes, packed, qb, qn, bd, bs, be, ef, expand, ef)
+    got = bk._fused_expand_cuda(*k5)
+    want = bk._fused_expand_plain(*k5)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, wv) for g, wv in zip(got, want)):
+        raise AssertionError("K5 differs from its plain version on the seeded state")
+    ms = time_ms(lambda: bk._fused_expand_cuda(*k5))
+    pms = time_ms(lambda: bk._fused_expand_plain(*k5))
+    print(f"K5 fused expand Q={BATCH} ef={ef} E={expand} W={w} d={DIM}, a seeded state over a "
+          f"packed table of {N} rows: equal to plain; kernel {ms:.4f} ms, plain {pms:.3f} ms "
+          f"{tag}")
+    del packed, state, q, qb, qn, nodes
+    torch.cuda.empty_cache()
+
+
+def ivf_phase(ivf, corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, tag,
               time_ms, profile):
-    """Section 5 of the module docstring. Returns {"report": per-kernel
-    numbers of K2's nprobe mode and K3, "launches": the IVF path's counts}."""
+    """Section 5 of the module docstring, on the index `build_ivf` made.
+    Returns {"report": per-kernel numbers of K2's nprobe mode, "launches":
+    the IVF path's counts}."""
     from comet_tpu_torch import Bitset, DistanceKind, IVFIndex
     from comet_tpu_torch.indexes.base import _additive_mask
     from comet_tpu_torch.ops import fused_scan, sortnet
@@ -318,26 +515,14 @@ def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, 
     inf = float("inf")
     ids = np.arange(1, N + 1, dtype=np.uint32)
     report = {}
-    ivf = IVFIndex(DIM, NLIST, DistanceKind.L2, device="cuda")
-    t0 = time.perf_counter()
-    ivf.train(corpus[:N_TRAIN])
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ivf.add_batch(corpus, ids=ids)
-    torch.cuda.synchronize()
-    print(f"IVF nlist={NLIST}: train on {N_TRAIN} rows {t_train:.3f} s, add_batch {N} x {DIM} "
-          f"{time.perf_counter() - t0:.3f} s {tag}")
     vecs, sqnorms, valid = ivf._store.device_state()
     assign = ivf._device_dense()
     cents = ivf._dev_centroids
     sizes = torch.bincount(assign[assign >= 0].long(), minlength=NLIST)
-    t0 = time.perf_counter()
     st = ivf._device_sparse()
-    torch.cuda.synchronize()
     print(f"list sizes: min {int(sizes.min())}, median {int(sizes.median())}, "
           f"max {int(sizes.max())}; cluster-major layout {st['nch_total']} chunks of "
-          f"{sp.CHUNK} rows, built in {time.perf_counter() - t0:.3f} s")
+          f"{sp.CHUNK} rows")
 
     # K2, nprobe mode: 256 queries x 1M rows with the index's probes at nprobe 10
     q256 = torch.from_numpy(queries[:256]).to(dev)
@@ -369,44 +554,7 @@ def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, 
           f"({report['fused_dist_select_nprobe']['bound'][1]}) {tag}")
     del dist, pdist, pgmin, gsel, pgsel, fin, table, mask, q256, probes
 
-    # K3: the block-sparse scan of a 2048-query batch at nprobe 10
     qs_all = torch.from_numpy(queries).to(dev)
-    S, UC, MC = sp.default_budgets(10, NLIST, st["nch_total"], st["max_chunks"])
-    plan = sp.scan_plan(qs_all, cents, ivf._order_key, st["chunk_start"], st["nchunks"],
-                        128, 10, S, UC, MC, NLIST, False)
-    S, kb = plan["S"], plan["kb"]
-    scan = (plan["qsorted"], st["corpus"], st["mask_vec"], plan["probes"],
-            plan["chunk_ids"], plan["cluster_ids"])
-    dist, gsel = sp._sparse_scan(*scan, inf, kb)
-    pdist, pgmin = sp._sparse_scan_plain(*scan, inf, False)
-    pgsel = sortnet._topk_rows_plain(pgmin.view(BATCH, 2 * S), None, kb)[1][:, :kb]
-    torch.cuda.synchronize()
-    if not (torch.equal(dist, pdist) and torch.equal(gsel.view(BATCH, kb), pgsel)):
-        raise AssertionError("K3 differs from its plain version")
-    fin = torch.isfinite(pdist)
-    err = (dist[fin] - pdist[fin]).abs().max().item()
-    n_fin = int(fin.sum())
-    del dist, pdist, pgmin, gsel, pgsel, fin
-    ms = time_ms(lambda: sp._sparse_scan_cuda(*scan, inf, False))
-    pms = time_ms(lambda: sp._sparse_scan_plain(*scan, inf, False))
-    g_n = BATCH // sp.QG
-    live = plan["cluster_ids"] >= 0
-    member = (plan["probes"].view(g_n, sp.QG, -1, 1)
-              == plan["cluster_ids"].view(g_n, 1, 1, S)).any(dim=2)    # [G, QG, S]
-    pairs = float(member.sum()) * sp.CHUNK
-    chunks_read = int(torch.unique(plan["chunk_ids"][live]).numel())
-    n_bytes = (4 * (BATCH * DIM + BATCH * plan["probes"].shape[1] + 2 * g_n * S
-                    + BATCH * S * sp.CHUNK + BATCH * 2 * S)
-               + 4 * chunks_read * sp.CHUNK * (DIM + 1))
-    report["sparse_scan"] = dict(err=err, ms=ms, plain_ms=pms, library_ms=None,
-                                 bound=bound(n_bytes, 2 * DIM * pairs))
-    print(f"K3 sparse scan {BATCH} queries, nprobe 10, S={S} ({int(live.sum())} of "
-          f"{g_n * S} steps live, {chunks_read} chunks, overflow "
-          f"{int(plan['overflow'].sum())}): dist and group choice equal to plain "
-          f"({n_fin} finite entries); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
-          f"{report['sparse_scan']['bound'][0]:.3f} ms ({report['sparse_scan']['bound'][1]}) {tag}")
-    del plan, scan, member, live
-    torch.cuda.empty_cache()
 
     # the IVF path through the public API, every launch counted
     allowed = (ids % 3) != 0
@@ -714,17 +862,17 @@ def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_seed, report, tag, 
         ms = time_ms(lambda: bk._merge_cuda(*args, *rest))
         pms = time_ms(lambda: bk._merge_plain(*args, *rest))
         n_bytes = q_n * (ef * 12 + ew * 8 + ef * 12 + bk.MISC_ROWS * 4)
-        n_cmp = q_n * sort_exchanges(ef + ew)
+        n_cmp = q_n * merge_compares(ef, ew)
         if fused:
             n_bytes += q_n * (kr * 8 + ew * 4 + kr * 8)
-            n_cmp += q_n * sort_exchanges(kr + ew)
+            n_cmp += q_n * (kr + ew)            # the admitted run merged with the result set
         report[key] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
                            bound=bound(n_bytes, n_cmp))
         print(f"K4 beam merge ({'fused' if fused else 'split'}) Q={q_n} ef={ef} ew={ew} "
               f"expand={expand} stop={stop}{f' kr={kr}' if fused else ''}, inputs of iteration "
               f"3: equal to plain; kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
               f"{report[key]['bound'][0]:.4f} ms ({report[key]['bound'][1]}; {n_bytes / 1e6:.1f} "
-              f"MB, {n_cmp / 1e6:.1f} M compare-exchanges) {tag}")
+              f"MB, {n_cmp / 1e6:.1f} M compares) {tag}")
 
     a = cap_score.args
     qb, qn, nbr_vecs, aux, nodes, allowed_dev, thr_k, fused = a
@@ -793,13 +941,6 @@ def time_gather(index, n, dev, tag, time_ms):
           f"(W x d bf16 + the aux row, table of {nbr_vecs.shape[0]} rows) in {ms:.4f} ms: "
           f"{len(rows) / (ms * 1e-3):.4g} rows/s, {gbps:.1f} GB/s = "
           f"{gbps / (PEAK_BYTES / 1e9):.3f} of 3.35 TB/s {tag}")
-
-
-def sort_exchanges(rows):
-    """Compare-exchanges of the bitonic sort of next_pow2(rows) keys."""
-    c = 1 << (rows - 1).bit_length()
-    log_c = c.bit_length() - 1
-    return c // 2 * log_c * (log_c + 1) // 2
 
 
 def packed_fused_phase(index, queries, blocked, report, dev, tag, time_ms):
@@ -877,7 +1018,7 @@ def check_k5_packed_scoring(cap_k5, cap_score, report, dev, tag, time_ms):
     row_len = packed.shape[1]
     n_bytes = (live * row_len * 2 + nodes.numel() * 4 + qb.numel() * 2 + qn.numel() * 4
                + q_n * ef * 12 * 2 + q_n * bk.MISC_ROWS * 4)
-    n_cmp = q_n * sort_exchanges(ef + expand * w)
+    n_cmp = q_n * merge_compares(ef, expand * w)
     report["fused_expand"] = dict(
         err=0.0, ms=ms, plain_ms=pms, library_ms=None,
         bound=bound(n_bytes, 2 * d * live * w, PEAK_BF16, n_cmp / PEAK_FP32 * 1e3))
@@ -1184,21 +1325,29 @@ def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, 
 
 
 def edge_checks(dev, seed, tag):
-    """K1 and K2's three modes against their plain versions at edge shapes
-    (ops/edge_cases.py, the cases of the card tests)."""
+    """K1, K2's three modes, K3's two modes and K4's two against their plain
+    versions at edge shapes (ops/edge_cases.py, the cases of the card
+    tests)."""
     from comet_tpu_torch.ops import edge_cases, sortnet
 
     t0 = time.perf_counter()
     for k, width in edge_cases.K1_CASES:
         edge_cases.check_k1(dev, k, width, seed)
     k2_err = max(edge_cases.check_k2(dev, q_n, d, n, seed) for q_n, d, n in edge_cases.K2_SHAPES)
+    k3_err = max(edge_cases.check_k3(dev, layout, d, seed) for layout, d in edge_cases.K3_CASES)
+    for case in edge_cases.K4_CASES:
+        edge_cases.check_k4(dev, *case, seed=seed)
     torch.cuda.synchronize()
     print(f"edge shapes: K1 equal to its plain version in {3 * len(edge_cases.K1_CASES)} selects "
           f"(k {edge_cases.K1_KS}, widths 1-65539, both layouts and idx=None, one launch each "
           f"for k_pow2 <= {sortnet.KP_MAX}); K2's float32, nprobe and bf16 modes equal to their "
           f"plain versions in {10 * len(edge_cases.K2_SHAPES)} scans (cosine float32 "
-          f"allclose(1e-5, 1e-6), max abs err {k2_err:.3g}) ({time.perf_counter() - t0:.1f} s) "
-          f"{tag}")
+          f"allclose(1e-5, 1e-6), max abs err {k2_err:.3g}); K3's float32 and bf16 modes in "
+          f"{8 * len(edge_cases.K3_CASES)} scans (member counts "
+          f"{edge_cases.K3_MEMBER_COUNTS} a step, dead steps, S = 1, a zero-padded group, d 3-128; "
+          f"cosine float32 allclose(1e-5, 1e-6), max abs err {k3_err:.3g}); K4 split and fused "
+          f"in {len(edge_cases.K4_CASES)} steps (ties, copies, SENT and +inf rows, ew 7-300, "
+          f"beams and result sets out of slot order) ({time.perf_counter() - t0:.1f} s) {tag}")
 
 
 def sortnet_rows_plain(gmin, kb):
@@ -1371,17 +1520,24 @@ def main():
         ms = time_ms(lambda: sortnet.topk_rows(vals, idx, k))
         pms = time_ms(lambda: sortnet._topk_rows_plain(vals, idx, k))
         lms = time_ms(lambda: torch.topk(vals, k, dim=1, largest=False))
-        k1_rows[what] = (err, ms, pms, lms)
+        # the values (and indices) read once, k_pow2 (value, index) pairs of
+        # each row written
+        b = bound(vals.numel() * 4 + (idx.numel() * 4 if idx is not None else 0)
+                  + vals.shape[0] * sortnet.k_pow2(k) * 8, 0)
+        k1_rows[what] = (err, ms, pms, lms, b)
         print(f"K1 topk_rows {what} {list(vals.shape)} k={k}"
               f"{', idx=None' if idx is None else ''}: equal to plain; kernel {ms:.4f} ms, "
-              f"plain {pms:.3f} ms, torch.topk(dim=1, largest=False) {lms:.4f} ms {tag}")
-    # the candidate select: its values and indices read once, k_pow2 = 128
-    # keys of each row written
-    err, ms, pms, lms = k1_rows["candidate select"]
-    report["topk_cl"] = dict(err=err, ms=ms, plain_ms=pms, library_ms=lms,
-                             bound=bound(256 * 128 * 128 * 8 + 256 * 128 * 8, 0))
+              f"plain {pms:.3f} ms, torch.topk(dim=1, largest=False) {lms:.4f} ms; bound "
+              f"{b[0]:.4f} ms ({b[1]}) {tag}")
+    err, ms, pms, lms, b = k1_rows["candidate select"]
+    report["topk_cl"] = dict(err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=b)
     del q_dev, invalid, gmin, gsel, cand, cidx, fin_v, fin_i
     torch.cuda.empty_cache()
+
+    # K3 on the IVF layout, K4 and K5 on a beam state made from the seed
+    ivf_index = build_ivf(corpus, tag)
+    report["sparse_scan"] = k3_section(ivf_index, queries, dev, tag, time_ms)
+    beam_section(x_dev, queries, args.seed, dev, tag, time_ms)
     if args.kernels_only:
         return
 
@@ -1484,8 +1640,9 @@ def main():
     fb = flat_bf16_phase(corpus, queries, got_ids, got_scores, dev, tag, time_ms)
 
     # -- 5. the IVF path ----------------------------------------------------------
-    ivf = ivf_phase(corpus, queries, c_corpus, c_queries, got_ids, got_scores,
+    ivf = ivf_phase(ivf_index, corpus, queries, c_corpus, c_queries, got_ids, got_scores,
                     dev, tag, time_ms, args.profile)
+    del ivf_index
 
     # -- 6-7. the HNSW path ----------------------------------------------------------
     hnsw = hnsw_phase(corpus, queries, extra, c_corpus, c_queries, got_ids, dev, tag, time_ms,

@@ -1,20 +1,21 @@
 """comet_tpu_torch — the PyTorch / CUDA port of comet_tpu.
 
-It runs on one NVIDIA Hopper card (or on the CPU, for tests) and covers,
-so far, exact flat search (`FlatIndex`, float32 storage), IVF search
-(`IVFIndex`) and HNSW bulk build and search (`HNSWIndex`), with the host
-layer they need. Its CUDA kernels, written by hand for sm_90a, replace the
-Pallas kernels of those paths (ops/sortnet.py: top-k select;
-ops/fused_scan.py: fused distance scan, flat and nprobe modes;
+It runs on one NVIDIA Hopper card (or on the CPU, for tests) and covers
+exact flat search (`FlatIndex`: float32 storage, and bfloat16 storage with
+an optional float32 rerank), IVF search (`IVFIndex`) and HNSW bulk build,
+incremental insertion and search (`HNSWIndex`: blocked or packed routing
+tables, a seeded or classic start), with the host layer they need. Its
+CUDA kernels, written by hand for sm_90a, replace every Pallas kernel of
+the reference (ops/sortnet.py: top-k select; ops/fused_scan.py: fused
+distance scan, flat mode over a float32 or bf16 corpus and nprobe mode;
 ops/ivf_sparse.py: block-sparse IVF scan, float32 and bf16 modes;
-ops/beam_kernel.py: the HNSW beam's merge step and its in-loop scoring).
-Every index runs on the
-card unless it is given `device="cpu"`; nothing falls back from the card
-to the CPU.
+ops/beam_kernel.py: the HNSW beam's merge step, its in-loop scoring, and
+the fused expand kernel that scores and merges in one launch). Every index
+runs on the card unless it is given `device="cpu"`; nothing falls back
+from the card to the CPU.
 
 The package imports torch and numpy, never jax and never comet_tpu.
 """
-
 from comet_tpu_torch.types import (
     DistanceKind,
     VectorIndexKind,

@@ -6,15 +6,17 @@
 //
 // What bounds it on an H100: a step reads (ef + ew) x 12 bytes and writes
 // ef x 12 + 24 x 4 bytes per query (the fused result set doubles that): at
-// Q = 2048, ef = ew = 256 about 17 MB, 5 us at 3.35 TB/s; the sort's 24 M
-// compare-exchanges are integer work far below the card's rate. So bytes
-// bound it, and what costs is latency: 45 dependent sort stages per block,
-// each behind a barrier. chip_smoke.py computes each run's bound from its
+// Q = 2048, ef = ew = 256 about 17 MB, 5 us at 3.35 TB/s; the compares are
+// integer work far below the card's rate. So bytes bound it, and what
+// costs is latency: the dependent steps of one query's block, each behind a
+// barrier. The port's first design sorted all next_pow2(ef + ew) = 512 keys
+// with a bitonic network, 45 barriered stages; this one sorts only the
+// candidates and merges. chip_smoke.py computes each run's bound from its
 // inputs; PERF.md has the measured times.
 //
 // Per query, on the port's query-major layout ([Q, rows]):
 //   1. beam (ef rows of dist, slot, expanded) and candidates (ew rows,
-//      expanded = 0) sorted by (dist asc, slot asc, expanded desc);
+//      expanded = 0) in the order (dist asc, slot asc, expanded desc);
 //   2. a row whose slot equals the previous row's is killed: copies of a
 //      node carry bit-equal distances (the seed scan and the in-loop
 //      scoring share one FMA chain, scan_tile.cuh), so one row stays, the
@@ -26,69 +28,90 @@
 //      active): misc[q, 0 .. expand-1] the selected slots (-1 none),
 //      misc[q, expand] the flag, the rest -1;
 //   5. (fused) the result set (kr sorted rows) and the admitted candidates
-//      sorted by (dist, slot), adjacent copies killed, compacted, cut to kr.
-// The order of step 1 is total up to rows equal in every field, so any
-// correct sort gives the reference's result bit for bit: the kernel does
-// not copy the TPU's bitonic network over queries on lanes.
+//      in (dist, slot) order, adjacent copies killed, compacted, cut to kr.
+// The order of step 1 is total up to rows equal in every field, so the
+// merge of two sorted runs gives the full sort's sequence bit for bit.
 //
-// Design: one block of 256 threads per query over 64-bit keys in shared
-// memory (beam_merge.cuh, whose merge body K5 shares). The block sorts the
-// next_pow2(ef + ew) keys with a bitonic network, marks the dead rows,
-// places the live ones by a block prefix sum and selects over the
-// compacted window with a second one. The fused result set reuses the key
-// buffer with (dist bits << 32) | slot keys.
+// Design: one block of K4_THREADS = 128 threads per query over 64-bit keys
+// in shared memory (beam_merge.cuh, whose merge body K5 shares; 128 threads
+// took less device time than 64 or 256, PERF.md). The beam arrives
+// sorted (the previous step's window): one pass of adjacent compares
+// checks it, and only a beam that does not ascend is sorted. The ew
+// candidates are sorted as runs of 32 in registers (warp shuffles) and
+// merged by merge path, log2(ew / 32) barriered levels; one more merge
+// path joins them with the beam. Then the dead rows are marked, the live
+// ones placed by a block prefix sum, and the selection runs over the
+// compacted window with a second one. Fused mode carries each candidate's
+// admission flag in the lowest bit of its key while it is sorted (the bit
+// is "not expanded", 1 for every candidate, and is restored for the beam
+// merge), so the admitted candidates come out of the sorted run already
+// in (dist, slot) order: a prefix sum compacts them, and one merge path
+// joins them with the result set (sorted when it does not ascend).
 
 #include "beam_merge.cuh"
 
-__global__ void __launch_bounds__(MERGE_THREADS) beam_merge_kernel(
+#ifndef K4_THREADS
+#define K4_THREADS 128     // threads a query (one query a block)
+#endif
+
+__global__ void __launch_bounds__(K4_THREADS) beam_merge_kernel(
     const float* __restrict__ bd, const int* __restrict__ bs, const int* __restrict__ be,
     const float* __restrict__ nd, const int* __restrict__ ns,
     const float* __restrict__ rd, const int* __restrict__ rs, const int* __restrict__ adm,
-    int ef, int ew, int expand, int stop, int kr, int fused, int n_sort, int n_res,
+    int ef, int ew, int expand, int stop, int kr, int fused,
     float* __restrict__ od, int* __restrict__ os, int* __restrict__ oe,
     int* __restrict__ misc, float* __restrict__ ord, int* __restrict__ ors)
 {
     extern __shared__ u64 smem[];
-    u64* keys = smem;                             // max(n_sort, n_res)
-    u64* win = smem + max(n_sort, n_res);         // max(ef, kr)
     __shared__ MergeScratch sc;
+    const MergeBufs bufs = merge_bufs(smem, ef, ew);
 
     const int tid = threadIdx.x;
     const long long q = blockIdx.x;
+    const int nc = merge_run(ew);
     const u64 pad_beam = beam_key(CUDART_INF_F, SENT_SLOT, 0);
 
-    // 1. keys of the beam and the candidates, padded to n_sort
-    for (int i = tid; i < n_sort; i += blockDim.x) {
-        u64 k = pad_beam;
-        if (i < ef) {
-            k = beam_key(bd[q * ef + i], bs[q * ef + i], be[q * ef + i]);
-        } else if (i < ef + ew) {
-            const int j = i - ef;
-            k = beam_key(nd[q * ew + j], ns[q * ew + j], 0);
-        }
-        keys[i] = k;
+    // 1. the beam's keys and the candidates' (fused: the admission flag in
+    //    the lowest bit), the candidates padded to whole runs
+    for (int i = tid; i < ef; i += blockDim.x) {
+        bufs.beam[i] = beam_key(bd[q * ef + i], bs[q * ef + i], be[q * ef + i]);
     }
-    // 2-4. sort, kill, compact, select
-    merge_select(keys, n_sort, win, ef, expand, stop, q, od, os, oe, misc, &sc);
+    for (int i = tid; i < nc; i += blockDim.x) {
+        u64 k = pad_beam;
+        if (i < ew) k = beam_key(nd[q * ew + i], ns[q * ew + i], 0);
+        if (fused) k = (k & ~1ull) | (i < ew && adm[q * ew + i] != 0 ? 1ull : 0ull);
+        bufs.cand[i] = k;
+    }
+    // 2-4. sort the candidates, merge, kill, compact, select
+    const u64* cand = merge_select(bufs, ef, ew, expand, stop, q, od, os, oe, misc, &sc);
     if (!fused) return;
 
     // 5. the result set: kr sorted rows + the admitted candidates
+    const int nr = merge_run(kr);
+    u64* res = bufs.merged + ef + nc;      // nr
+    u64* rtmp = res + nr;                  // nr
+    u64* adm_run = rtmp + nr;              // nc
+    u64* rmerged = adm_run + nc;           // kr + nc
+    u64* rwin = rmerged + kr + nc;         // kr
     const u64 pad_res = res_key(CUDART_INF_F, SENT_SLOT);
-    for (int i = tid; i < n_res; i += blockDim.x) {
-        u64 k = pad_res;
-        if (i < kr) {
-            k = res_key(rd[q * kr + i], rs[q * kr + i]);
-        } else if (i < kr + ew) {
-            const int j = i - kr;
-            if (adm[q * ew + j] != 0) k = res_key(nd[q * ew + j], ns[q * ew + j]);
-        }
-        keys[i] = k;
+    for (int i = tid; i < kr; i += blockDim.x) res[i] = res_key(rd[q * kr + i], rs[q * kr + i]);
+    const int per = (nc + blockDim.x - 1) / blockDim.x;
+    const int lo = min(nc, tid * per);
+    const int hi = min(nc, lo + per);
+    int mine = 0;
+    for (int i = lo; i < hi; ++i) mine += (int)(cand[i] & 1ull);
+    int n_adm;
+    int pos = block_exclusive_scan(mine, sc.warp_sums, &n_adm);
+    for (int i = lo; i < hi; ++i) {
+        const u64 k = cand[i];
+        if (k & 1ull) adm_run[pos++] = ((k >> 32) << 32) | ((k >> 1) & 0x7FFFFFFFull);
     }
     __syncthreads();
-    block_sort(keys, n_res);
-    kill_compact(keys, n_res, 0, win, kr, pad_res, sc.warp_sums);
+    const u64* rsorted = block_sorted_run(res, rtmp, kr, pad_res);
+    block_merge(rsorted, kr, adm_run, n_adm, 0ull, rmerged);
+    kill_compact(rmerged, kr + n_adm, 0, rwin, kr, pad_res, sc.warp_sums);
     for (int i = tid; i < kr; i += blockDim.x) {
-        const u64 k = win[i];
+        const u64 k = rwin[i];
         ord[q * kr + i] = __uint_as_float((unsigned)(k >> 32));
         ors[q * kr + i] = (int)(k & 0x7FFFFFFFull);
     }
@@ -103,14 +126,13 @@ extern "C" int comet_beam_merge(
     if (Q < 1 || ef < 1 || ew < 1 || expand < 1 || expand >= MISC_ROWS ||
         stop < 1 || stop > ef || (fused && kr < 1))
         return (int)cudaErrorInvalidValue;
-    const int n_sort = merge_next_pow2(ef + ew);
-    const int n_res = fused ? merge_next_pow2(kr + ew) : 0;
-    const int width = ef > kr ? ef : kr;
-    const size_t smem = sizeof(u64) * ((size_t)(n_sort > n_res ? n_sort : n_res) + width);
+    size_t keys = (size_t)merge_keys(ef, ew);
+    if (fused) keys += 2 * (size_t)merge_run(kr) + 2 * (size_t)merge_run(ew) + 2 * (size_t)kr;
+    const size_t smem = sizeof(u64) * keys;
     const int attr = merge_smem_attr(beam_merge_kernel, smem);
     if (attr != 0) return attr;
-    beam_merge_kernel<<<Q, MERGE_THREADS, smem, (cudaStream_t)stream>>>(
-        bd, bs, be, nd, ns, rd, rs, adm, ef, ew, expand, stop, kr, fused, n_sort, n_res,
+    beam_merge_kernel<<<Q, K4_THREADS, smem, (cudaStream_t)stream>>>(
+        bd, bs, be, nd, ns, rd, rs, adm, ef, ew, expand, stop, kr, fused,
         od, os, oe, misc, ord, ors);
     return (int)cudaGetLastError();
 }

@@ -9,7 +9,7 @@
 // per iteration at the 1M shapes); this kernel reads each row from the
 // table itself and never writes the candidates out.
 //
-// One block of MERGE_THREADS threads per query q:
+// One block of K5_THREADS threads per query q:
 //   1. the ef beam rows become 64-bit keys in shared memory
 //      (beam_merge.cuh);
 //   2. each of the E * W candidates (expanded node e = nodes[q, e], -1 for
@@ -20,8 +20,9 @@
 //      bit-equal to it and to the seed scan's (K3's bf16 mode). A node of
 //      -1 or an empty entry gives (+inf, SENT) and reads nothing;
 //   3. K4's split merge body runs on the keys in place (`merge_select`):
-//      sort, kill, compaction, the next `expand` nodes, the active flag
-//      and the `stop` window.
+//      the candidates sorted and merged with the sorted beam, kill,
+//      compaction, the next `expand` nodes, the active flag and the
+//      `stop` window.
 // The outputs (beam, expanded flags, misc) are those of the split pair
 // (gather_score.cu, then beam_merge.cu in split mode) bit for bit.
 //
@@ -30,55 +31,54 @@
 // beam read and written (ef x 12 bytes twice a query): about 151 MB, 45 us
 // at 3.35 TB/s; the 2 d operations per candidate are far below the card's
 // rate. The design is the simple one: one thread per candidate reads its
-// neighbour's 256 bytes, and the merge pays K4's barrier-bound sort.
+// neighbour's 256 bytes; the merge is K4's (a sort of the E W candidates,
+// runs of 32 in registers then merge path, and one merge with the beam).
 
 #include "beam_merge.cuh"
 #include "neighbour_score.cuh"
 
-__global__ void __launch_bounds__(MERGE_THREADS) fused_expand_kernel(
+#ifndef K5_THREADS
+#define K5_THREADS 256     // threads a query: one candidate a thread
+#endif
+
+__global__ void __launch_bounds__(K5_THREADS) fused_expand_kernel(
     const int* __restrict__ nodes, const bf16_t* __restrict__ table, long long row_len,
     const bf16_t* __restrict__ qb, const float* __restrict__ qn,
     const float* __restrict__ bd, const int* __restrict__ bs, const int* __restrict__ be,
-    int ef, int E, int W, int d, int ndig, int expand, int stop, int n_sort,
+    int ef, int E, int W, int d, int ndig, int expand, int stop,
     float* __restrict__ od, int* __restrict__ os, int* __restrict__ oe,
     int* __restrict__ misc)
 {
     extern __shared__ u64 smem[];
-    u64* keys = smem;                 // n_sort
-    u64* win = smem + n_sort;         // ef
     __shared__ MergeScratch sc;
+    const int ew = E * W;
+    const MergeBufs bufs = merge_bufs(smem, ef, ew);
 
     const int tid = threadIdx.x;
     const long long q = blockIdx.x;
-    const int ew = E * W;
     const bf16_t* qq = qb + q * d;
     const float qnq = qn[q];
-    const u64 pad_beam = beam_key(CUDART_INF_F, SENT_SLOT, 0);
 
-    for (int i = tid; i < n_sort; i += blockDim.x) {
-        u64 k = pad_beam;
-        if (i < ef) {
-            k = beam_key(bd[q * ef + i], bs[q * ef + i], be[q * ef + i]);
-        } else if (i < ef + ew) {
-            const int c = i - ef;
-            const int node = nodes[q * E + c / W];
-            const int j = c % W;
-            float dist = CUDART_INF_F;
-            int slot = SENT_SLOT;
-            if (node >= 0) {
-                const bf16_t* row = table + (long long)node * row_len;
-                const bf16_t* arow = row + (long long)W * d;
-                const int neigh = decode_slot(arow, W, j, ndig);
-                if (neigh >= 0) {
-                    slot = neigh;
-                    dist = neighbour_dist(qq, qnq, row + j * d, arow[j], d);
-                }
-            }
-            k = beam_key(dist, slot, 0);
-        }
-        keys[i] = k;
+    for (int i = tid; i < ef; i += blockDim.x) {
+        bufs.beam[i] = beam_key(bd[q * ef + i], bs[q * ef + i], be[q * ef + i]);
     }
-    merge_select(keys, n_sort, win, ef, expand, stop, q, od, os, oe, misc, &sc);
+    for (int c = tid; c < merge_run(ew); c += blockDim.x) {
+        float dist = CUDART_INF_F;
+        int slot = SENT_SLOT;
+        const int node = c < ew ? nodes[q * E + c / W] : -1;
+        if (node >= 0) {
+            const int j = c % W;
+            const bf16_t* row = table + (long long)node * row_len;
+            const bf16_t* arow = row + (long long)W * d;
+            const int neigh = decode_slot(arow, W, j, ndig);
+            if (neigh >= 0) {
+                slot = neigh;
+                dist = neighbour_dist(qq, qnq, row + j * d, arow[j], d);
+            }
+        }
+        bufs.cand[c] = beam_key(dist, slot, 0);
+    }
+    merge_select(bufs, ef, ew, expand, stop, q, od, os, oe, misc, &sc);
 }
 
 // nodes [Q, E] i32 (E = expand), table [cap, row_len] bf16 packed rows
@@ -94,12 +94,11 @@ extern "C" int comet_fused_expand(
         expand >= MISC_ROWS || stop < 1 || stop > ef ||
         row_len != (long long)W * d + (long long)(1 + ndig) * W)
         return (int)cudaErrorInvalidValue;
-    const int n_sort = merge_next_pow2(ef + expand * W);
-    const size_t smem = sizeof(u64) * ((size_t)n_sort + ef);
+    const size_t smem = sizeof(u64) * (size_t)merge_keys(ef, expand * W);
     const int attr = merge_smem_attr(fused_expand_kernel, smem);
     if (attr != 0) return attr;
-    fused_expand_kernel<<<Q, MERGE_THREADS, smem, (cudaStream_t)stream>>>(
+    fused_expand_kernel<<<Q, K5_THREADS, smem, (cudaStream_t)stream>>>(
         nodes, (const bf16_t*)table, row_len, (const bf16_t*)qb, qn, bd, bs, be,
-        ef, expand, W, d, ndig, expand, stop, n_sort, od, os, oe, misc);
+        ef, expand, W, d, ndig, expand, stop, od, os, oe, misc);
     return (int)cudaGetLastError();
 }

@@ -38,8 +38,8 @@
 // selection group), 256 threads each accumulate an 8 x 8 tile, 16-deep
 // slices are double-buffered in shared memory with the next slice's loads
 // in flight during this slice's FMAs. Each distance is the `dot_fma` chain
-// from 0 in ascending depth, as in the 64 x 128 tile of scan_tile.cuh that
-// K3 still uses, so both give bit-equal distances. The epilogue reduces
+// from 0 in ascending depth, as in K3's tile (ivf_sparse.cu), so both give
+// bit-equal distances. The epilogue reduces
 // each thread's 8 distances of a query to a minimum and finishes the group
 // minimum with warp shuffles, so gmin costs no extra pass over dist. Blocks
 // are ordered query-block fastest, so the blocks that read one corpus tile

@@ -26,13 +26,14 @@
 //   32 consecutive rows of one 16-byte column, so the transposing stores
 //   into shared memory are conflict-free. Rows that are not 16-byte aligned
 //   (d not a multiple of 4 floats or 8 bf16) take scalar loads instead.
-// - bf16 operands (T = bf16_t) are widened to float32 as they are staged,
-//   exactly as scan_tile.cuh does.
+// - bf16 operands (T = bf16_t) are widened to float32 as they are staged
+//   (`ft_unpack`), so the product is the same FMA chain either way. K3
+//   (ivf_sparse.cu) stages its chunk rows with the same loads.
 //
 // Sum order: every inner product starts at 0 and takes the depth in
-// ascending order, one `dot_fma` a step (scan_tile.cuh), the order of the
-// 64 x 128 tile this replaces and of ops/distance.bf16_dot, so distances
-// are bit-equal to both on any data. Zero padding past d adds exact zeros
+// ascending order, one `dot_fma` a step (scan_tile.cuh), the order of K3's
+// tile and of ops/distance.bf16_dot, so distances are bit-equal to both on
+// any data. Zero padding past d adds exact zeros
 // to a sum that is never -0.0, which leaves it unchanged. The epilogue is
 // scan_tile.cuh's `scan_distance`, then `probe_in`, in its order: L2
 // max((qn + mask) - 2 ip, 0), cosine (1 - clip(ip)) + mask, the threshold,
@@ -49,6 +50,28 @@
 
 // Operands one thread stages per slice: FT_BM x FT_BK / FT_THREADS values.
 #define FT_PER_THREAD 8
+
+// The float32 values of 16 loaded bytes: 4 float32 or 8 bf16 at v[0 ..).
+template <typename T>
+__device__ __forceinline__ void ft_unpack(uint4 w, float* v)
+{
+    if constexpr (sizeof(T) == 4) {
+        v[0] = __uint_as_float(w.x);
+        v[1] = __uint_as_float(w.y);
+        v[2] = __uint_as_float(w.z);
+        v[3] = __uint_as_float(w.w);
+    } else {
+        // little-endian: element 2i is the low half of word i
+        v[0] = __uint_as_float(w.x << 16);
+        v[1] = __uint_as_float(w.x & 0xFFFF0000u);
+        v[2] = __uint_as_float(w.y << 16);
+        v[3] = __uint_as_float(w.y & 0xFFFF0000u);
+        v[4] = __uint_as_float(w.z << 16);
+        v[5] = __uint_as_float(w.z & 0xFFFF0000u);
+        v[6] = __uint_as_float(w.w << 16);
+        v[7] = __uint_as_float(w.w & 0xFFFF0000u);
+    }
+}
 
 // Loads this thread's share of the depth slice [k0, k0 + FT_BK) of `rows`
 // rows (row stride d) starting at `base`, widened to float32; rows past
@@ -69,22 +92,7 @@ __device__ __forceinline__ void ft_load(
         if (VEC) {
             uint4 w = make_uint4(0u, 0u, 0u, 0u);
             if (row < valid && gk < d) w = __ldg(reinterpret_cast<const uint4*>(p));
-            if constexpr (sizeof(T) == 4) {
-                v[u * 4 + 0] = __uint_as_float(w.x);
-                v[u * 4 + 1] = __uint_as_float(w.y);
-                v[u * 4 + 2] = __uint_as_float(w.z);
-                v[u * 4 + 3] = __uint_as_float(w.w);
-            } else {
-                // little-endian: element 2i is the low half of word i
-                v[u * 8 + 0] = __uint_as_float(w.x << 16);
-                v[u * 8 + 1] = __uint_as_float(w.x & 0xFFFF0000u);
-                v[u * 8 + 2] = __uint_as_float(w.y << 16);
-                v[u * 8 + 3] = __uint_as_float(w.y & 0xFFFF0000u);
-                v[u * 8 + 4] = __uint_as_float(w.z << 16);
-                v[u * 8 + 5] = __uint_as_float(w.z & 0xFFFF0000u);
-                v[u * 8 + 6] = __uint_as_float(w.w << 16);
-                v[u * 8 + 7] = __uint_as_float(w.w & 0xFFFF0000u);
-            }
+            ft_unpack<T>(w, v + u * VW);
         } else {
 #pragma unroll
             for (int e = 0; e < VW; ++e)
@@ -124,7 +132,7 @@ __device__ __forceinline__ int ft_pos(int t, int i) { return t * 4 + (i < 4 ? i 
 // row 0) of the tile, row stride dist_stride; gmin: the group minimum of
 // query 0, row stride gmin_stride. MODE SCAN_ALL or SCAN_ROW_BITS, with
 // assign (the tile's first row's cluster) and words (query 0's probe
-// bitmask, n_words words per query) as in scan_tile.cuh.
+// bitmask, n_words words per query; see scan_tile.cuh).
 template <int MODE, typename T, bool VEC>
 __device__ __forceinline__ void fused_tile(
     const T* __restrict__ q, const float* __restrict__ qn, int q_valid,

@@ -52,9 +52,9 @@ SIGNATURES = {
     # dist, gmin, stream
     "comet_fused_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
                          _P, _P, _I, _P, _P, _P],
-    # q, qn, x, mask, probes, P, chunk_ids, cluster_ids, thr, G, S, d,
+    # q, qn, x, mask, probes, P, chunk_ids, cluster_ids, order, thr, G, S, d,
     # cosine, bf16, dist, gmin, stream
-    "comet_sparse_scan": [_P, _P, _P, _P, _P, _I, _P, _P, ctypes.c_float,
+    "comet_sparse_scan": [_P, _P, _P, _P, _P, _I, _P, _P, _P, ctypes.c_float,
                           _I, _I, _I, _I, _I, _P, _P, _P],
     # qb, qn, vecs, aux, vec_stride, aux_stride, nodes, allowed, thr, Q, E,
     # W, d, ndig, fused, nd, ns, adm, stream

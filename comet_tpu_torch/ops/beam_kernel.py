@@ -26,7 +26,8 @@ One iteration of the split path:
      compacted to the distinct top-ef, the next `expand` unexpanded rows
      picked with the query's active flag; in fused mode the admitted
      candidates also join a result set of kr rows. On a CUDA tensor
-     csrc/beam_merge.cu (`LAUNCHES` split, `FUSED_LAUNCHES` fused), on a
+     csrc/beam_merge.cu (`LAUNCHES` split, `FUSED_LAUNCHES` fused), which
+     sorts only the candidates and merges them with the sorted beam; on a
      CPU tensor `_merge_plain`.
 
 With `fuse` (COMET_HNSW_FUSE=1), an unfiltered search over the packed
@@ -385,7 +386,9 @@ def beam_merge_step(
     """One merge / dedup / compact / select step (module docstring).
 
     The beam arrives sorted by (dist, slot, expanded desc), and the result
-    set by (dist, slot), as the previous step left them. Returns
+    set by (dist, slot), as the previous step left them; the kernel merges
+    them as sorted runs and sorts either one first only when it does not
+    ascend, so any input gives `_merge_plain`'s result. Returns
     (beam_d', beam_s', beam_e', misc [Q, MISC_ROWS], res_d', res_s'):
     misc[:, :expand] are the next nodes (-1 none), misc[:, expand] the
     active flag, the rest -1; res_d', res_s' are None unless `fused`."""

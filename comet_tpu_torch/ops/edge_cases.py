@@ -1,6 +1,7 @@
-"""Edge cases that hold K1 (top-k select) and K2 (fused distance scan) to
-their plain versions on the card, shared by the card tests
-(tests/test_torch_cuda.py) and chip_smoke.py.
+"""Edge cases that hold K1 (top-k select), K2 (fused distance scan), K3
+(block-sparse IVF scan) and K4 (HNSW beam merge) to their plain versions
+on the card, shared by the card tests (tests/test_torch_cuda.py) and
+chip_smoke.py.
 
 Each `check_*` runs a kernel's wrapper and its plain version on the same
 CUDA tensors and raises AssertionError where they differ. The inputs are
@@ -14,8 +15,8 @@ import itertools
 import numpy as np
 import torch
 
-from comet_tpu_torch.ops import fused_scan, sortnet
-from comet_tpu_torch.ops.distance import preprocess
+from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
+from comet_tpu_torch.ops.distance import bf16_round, preprocess
 from comet_tpu_torch.types import DistanceKind
 
 K1_KS = (1, 8, 100, 128, 1000, 8192)
@@ -130,3 +131,201 @@ def check_k2(dev: torch.device, q_n: int, d: int, n: int, seed: int = 0) -> floa
             if both.any():
                 err = max(err, (dist[both] - pdist[both]).abs().max().item())
     return err
+
+
+# -- K3 ---------------------------------------------------------------------------
+
+K3_MEMBER_COUNTS = (0, 1, 15, 16, 17, 64, 128)   # probing queries of a step's cluster
+K3_LAYOUTS = ("counts", "one step", "ragged")
+K3_CASES = tuple(itertools.product(K3_LAYOUTS, (3, 20, 100, 128)))   # (layout, d)
+K3_CHUNKS = 16          # chunks of the cluster-major corpus
+K3_P = 16               # probes a query
+
+
+def k3_case(layout: str, d: int, seed: int = 0):
+    """One K3 layout in numpy: (q [G 128, d] float32, x [16 * 256, d],
+    valid [16 * 256] bool, probes [G 128, 16] int32, chunk_ids [G, S],
+    cluster_ids [G, S] int32). Step s of a group names cluster s + 1 (-1 on
+    a dead step); a query probes the clusters of its steps and fills its
+    other probes with clusters no step names, so a step's member count is
+    exact.
+
+    - "counts": two groups of nine steps, the member counts of
+      K3_MEMBER_COUNTS and two dead steps, shuffled;
+    - "one step": S = 1, 40 members;
+    - "ragged": 200 queries padded with zero rows to two groups (as the
+      pipeline pads a batch), four steps of random member counts.
+    Vectors are integers 0..255 (every float32 L2 distance exact)."""
+    g = np.random.default_rng((seed, K3_LAYOUTS.index(layout), d))
+    if layout == "counts":
+        counts = [list(K3_MEMBER_COUNTS) + [-1, -1] for _ in range(2)]
+        for c in counts:
+            g.shuffle(c)
+    elif layout == "one step":
+        counts = [[40]]
+    else:
+        counts = [list(g.integers(0, 129, size=4)) for _ in range(2)]
+    g_n, s_n = len(counts), len(counts[0])
+    q_n = g_n * ivf_sparse.QG
+    q = g.integers(0, 256, size=(q_n, d)).astype(np.float32)
+    if layout == "ragged":
+        q[200:] = 0.0
+    x = g.integers(0, 256, size=(K3_CHUNKS * ivf_sparse.CHUNK, d)).astype(np.float32)
+    valid = g.random(len(x)) > 0.1
+    cluster_ids = np.array([[s + 1 if c >= 0 else -1 for s, c in enumerate(row)]
+                            for row in counts], np.int32)
+    chunk_ids = g.integers(0, K3_CHUNKS, size=(g_n, s_n)).astype(np.int32)
+    # filler probes: clusters 40.. that no step names
+    probes = (40 + g.integers(0, 24, size=(q_n, K3_P))).astype(np.int32)
+    for gi, row in enumerate(counts):
+        slot = np.zeros(ivf_sparse.QG, np.int64)
+        for s, c in enumerate(row):
+            for r in g.permutation(ivf_sparse.QG)[:max(c, 0)]:
+                probes[gi * ivf_sparse.QG + r, slot[r]] = s + 1
+                slot[r] += 1
+    probes = np.take_along_axis(probes, np.argsort(g.random(probes.shape), axis=1), axis=1)
+    return q, x, valid, probes, chunk_ids, cluster_ids
+
+
+def check_k3(dev: torch.device, layout: str, d: int, seed: int = 0) -> float:
+    """K3 in both modes, L2 and cosine, without and with a threshold (the
+    median finite distance), against its plain version on one `k3_case`:
+    dist and the group minima array-equal (float32 cosine allclose(1e-5,
+    1e-6), flips only at the threshold), one launch a scan counted in the
+    mode's counter. Returns the largest absolute error of a finite entry."""
+    qn_, xn, valid, probes, chunk_ids, cluster_ids = k3_case(layout, d, seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    inf = torch.tensor(float("inf"), device=dev)
+    zero = torch.zeros((), device=dev)
+    q, x, ok = t(qn_), t(xn), t(valid)
+    lists = (t(probes), t(chunk_ids), t(cluster_ids))
+    xc = x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(1.0)
+    qc = q / torch.linalg.vector_norm(q, dim=1, keepdim=True).clamp_min(1.0)
+    g = np.random.default_rng((seed, d))
+    live = (np.abs(qn_).sum(axis=1, keepdims=True) > 0).astype(np.float32)  # zero rows stay zero
+    qg = t(3.0 * g.normal(size=qn_.shape).astype(np.float32) * live)
+    xg = t(3.0 * g.normal(size=xn.shape).astype(np.float32))
+    xgb = xg.to(torch.bfloat16)
+    # (name, queries, corpus, mask, cosine, qn, exact)
+    modes = (
+        ("float32 L2", q, x, torch.where(ok, (x * x).sum(1), inf), False, None, True),
+        ("float32 cosine", qc, xc, torch.where(ok, zero, inf), True, None, False),
+        ("bf16 L2", qg, xgb, torch.where(ok, bf16_round((xg * xg).sum(1)), inf), False,
+         (qg * qg).sum(1), True),
+        ("bf16 cosine", qc, xc.to(torch.bfloat16), torch.where(ok, zero, inf), True, None, True),
+    )
+    err = 0.0
+    for name, qq, xx, mask, cosine, qn, exact in modes:
+        full = ivf_sparse._sparse_scan_plain(qq, xx, mask, *lists, float("inf"), cosine, qn)[0]
+        fin = full[torch.isfinite(full)]
+        for thr in (float("inf"), float(fin.median()) if fin.numel() else float("inf")):
+            counter = "BF16_LAUNCHES" if xx.dtype == torch.bfloat16 else "LAUNCHES"
+            before = getattr(ivf_sparse, counter)
+            dist, gmin = ivf_sparse._sparse_scan_cuda(qq, xx, mask, *lists, thr, cosine, qn)
+            if getattr(ivf_sparse, counter) != before + 1:
+                raise AssertionError(f"K3 {name} did not count one launch")
+            pdist, pgmin = ivf_sparse._sparse_scan_plain(qq, xx, mask, *lists, thr, cosine, qn)
+            where = f"{name} on the {layout!r} layout, d={d}, threshold {thr:g}"
+            dead = (lists[2] < 0).repeat_interleave(ivf_sparse.CHUNK, dim=1)[:, None, :]
+            if not torch.isinf(dist[dead.expand_as(dist)]).all():
+                raise AssertionError(f"K3 {where}: a dead step came out finite")
+            if exact:
+                if not (torch.equal(dist, pdist) and torch.equal(gmin, pgmin)):
+                    raise AssertionError(f"K3 {where} differs from its plain version")
+                continue
+            for got, want in ((dist, pdist), (gmin, pgmin)):
+                both = torch.isfinite(got) & torch.isfinite(want)
+                torch.testing.assert_close(got[both], want[both], rtol=1e-5, atol=1e-6)
+                flip = torch.isfinite(got) != torch.isfinite(want)
+                near = torch.where(torch.isfinite(got), got, want)[flip]
+                if ((near - thr).abs() > 1e-6 + 1e-5 * abs(thr)).any():
+                    raise AssertionError(f"K3 {where}: a masked entry differs")
+                if both.any():
+                    err = max(err, (got[both] - want[both]).abs().max().item())
+    return err
+
+
+# -- K4 ---------------------------------------------------------------------------
+
+# (Q, ef, ew, expand, stop, kr): kr = 0 is the split mode
+K4_CASES = (
+    (300, 256, 256, 8, 256, 0), (300, 256, 256, 8, 64, 256),
+    (257, 100, 40, 1, 17, 0), (257, 100, 40, 23, 100, 48),
+    (130, 64, 7, 1, 1, 0), (130, 64, 7, 5, 30, 100),
+    (70, 33, 200, 23, 33, 0), (70, 16, 300, 4, 8, 37),
+)
+K4_SENT = 2**31 - 1
+
+
+def _k4_rows(g: np.random.Generator, table: np.ndarray, width: int, out_of_order: bool):
+    """Sorted rows (dist, slot) of distinct slots drawn from a per-query
+    slot -> dist table, with (+inf, SENT) rows past a random length and a
+    few (+inf, slot) rows; with `out_of_order`, the rows of tied distances
+    of half the queries in random order (the rest sorted by (dist, slot)),
+    and a few queries not sorted at all."""
+    q_n, cap = table.shape
+    slots = np.argsort(g.random((q_n, cap)), axis=1)[:, :width].astype(np.int64)
+    dist = np.take_along_axis(table, slots, axis=1)
+    dist[g.random(dist.shape) < 0.05] = np.inf
+    n = g.integers(0, width + 1, size=q_n)
+    empty = np.arange(width)[None, :] >= n[:, None]
+    dist = np.where(empty, np.inf, dist).astype(np.float32)
+    slots = np.where(empty, K4_SENT, slots)
+    tie = g.random((q_n, width)) if out_of_order else slots.astype(np.float64)
+    order = np.lexsort((tie, dist), axis=1)
+    if out_of_order:
+        order[: q_n // 2] = np.lexsort((slots, dist), axis=1)[: q_n // 2]
+        order[-3:] = np.argsort(g.random((3, width)), axis=1)
+    dist, slots = np.take_along_axis(dist, order, 1), np.take_along_axis(slots, order, 1)
+    return dist, slots.astype(np.int32)
+
+
+def k4_case(q_n: int, ef: int, ew: int, kr: int, seed: int = 0):
+    """A K4 input in numpy: (beam_d, beam_s, beam_e [Q, ef], new_d, new_s
+    [Q, ew], res_d, res_s [Q, kr], adm [Q, ew]). Distances are integers
+    0..7 from a per-query slot table (ties across the beam, the candidates
+    and the result set; copies of a slot carry its one distance). The
+    candidates mix fresh slots, copies of beam slots and copies among
+    themselves, (+inf, SENT) and (+inf, slot) rows."""
+    g = np.random.default_rng((seed, q_n, ef, ew, kr))
+    cap = max(2 * (ef + ew + kr), 64)
+    table = g.integers(0, 8, size=(q_n, cap)).astype(np.float32)
+    bd, bs = _k4_rows(g, table, ef, out_of_order=True)
+    be = np.where(bs != K4_SENT, g.integers(0, 2, size=bs.shape), 0).astype(np.int32)
+    ns = g.integers(0, cap, size=(q_n, ew))
+    from_beam = g.random((q_n, ew)) < 0.3
+    ns = np.where(from_beam, np.take_along_axis(bs, g.integers(0, ef, size=(q_n, ew)), 1), ns)
+    ns = np.where(g.random((q_n, ew)) < 0.2, np.take_along_axis(ns, g.integers(0, ew, size=(q_n, ew)), 1), ns)
+    nd = np.take_along_axis(table, np.minimum(ns, cap - 1), 1)
+    nd = np.where(ns == K4_SENT, np.inf, nd)
+    empty = g.random((q_n, ew)) < 0.1
+    nd = np.where(empty, np.inf, nd).astype(np.float32)
+    ns = np.where(empty, K4_SENT, ns).astype(np.int32)
+    nd[g.random((q_n, ew)) < 0.03] = np.inf          # (+inf, slot) rows
+    rd, rs = _k4_rows(g, table, max(kr, 1), out_of_order=True)
+    adm = (g.random((q_n, ew)) < 0.6).astype(np.int32)
+    return bd, bs, be, nd, ns, rd[:, :kr], rs[:, :kr], adm
+
+
+def check_k4(dev: torch.device, q_n: int, ef: int, ew: int, expand: int, stop: int, kr: int,
+             seed: int = 0) -> None:
+    """K4 (`beam_merge_step`, fused when kr > 0) array-equal to its plain
+    version on `k4_case`, one launch counted in the mode's counter."""
+    arrs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in k4_case(q_n, ef, ew, kr, seed)]
+    bd, bs, be, nd, ns, rd, rs, adm = arrs
+    fused = kr > 0
+    extra = dict(res_d=rd, res_s=rs, adm=adm) if fused else {}
+    before = (beam_kernel.LAUNCHES, beam_kernel.FUSED_LAUNCHES)
+    got = beam_kernel.beam_merge_step(bd, bs, be, nd, ns, **extra, ef=ef, ew=ew, expand=expand,
+                                      fused=fused, kr=kr, stop=stop)
+    if (beam_kernel.LAUNCHES, beam_kernel.FUSED_LAUNCHES) != (before[0] + (not fused),
+                                                              before[1] + fused):
+        raise AssertionError("K4 did not count one launch in its mode's counter")
+    want = beam_kernel._merge_plain(bd, bs, be, nd, ns, rd if fused else None,
+                                    rs if fused else None, adm if fused else None,
+                                    ef, ew, expand, fused, kr, stop)
+    for name, a, b in zip(("beam_d", "beam_s", "beam_e", "misc", "res_d", "res_s"), got, want):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"K4 {name} differs from its plain version at Q={q_n}, "
+                                 f"ef={ef}, ew={ew}, expand={expand}, stop={stop}, kr={kr}")

@@ -240,6 +240,14 @@ def _sparse_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids
     return dist, gmin
 
 
+def _chunk_order(chunk_ids):
+    """The steps g * S + s of chunk_ids [G, S], int32, ordered by chunk id
+    (ties by step): the order K3's blocks take them in, so that the steps
+    of different groups that read one chunk run together and share its
+    rows through L2."""
+    return torch.argsort(chunk_ids.reshape(-1), stable=True).to(torch.int32)
+
+
 def _sparse_scan_cuda(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
                       thr: float, cosine: bool, qn=None):
     """Launch K3 (the bf16 mode for a bfloat16 corpus). Returns
@@ -254,12 +262,13 @@ def _sparse_scan_cuda(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
     bf16 = corpus.dtype == torch.bfloat16
     q = qsorted.to(torch.bfloat16).contiguous() if bf16 else qsorted
     qn = qn.contiguous()
+    order = _chunk_order(chunk_ids)
     dist = torch.empty((g_n, QG, s_n * CHUNK), dtype=torch.float32, device=dev)
     gmin = torch.empty((g_n, QG, 2 * s_n), dtype=torch.float32, device=dev)
     code = lib.comet_sparse_scan(
         q.data_ptr(), qn.data_ptr(), corpus.data_ptr(), mask_vec.data_ptr(),
         probes.data_ptr(), probes.shape[1], chunk_ids.data_ptr(),
-        cluster_ids.data_ptr(), thr, g_n, s_n, d, int(cosine), int(bf16),
+        cluster_ids.data_ptr(), order.data_ptr(), thr, g_n, s_n, d, int(cosine), int(bf16),
         dist.data_ptr(), gmin.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -226,6 +226,14 @@ def test_sparse_scan_kernel_matches_plain(dev, cosine, g_n, s_n, d):
         assert torch.equal(gsel.view(g_n * sp.QG, kb), want_g)
 
 
+@pytest.mark.parametrize("layout,d", edge_cases.K3_CASES)
+def test_sparse_scan_edges_match_plain(dev, layout, d):
+    """K3 in both modes, L2 and cosine, with and without a threshold, at
+    the member counts 0-128 a step, dead steps, S = 1 and a zero-padded
+    last group (ops/edge_cases.py): equal to its plain version."""
+    edge_cases.check_k3(dev, layout, d)
+
+
 @pytest.mark.parametrize("route", ["0", "1"])
 def test_ivf_index_cuda_matches_cpu(dev, route, monkeypatch):
     """The same IVF index on the card (kernels) and on the CPU (plain
@@ -315,6 +323,15 @@ def test_beam_merge_kernel_matches_plain(dev, q_n, ef, ew, expand, stop, kr):
         if g is not None:
             assert torch.equal(g, w)
     assert (got[3][:, expand] == 1).any() and (got[3][:, 0] >= 0).any()
+
+
+@pytest.mark.parametrize("q_n,ef,ew,expand,stop,kr", edge_cases.K4_CASES)
+def test_beam_merge_edges_match_plain(dev, q_n, ef, ew, expand, stop, kr):
+    """K4, split and fused, on ties across beam, candidates and result
+    set, copies, SENT and +inf rows, ef + ew not a power of two, ew not a
+    multiple of 32, and beams and result sets out of slot order on tied
+    distances (ops/edge_cases.py): equal to its plain version."""
+    edge_cases.check_k4(dev, q_n, ef, ew, expand, stop, kr)
 
 
 def _seed_loop_case(dev, n=4096, d=128, w=32, q_n=128, seed=5):

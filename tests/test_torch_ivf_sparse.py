@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from comet_tpu.ops import ivf_sparse as ref
+from comet_tpu_torch.ops import edge_cases
 from comet_tpu_torch.ops import ivf_sparse as sp
 
 D = 16
@@ -217,6 +218,63 @@ def test_sparse_scan_matches_reference():
     # the plain version gives the group minima the kernel's K1 choice reads
     _, pgmin = sp._sparse_scan_plain(*t, THR_SCAN, False)
     np.testing.assert_array_equal(pgmin.numpy().reshape(2 * sp.QG, 12), gmin)
+
+
+THR_MEMBERS = 2.5e5   # about the median distance of the member-count layout
+
+
+@lru_cache(maxsize=None)
+def _member_case(bf16):
+    """The card edge cases' member-count layout at d = 20 (ops/edge_cases.py:
+    steps probed by 0, 1, 15, 16, 17, 64 and 128 of a group's queries, two
+    dead steps), with the reference's interpret-mode distances. Integer
+    vectors 0..255 are exact in bf16 and their products and sums exact in
+    float32, so both modes are exact on both sides."""
+    q, x, valid, probes, chunk_ids, cluster_ids = edge_cases.k3_case("counts", 20)
+    mask = np.where(valid, (x * x).sum(axis=1), np.inf).astype(np.float32)
+    xt = jnp.asarray(np.ascontiguousarray(x.T))
+    rdist, _ = ref._sparse_scan(
+        jnp.asarray(q), xt.astype(jnp.bfloat16) if bf16 else xt, jnp.asarray(mask),
+        jnp.asarray(probes), jnp.asarray(chunk_ids), jnp.asarray(cluster_ids),
+        jnp.asarray(np.float32(THR_MEMBERS)), kb=8, S=chunk_ids.shape[1], bf16_domain=bf16,
+        interpret=True,
+    )
+    return (q, x, mask, probes, chunk_ids, cluster_ids), np.asarray(rdist)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_sparse_scan_member_counts_match_reference(bf16):
+    """`_sparse_scan_plain` at every member count a step can have (0 to
+    128 probing queries, dead steps), in both modes, with a threshold:
+    distances array-equal to the reference kernel; the rows of queries
+    that do not probe a step's cluster +inf, and the group minima those of
+    the distances."""
+    (q, x, mask, probes, chunk_ids, cluster_ids), rdist = _member_case(bf16)
+    t = torch.from_numpy
+    corpus = t(x).to(torch.bfloat16) if bf16 else t(x)
+    dist, gmin = sp._sparse_scan_plain(t(q), corpus, t(mask), t(probes), t(chunk_ids),
+                                       t(cluster_ids), THR_MEMBERS, False)
+    dist, gmin = dist.numpy(), gmin.numpy()
+    np.testing.assert_array_equal(dist, rdist)
+    g_n, s_n = chunk_ids.shape
+    member = (probes.reshape(g_n, sp.QG, -1, 1) == cluster_ids[:, None, None, :]).any(axis=2)
+    fin = np.isfinite(dist.reshape(g_n, sp.QG, s_n, sp.CHUNK)).any(axis=3)
+    assert not (fin & ~member).any()
+    counts = sorted(member.sum(axis=1)[0].tolist())
+    assert counts == sorted(list(edge_cases.K3_MEMBER_COUNTS) + [0, 0])
+    assert (fin.sum(axis=1) == member.sum(axis=1)).all()   # every member row has a hit
+    np.testing.assert_array_equal(
+        gmin, dist.reshape(g_n, sp.QG, 2 * s_n, sp.SEL_GROUP).min(axis=3))
+
+
+def test_chunk_order_takes_steps_by_chunk():
+    """K3's block order (`_chunk_order`): every step g * S + s once, int32,
+    by chunk id and then by step."""
+    chunk_ids = np.random.default_rng(3).integers(0, 9, size=(4, 13)).astype(np.int32)
+    order = sp._chunk_order(torch.from_numpy(chunk_ids)).numpy()
+    flat = chunk_ids.ravel()
+    assert order.dtype == np.int32
+    np.testing.assert_array_equal(order, np.lexsort((np.arange(flat.size), flat)))
 
 
 # -- the pipeline ------------------------------------------------------------------
