@@ -14,14 +14,14 @@
    [2048, 256], k = 128 (rows cut from those candidates), beside
    `torch.topk(dim=1, largest=False)`, its yardstick, and in the
    reference's column layout. Then K3 (block-sparse scan,
-   csrc/ivf_sparse.cu) on the IVF index of section 5 (nlist 1024 trained
-   on the first 100,000 rows) and the batch's own chunk lists: float32 at
+   csrc/ivf_sparse.cu) on an IVF index built as in section 5 (nlist 1024
+   trained on the first 100,000 rows) and the batch's own chunk lists: float32 at
    nprobe 10 and its default step budget (S = 512), at the step budget the
    IVF path learns on this batch, and the bf16 mode at the seed scan's
    nprobe (16) and kb (32), each with its member share; K4 (beam merge,
    csrc/beam_merge.cu) split and fused and K5 (csrc/fused_expand.cu) at
-   Q = 2048, ef = ew = kr = 256, E = 8, W = 32 on a beam state made from
-   the seed, K5 over a packed table of the corpus with a random adjacency.
+   Q = 2048, ef = ew = kr = 256, E = 8, W = 32 on a running search's beam
+   state made from the seed, K5 over a packed table of the corpus with a random adjacency.
    Times are CUDA-event medians of 5, the host's launch included.
    `--kernels-only` stops here: a copy of this script placed at the root
    of another checkout times that checkout's kernels the same way. Then
@@ -46,8 +46,8 @@
    on 256 queries x 1M x 128 and timed, then FlatIndex(storage="bfloat16")
    without and with `rerank` at the same size: ids and scores array-equal
    to the float32 path (the data are exact in bf16), queries/s, launches.
-5. The IVF path at the reference's operating point: the IVFIndex of
-   section 2 over the same corpus. Holds K2's nprobe mode (256 queries x
+5. The IVF path at the reference's operating point: an IVFIndex over the
+   same corpus (nlist 1024 trained on the first 100,000 rows). Holds K2's nprobe mode (256 queries x
    1M rows, the index's probes at nprobe 10) against its plain version,
    then searches 2048 queries at k = 100
    for nprobe 1, 5, 10, 20 and 32 on the default (sparse) route: scores
@@ -318,8 +318,8 @@ def profile_window(fn):
 
 
 def build_ivf(corpus, tag):
-    """The IVF index of sections 2 and 5: nlist NLIST trained on the first
-    N_TRAIN rows, then the whole corpus added."""
+    """An IVF index of sections 2 and 5 (each builds its own): nlist NLIST
+    trained on the first N_TRAIN rows, then the whole corpus added."""
     from comet_tpu_torch import DistanceKind, IVFIndex
 
     ivf = IVFIndex(DIM, NLIST, DistanceKind.L2, device="cuda")
@@ -335,10 +335,11 @@ def build_ivf(corpus, tag):
     return ivf
 
 
-def k3_section(ivf, queries, dev, tag, time_ms):
-    """K3 on the IVF index's cluster-major layout and the batch's own chunk
-    lists (section 2): float32 at nprobe 10 and its default step budget, at
-    the step budget the IVF path learns on this batch, and the bf16 mode at
+def k3_section(corpus, queries, dev, tag, time_ms):
+    """K3 on an IVF index's cluster-major layout (`build_ivf`, an index of
+    its own) and the batch's own chunk lists (section 2): float32 at
+    nprobe 10 and its default step budget, at the step budget the IVF path
+    learns on this batch, and the bf16 mode at
     the seed scan's nprobe (nlist / 64) and kb (32) over a bf16 copy of the
     layout (mask: the float32 value of each row's bf16 squared norm). Each
     is held array-equal to the plain version (distances and group minima)
@@ -349,6 +350,7 @@ def k3_section(ivf, queries, dev, tag, time_ms):
     from comet_tpu_torch.ops.distance import bf16_round
 
     inf = float("inf")
+    ivf = build_ivf(corpus, tag)
     t0 = time.perf_counter()
     st = ivf._device_sparse()
     torch.cuda.synchronize()
@@ -397,51 +399,21 @@ def k3_section(ivf, queries, dev, tag, time_ms):
         return dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None, bound=b)
 
     entry = run("float32, nprobe 10", 10)
-    # the IVF path's first batch learns its step budget; the index forgets
-    # it again, so that section 5 starts from the default as a user would
+    # the IVF path's first batch learns its step budget, the one budget the
+    # index then holds, where a group's probes overflowed the default
     ivf.search_batch(queries, k=K, nprobes=10)
-    learned = ivf._sparse_S_hint.pop((10, 128), 0)
+    learned = list(ivf._sparse_S_hint.values())
+    if len(learned) != (ivf.stats()["sparse_overflow_batches"] > 0):
+        raise AssertionError(f"the IVF path holds step budgets {learned} after "
+                             f"{ivf.stats()['sparse_overflow_batches']} overflowed batches")
     if learned:
-        run("float32, nprobe 10, the step budget the IVF path learned", 10, S=learned)
+        run("float32, nprobe 10, the step budget the IVF path learned", 10, S=learned[0])
     else:
         print("the IVF path learned no step budget on this batch (no overflow)")
     run(f"bf16 mode, nprobe {NLIST // 64}, kb 32", NLIST // 64, bf16=True, kb_cap=32)
-    del q_all
+    del q_all, st, ivf
     torch.cuda.empty_cache()
     return entry
-
-
-def beam_state(rng, q_n, ef, ew, kr, dev):
-    """A mid-search HNSW beam state, from rng: each query's beam holds ef
-    distinct slots sorted by (dist, slot), about half of them expanded; the
-    ew candidates mix fresh slots, copies of beam slots and copies among
-    themselves (each copy at its slot's one distance, a per-query table),
-    and 10 % empty (+inf, SENT) rows; a sorted result set of kr rows and
-    admission flags. Returns CUDA tensors (bd, bs, be, nd, ns, rd, rs, adm)."""
-    sent = 2**31 - 1
-    cap = 4 * (ef + ew + kr)
-    table = (rng.random((q_n, cap)) * 10).astype(np.float32)
-    perm = np.argsort(rng.random((q_n, cap)), axis=1)
-    take = lambda a, i: np.take_along_axis(a, i, axis=1)  # noqa: E731
-
-    def sorted_rows(slots):
-        dist = take(table, slots)
-        order = np.lexsort((slots, dist), axis=1)
-        return take(dist, order), take(slots, order)
-
-    bd, bs = sorted_rows(perm[:, :ef])
-    be = rng.integers(0, 2, size=(q_n, ef))
-    ns = np.where(rng.random((q_n, ew)) < 0.4, take(bs, rng.integers(0, ef, size=(q_n, ew))),
-                  perm[:, ef:ef + ew])
-    ns = np.where(rng.random((q_n, ew)) < 0.1, take(ns, rng.integers(0, ew, size=(q_n, ew))), ns)
-    nd = take(table, ns)
-    empty = rng.random((q_n, ew)) < 0.1
-    nd, ns = np.where(empty, np.inf, nd), np.where(empty, sent, ns)
-    rd, rs = sorted_rows(perm[:, ef + ew:ef + ew + kr])
-    adm = rng.random((q_n, ew)) < 0.5
-    out = (bd, bs, be, nd, ns, rd, rs, adm)
-    dts = (np.float32, np.int32, np.int32, np.float32, np.int32, np.float32, np.int32, np.int32)
-    return [torch.from_numpy(np.ascontiguousarray(a.astype(t))).to(dev) for a, t in zip(out, dts)]
 
 
 def merge_compares(ef, ew):
@@ -451,17 +423,18 @@ def merge_compares(ef, ew):
 
 
 def beam_section(x_dev, queries, seed, dev, tag, time_ms):
-    """K4 (split and fused) and K5 at the HNSW path's shapes on a state made
-    from the seed (section 2): Q = BATCH, ef = ew = kr = 256 (ef_search 200
-    padded), expand 8; K5 over a packed routing table of the corpus with a
-    random W = 32 adjacency. Each held array-equal to its plain version and
-    timed."""
+    """K4 (split and fused) and K5 at the HNSW path's shapes on a running
+    search's state made from the seed (section 2; `edge_cases.k4_case`):
+    Q = BATCH, ef = ew = kr = 256 (ef_search 200 padded), expand 8; K5 over
+    a packed routing table of the corpus with a random W = 32 adjacency.
+    Each held array-equal to its plain version and timed."""
     from comet_tpu_torch.ops import beam_kernel as bk
+    from comet_tpu_torch.ops.edge_cases import k4_case
 
-    rng = np.random.default_rng((seed, 6))
     ef = ew = kr = 256
     expand, w = 8, 32
-    state = beam_state(rng, BATCH, ef, ew, kr, dev)
+    state = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in k4_case(BATCH, ef, ew, kr, seed, mid_search=True)]
     for fused in (False, True):
         args = state[:5] + (state[5:] if fused else [None, None, None])
         rest = (ef, ew, expand, fused, kr if fused else 0, ef)
@@ -471,12 +444,12 @@ def beam_section(x_dev, queries, seed, dev, tag, time_ms):
         for g, wv in zip(got, want):
             if (g is None) != (wv is None) or (g is not None and not torch.equal(g, wv)):
                 raise AssertionError(f"K4 ({'fused' if fused else 'split'}) differs from its "
-                                     f"plain version on the seeded state")
+                                     f"plain version on the running search's state")
         ms = time_ms(lambda: bk._merge_cuda(*args, *rest))
         pms = time_ms(lambda: bk._merge_plain(*args, *rest))
         print(f"K4 beam merge ({'fused' if fused else 'split'}) Q={BATCH} ef={ef} ew={ew} "
-              f"expand={expand}{f' kr={kr}' if fused else ''}, a seeded state: equal to plain; "
-              f"kernel {ms:.4f} ms, plain {pms:.3f} ms {tag}")
+              f"expand={expand}{f' kr={kr}' if fused else ''}, a running search's state: "
+              f"equal to plain; kernel {ms:.4f} ms, plain {pms:.3f} ms {tag}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     adj = torch.randint(-1, N, (N, w), generator=gen, device=dev, dtype=torch.int32)
@@ -491,19 +464,19 @@ def beam_section(x_dev, queries, seed, dev, tag, time_ms):
     want = bk._fused_expand_plain(*k5)
     torch.cuda.synchronize()
     if not all(torch.equal(g, wv) for g, wv in zip(got, want)):
-        raise AssertionError("K5 differs from its plain version on the seeded state")
+        raise AssertionError("K5 differs from its plain version on the running search's state")
     ms = time_ms(lambda: bk._fused_expand_cuda(*k5))
     pms = time_ms(lambda: bk._fused_expand_plain(*k5))
-    print(f"K5 fused expand Q={BATCH} ef={ef} E={expand} W={w} d={DIM}, a seeded state over a "
-          f"packed table of {N} rows: equal to plain; kernel {ms:.4f} ms, plain {pms:.3f} ms "
-          f"{tag}")
+    print(f"K5 fused expand Q={BATCH} ef={ef} E={expand} W={w} d={DIM}, a running search's "
+          f"state over a packed table of {N} rows: equal to plain; kernel {ms:.4f} ms, plain "
+          f"{pms:.3f} ms {tag}")
     del packed, state, q, qb, qn, nodes
     torch.cuda.empty_cache()
 
 
-def ivf_phase(ivf, corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, tag,
+def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, tag,
               time_ms, profile):
-    """Section 5 of the module docstring, on the index `build_ivf` made.
+    """Section 5 of the module docstring, on a fresh index from `build_ivf`.
     Returns {"report": per-kernel numbers of K2's nprobe mode, "launches":
     the IVF path's counts}."""
     from comet_tpu_torch import Bitset, DistanceKind, IVFIndex
@@ -515,14 +488,17 @@ def ivf_phase(ivf, corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, 
     inf = float("inf")
     ids = np.arange(1, N + 1, dtype=np.uint32)
     report = {}
+    ivf = build_ivf(corpus, tag)
     vecs, sqnorms, valid = ivf._store.device_state()
     assign = ivf._device_dense()
     cents = ivf._dev_centroids
     sizes = torch.bincount(assign[assign >= 0].long(), minlength=NLIST)
+    t0 = time.perf_counter()
     st = ivf._device_sparse()
+    torch.cuda.synchronize()
     print(f"list sizes: min {int(sizes.min())}, median {int(sizes.median())}, "
           f"max {int(sizes.max())}; cluster-major layout {st['nch_total']} chunks of "
-          f"{sp.CHUNK} rows")
+          f"{sp.CHUNK} rows, built in {time.perf_counter() - t0:.3f} s")
 
     # K2, nprobe mode: 256 queries x 1M rows with the index's probes at nprobe 10
     q256 = torch.from_numpy(queries[:256]).to(dev)
@@ -1535,8 +1511,7 @@ def main():
     torch.cuda.empty_cache()
 
     # K3 on the IVF layout, K4 and K5 on a beam state made from the seed
-    ivf_index = build_ivf(corpus, tag)
-    report["sparse_scan"] = k3_section(ivf_index, queries, dev, tag, time_ms)
+    report["sparse_scan"] = k3_section(corpus, queries, dev, tag, time_ms)
     beam_section(x_dev, queries, args.seed, dev, tag, time_ms)
     if args.kernels_only:
         return
@@ -1640,9 +1615,8 @@ def main():
     fb = flat_bf16_phase(corpus, queries, got_ids, got_scores, dev, tag, time_ms)
 
     # -- 5. the IVF path ----------------------------------------------------------
-    ivf = ivf_phase(ivf_index, corpus, queries, c_corpus, c_queries, got_ids, got_scores,
+    ivf = ivf_phase(corpus, queries, c_corpus, c_queries, got_ids, got_scores,
                     dev, tag, time_ms, args.profile)
-    del ivf_index
 
     # -- 6-7. the HNSW path ----------------------------------------------------------
     hnsw = hnsw_phase(corpus, queries, extra, c_corpus, c_queries, got_ids, dev, tag, time_ms,

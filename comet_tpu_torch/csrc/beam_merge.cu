@@ -50,9 +50,7 @@
 
 #include "beam_merge.cuh"
 
-#ifndef K4_THREADS
-#define K4_THREADS 128     // threads a query (one query a block)
-#endif
+constexpr int K4_THREADS = 128;    // threads a query (one query a block)
 
 __global__ void __launch_bounds__(K4_THREADS) beam_merge_kernel(
     const float* __restrict__ bd, const int* __restrict__ bs, const int* __restrict__ be,

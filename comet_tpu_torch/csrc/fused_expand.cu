@@ -37,9 +37,7 @@
 #include "beam_merge.cuh"
 #include "neighbour_score.cuh"
 
-#ifndef K5_THREADS
-#define K5_THREADS 256     // threads a query: one candidate a thread
-#endif
+constexpr int K5_THREADS = 256;    // threads a query: one candidate a thread
 
 __global__ void __launch_bounds__(K5_THREADS) fused_expand_kernel(
     const int* __restrict__ nodes, const bf16_t* __restrict__ table, long long row_len,

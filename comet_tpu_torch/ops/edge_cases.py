@@ -257,20 +257,23 @@ K4_CASES = (
 K4_SENT = 2**31 - 1
 
 
-def _k4_rows(g: np.random.Generator, table: np.ndarray, width: int, out_of_order: bool):
+def _k4_rows(g: np.random.Generator, table: np.ndarray, width: int, out_of_order: bool,
+             gaps: bool = True):
     """Sorted rows (dist, slot) of distinct slots drawn from a per-query
-    slot -> dist table, with (+inf, SENT) rows past a random length and a
-    few (+inf, slot) rows; with `out_of_order`, the rows of tied distances
-    of half the queries in random order (the rest sorted by (dist, slot)),
-    and a few queries not sorted at all."""
+    slot -> dist table; with `gaps`, (+inf, SENT) rows past a random length
+    and a few (+inf, slot) rows; with `out_of_order`, the rows of tied
+    distances of half the queries in random order (the rest sorted by
+    (dist, slot)), and a few queries not sorted at all."""
     q_n, cap = table.shape
     slots = np.argsort(g.random((q_n, cap)), axis=1)[:, :width].astype(np.int64)
     dist = np.take_along_axis(table, slots, axis=1)
-    dist[g.random(dist.shape) < 0.05] = np.inf
-    n = g.integers(0, width + 1, size=q_n)
-    empty = np.arange(width)[None, :] >= n[:, None]
-    dist = np.where(empty, np.inf, dist).astype(np.float32)
-    slots = np.where(empty, K4_SENT, slots)
+    if gaps:
+        dist[g.random(dist.shape) < 0.05] = np.inf
+        n = g.integers(0, width + 1, size=q_n)
+        empty = np.arange(width)[None, :] >= n[:, None]
+        dist = np.where(empty, np.inf, dist)
+        slots = np.where(empty, K4_SENT, slots)
+    dist = dist.astype(np.float32)
     tie = g.random((q_n, width)) if out_of_order else slots.astype(np.float64)
     order = np.lexsort((tie, dist), axis=1)
     if out_of_order:
@@ -280,17 +283,23 @@ def _k4_rows(g: np.random.Generator, table: np.ndarray, width: int, out_of_order
     return dist, slots.astype(np.int32)
 
 
-def k4_case(q_n: int, ef: int, ew: int, kr: int, seed: int = 0):
+def k4_case(q_n: int, ef: int, ew: int, kr: int, seed: int = 0, mid_search: bool = False):
     """A K4 input in numpy: (beam_d, beam_s, beam_e [Q, ef], new_d, new_s
     [Q, ew], res_d, res_s [Q, kr], adm [Q, ew]). Distances are integers
     0..7 from a per-query slot table (ties across the beam, the candidates
     and the result set; copies of a slot carry its one distance). The
     candidates mix fresh slots, copies of beam slots and copies among
-    themselves, (+inf, SENT) and (+inf, slot) rows."""
+    themselves, (+inf, SENT) and (+inf, slot) rows. With `mid_search` the
+    state of a running search instead: distances uniform in [0, 10), and a
+    full beam and result set sorted by (dist, slot)."""
     g = np.random.default_rng((seed, q_n, ef, ew, kr))
     cap = max(2 * (ef + ew + kr), 64)
-    table = g.integers(0, 8, size=(q_n, cap)).astype(np.float32)
-    bd, bs = _k4_rows(g, table, ef, out_of_order=True)
+    if mid_search:
+        table = (10 * g.random((q_n, cap))).astype(np.float32)
+    else:
+        table = g.integers(0, 8, size=(q_n, cap)).astype(np.float32)
+    edge = not mid_search
+    bd, bs = _k4_rows(g, table, ef, out_of_order=edge, gaps=edge)
     be = np.where(bs != K4_SENT, g.integers(0, 2, size=bs.shape), 0).astype(np.int32)
     ns = g.integers(0, cap, size=(q_n, ew))
     from_beam = g.random((q_n, ew)) < 0.3
@@ -302,7 +311,7 @@ def k4_case(q_n: int, ef: int, ew: int, kr: int, seed: int = 0):
     nd = np.where(empty, np.inf, nd).astype(np.float32)
     ns = np.where(empty, K4_SENT, ns).astype(np.int32)
     nd[g.random((q_n, ew)) < 0.03] = np.inf          # (+inf, slot) rows
-    rd, rs = _k4_rows(g, table, max(kr, 1), out_of_order=True)
+    rd, rs = _k4_rows(g, table, max(kr, 1), out_of_order=edge, gaps=edge)
     adm = (g.random((q_n, ew)) < 0.6).astype(np.int32)
     return bd, bs, be, nd, ns, rd[:, :kr], rs[:, :kr], adm
 
