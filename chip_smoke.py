@@ -453,25 +453,96 @@ def beam_section(x_dev, queries, seed, dev, tag, time_ms):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     adj = torch.randint(-1, N, (N, w), generator=gen, device=dev, dtype=torch.int32)
-    packed = bk.build_packed_table(adj, x_dev, (x_dev * x_dev).sum(dim=1))
-    del adj
+    sqn = (x_dev * x_dev).sum(dim=1)
+    packed = bk.build_packed_table(adj, x_dev, sqn)
     nodes = torch.randint(-1, N, (BATCH, expand), generator=gen, device=dev, dtype=torch.int32)
     q = torch.from_numpy(queries).to(dev)
     qb, qn = q.to(torch.bfloat16), bk.row_sqnorms(q)
     bd, bs, be = state[:3]
     k5 = (nodes, packed, qb, qn, bd, bs, be, ef, expand, ef)
+    inf = float("inf")
+
+    def split():
+        nd, ns, _ = bk._gather_score_cuda(qb, qn, packed, None, nodes, None, inf, False)
+        return bk._merge_cuda(bd, bs, be, nd, ns, None, None, None, ef, expand * w, expand,
+                              False, 0, ef)[:4]
+
     got = bk._fused_expand_cuda(*k5)
     want = bk._fused_expand_plain(*k5)
+    pair = split()
     torch.cuda.synchronize()
-    if not all(torch.equal(g, wv) for g, wv in zip(got, want)):
-        raise AssertionError("K5 differs from its plain version on the running search's state")
+    if not all(torch.equal(g, wv) and torch.equal(g, sv) for g, wv, sv in zip(got, want, pair)):
+        raise AssertionError("K5 differs from its plain version or the split pair on the running "
+                             "search's state")
     ms = time_ms(lambda: bk._fused_expand_cuda(*k5))
+    sms = time_ms(split)
     pms = time_ms(lambda: bk._fused_expand_plain(*k5))
     print(f"K5 fused expand Q={BATCH} ef={ef} E={expand} W={w} d={DIM}, a running search's "
-          f"state over a packed table of {N} rows: equal to plain; kernel {ms:.4f} ms, plain "
-          f"{pms:.3f} ms {tag}")
-    del packed, state, q, qb, qn, nodes
+          f"state over a packed table of {N} rows: equal to plain and to the split pair; kernel "
+          f"{ms:.4f} ms, split pair (packed scoring + K4) {sms:.4f} ms, plain {pms:.3f} ms {tag}")
+    # the scoring kernel on the same nodes, both layouts: split mode timed,
+    # fused mode (a random allowed mask, a threshold at the median) checked
+    allowed = torch.rand(N, generator=gen, device=dev) < 0.7
+    live = int((nodes >= 0).sum())
+    dev_us = {"K5": device_us(lambda: bk._fused_expand_cuda(*k5), ("fused_expand",)),
+              "split pair (packed scoring + K4 split)": device_us(
+                  split, ("gather_score", "beam_merge"))}
+    for layout in ("packed", "blocked"):
+        if layout == "blocked":
+            del packed, k5
+            torch.cuda.empty_cache()
+            table, aux = bk.build_blocked_tables(adj, x_dev, sqn)
+        else:
+            table, aux = packed, None
+        sa = (qb, qn, table, aux, nodes, allowed, inf, False)
+        check_scoring(sa, f"{layout} table, the running search's nodes")
+        nd = bk._gather_score_plain(*sa)[0]
+        n_adm = check_scoring(sa[:6] + (float(nd[torch.isfinite(nd)].median()), True),
+                              f"{layout} table, fused mode, the running search's nodes")
+        ms = time_ms(lambda: bk._gather_score_cuda(*sa))
+        pms = time_ms(lambda: bk._gather_score_plain(*sa))
+        dev_us[f"{layout} scoring"] = device_us(lambda: bk._gather_score_cuda(*sa),
+                                                ("gather_score",))
+        row_bytes = (table.shape[1] if aux is None else w * DIM + aux.shape[1]) * 2
+        n_bytes = (live * row_bytes + nodes.numel() * 4 + qb.numel() * 2 + qn.numel() * 4
+                   + nodes.numel() * w * 8)
+        b = bound(n_bytes, 2 * DIM * live * w, PEAK_BF16)
+        print(f"in-loop scoring, {layout} table, Q={BATCH} E={expand} W={w}, the same nodes "
+              f"({live} expanded, rows of {row_bytes} bytes): nd, ns and adm equal to plain "
+              f"(fused mode: {n_adm} admitted); kernel {ms:.4f} ms, plain {pms:.3f} ms; bound "
+              f"{b[0]:.4f} ms ({b[1]}; {n_bytes / 1e6:.1f} MB) {tag}")
+        del table, aux, sa, nd
+    print("device time a launch (torch.profiler, mean of 20 launches): " + ", ".join(
+        f"{k} {' + '.join(f'{u:.1f}' for u in v)} us" for k, v in dev_us.items()) + f" {tag}")
+    del adj, state, q, qb, qn, nodes, allowed
     torch.cuda.empty_cache()
+
+
+def device_us(fn, keys, reps=20):
+    """Mean device time a launch, in us, of each kernel whose name holds
+    one of `keys` (in that order), over `reps` calls of `fn` traced by
+    torch.profiler: the kernel alone, without the host's launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for key in keys:
+        tot = cnt = 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if key in e.key and us > 0:
+                tot, cnt = tot + us, cnt + e.count
+        if cnt < reps // 2:
+            raise AssertionError(f"the profiler saw {cnt} launches of {key} in {reps} calls")
+        out.append(tot / cnt)
+    return out
 
 
 def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, tag,
@@ -811,10 +882,26 @@ class env_set:
                 os.environ[k] = v
 
 
-def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_seed, report, tag, time_ms):
-    """K4 (split and fused), the blocked scoring kernel and K3's bf16 mode
-    against their plain versions on the captured inputs of real
-    iterations, timed."""
+def check_scoring(args, what):
+    """The scoring kernel's three outputs (nd, ns, and adm, or None unless
+    fused) held to its plain version on `args`. Returns the admitted count."""
+    from comet_tpu_torch.ops import beam_kernel as bk
+
+    got = bk._gather_score_cuda(*args)
+    want = bk._gather_score_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("nd", "ns", "adm"), got, want):
+        if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+            raise AssertionError(f"the scoring kernel's {name} differs from its plain version "
+                                 f"({what})")
+    return None if got[2] is None else int(got[2].sum())
+
+
+def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_fscore, cap_seed, report, tag,
+                        time_ms):
+    """K4 (split and fused), the blocked scoring kernel (split and fused
+    mode) and K3's bf16 mode against their plain versions on the captured
+    inputs of real iterations, timed."""
     from comet_tpu_torch.ops import beam_kernel as bk
     from comet_tpu_torch.ops import ivf_sparse as sp
 
@@ -852,11 +939,14 @@ def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_seed, report, tag, 
 
     a = cap_score.args
     qb, qn, nbr_vecs, aux, nodes, allowed_dev, thr_k, fused = a
-    got = bk._gather_score_cuda(*a)
-    want = bk._gather_score_plain(*a)
-    torch.cuda.synchronize()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("the in-loop scoring kernel differs from its plain version")
+    check_scoring(a, "blocked table, a seeded search's iteration 3")
+    fa = cap_fscore.args
+    if not fa[7] or fa[3] is None:
+        raise AssertionError("the filtered search did not score the blocked table in fused mode")
+    n_adm = check_scoring(fa, "blocked table, fused mode, a filtered search's iteration 3")
+    print(f"in-loop scoring, fused mode (filter + threshold {fa[6]:.3f}), iteration 3: nd, ns "
+          f"and adm equal to plain; {n_adm} of {fa[4].numel() * nbr_vecs.shape[1]} candidates "
+          f"admitted {tag}")
     ms = time_ms(lambda: bk._gather_score_cuda(*a))
     pms = time_ms(lambda: bk._gather_score_plain(*a))
     live = int((nodes >= 0).sum())
@@ -866,7 +956,8 @@ def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_seed, report, tag, 
     report["gather_score"] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
                                   bound=bound(n_bytes, 2 * DIM * live * w))
     print(f"in-loop scoring Q={nodes.shape[0]} E={nodes.shape[1]} W={w} ({live} nodes "
-          f"expanded), iteration 3: equal to plain; kernel {ms:.3f} ms, plain {pms:.3f} ms; "
+          f"expanded), iteration 3: nd, ns and adm equal to plain; kernel {ms:.3f} ms, plain "
+          f"{pms:.3f} ms; "
           f"bound {report['gather_score']['bound'][0]:.4f} ms "
           f"({report['gather_score']['bound'][1]}) {tag}")
 
@@ -1007,11 +1098,12 @@ def check_k5_packed_scoring(cap_k5, cap_score, report, dev, tag, time_ms):
     a = cap_score.args
     if a[3] is not None:
         raise AssertionError("the packed search scored a blocked table")
-    got = bk._gather_score_cuda(*a)
-    want = bk._gather_score_plain(*a)
-    torch.cuda.synchronize()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("the packed scoring differs from its plain version")
+    check_scoring(a, "packed table, a seeded search's iteration 3")
+    # the same nodes in fused mode: the search's allowed mask, a threshold
+    # at the median finite distance
+    nd = bk._gather_score_plain(*a)[0]
+    fa = a[:6] + (float(nd[torch.isfinite(nd)].median()), True)
+    n_adm = check_scoring(fa, "packed table, fused mode on a seeded search's iteration 3")
     ms = time_ms(lambda: bk._gather_score_cuda(*a))
     pms = time_ms(lambda: bk._gather_score_plain(*a))
     qb, qn, packed, nodes = a[0], a[1], a[2], a[4]
@@ -1029,13 +1121,11 @@ def check_k5_packed_scoring(cap_k5, cap_score, report, dev, tag, time_ms):
     ua = (qs.to(torch.bfloat16), (qs * qs).sum(dim=1), small, None,
           torch.from_numpy(rng.integers(-1, 4096, size=(512, 8)).astype(np.int32)).to(dev),
           None, float("inf"), False)
-    got, want = bk._gather_score_cuda(*ua), bk._gather_score_plain(*ua)
-    torch.cuda.synchronize()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("the packed scoring differs from its plain version on 152-byte rows")
+    check_scoring(ua, "packed table of 152-byte rows")
     print(f"packed scoring Q={nodes.shape[0]} E={nodes.shape[1]} W={w} ({live} nodes expanded), "
-          f"iteration 3 of a seeded search: equal to plain, and on 152-byte rows (W=4, d=16, "
-          f"{small.shape[0]} rows); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+          f"iteration 3 of a seeded search: nd, ns and adm equal to plain (fused mode: {n_adm} "
+          f"admitted), and on 152-byte rows (W=4, d=16, {small.shape[0]} rows); kernel "
+          f"{ms:.3f} ms, plain {pms:.3f} ms; bound "
           f"{report['gather_score_packed']['bound'][0]:.4f} ms "
           f"({report['gather_score_packed']['bound'][1]}) {tag}")
 
@@ -1208,7 +1298,8 @@ def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, 
 
     allowed = (ids % 3) != 0
     thr = float(np.median(s_scores[:, 9]))
-    with capture(bk, "beam_merge_step", 2) as cap_fused:
+    with capture(bk, "beam_merge_step", 2) as cap_fused, \
+            capture(bk, "gather_score", 2) as cap_fscore:
         f_ids, _, _, _ = hnsw_search_checked(index, "filtered + threshold", queries,
                                              threshold=thr,
                                              document_ids=Bitset.from_array(ids[allowed]))
@@ -1218,8 +1309,9 @@ def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, 
     print(f"HNSW with doc-ID filter and threshold {thr:.3f}: {len(hits)} hits, equal to the "
           f"plain beam")
     with uncounted():
-        check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_seed, report, tag, time_ms)
-    del cap_merge, cap_fused, cap_score, cap_seed
+        check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_fscore, cap_seed, report, tag,
+                            time_ms)
+    del cap_merge, cap_fused, cap_score, cap_fscore, cap_seed
     torch.cuda.empty_cache()
 
     # -- incremental insertion ---------------------------------------------------------
@@ -1301,9 +1393,9 @@ def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, 
 
 
 def edge_checks(dev, seed, tag):
-    """K1, K2's three modes, K3's two modes and K4's two against their plain
-    versions at edge shapes (ops/edge_cases.py, the cases of the card
-    tests)."""
+    """K1, K2's three modes, K3's two modes, K4's two, the scoring kernel
+    and K5 against their plain versions at edge shapes (ops/edge_cases.py,
+    the cases of the card tests)."""
     from comet_tpu_torch.ops import edge_cases, sortnet
 
     t0 = time.perf_counter()
@@ -1313,6 +1405,9 @@ def edge_checks(dev, seed, tag):
     k3_err = max(edge_cases.check_k3(dev, layout, d, seed) for layout, d in edge_cases.K3_CASES)
     for case in edge_cases.K4_CASES:
         edge_cases.check_k4(dev, *case, seed=seed)
+    for case in edge_cases.SCORE_CASES:
+        edge_cases.check_scoring(dev, *case, seed=seed)
+        edge_cases.check_k5(dev, *case, seed=seed)
     torch.cuda.synchronize()
     print(f"edge shapes: K1 equal to its plain version in {3 * len(edge_cases.K1_CASES)} selects "
           f"(k {edge_cases.K1_KS}, widths 1-65539, both layouts and idx=None, one launch each "
@@ -1323,7 +1418,11 @@ def edge_checks(dev, seed, tag):
           f"{edge_cases.K3_MEMBER_COUNTS} a step, dead steps, S = 1, a zero-padded group, d 3-128; "
           f"cosine float32 allclose(1e-5, 1e-6), max abs err {k3_err:.3g}); K4 split and fused "
           f"in {len(edge_cases.K4_CASES)} steps (ties, copies, SENT and +inf rows, ew 7-300, "
-          f"beams and result sets out of slot order) ({time.perf_counter() - t0:.1f} s) {tag}")
+          f"beams and result sets out of slot order); the scoring kernel (nd, ns, adm; both "
+          f"layouts, both modes) and K5 (stop = ef and ef / 4; also against the split pair) in "
+          f"{len(edge_cases.SCORE_CASES)} shapes (W 1-32, d 3-128, expand 1-23, Q 1-2048, ndig "
+          f"2-3, 152-byte and shifted packed rows, -1 nodes and empty entries) "
+          f"({time.perf_counter() - t0:.1f} s) {tag}")
 
 
 def sortnet_rows_plain(gmin, kb):

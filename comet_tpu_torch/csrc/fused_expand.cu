@@ -9,74 +9,111 @@
 // per iteration at the 1M shapes); this kernel reads each row from the
 // table itself and never writes the candidates out.
 //
-// One block of K5_THREADS threads per query q:
-//   1. the ef beam rows become 64-bit keys in shared memory
-//      (beam_merge.cuh);
-//   2. each of the E * W candidates (expanded node e = nodes[q, e], -1 for
-//      none, neighbour j) is scored by one thread from the node's packed
-//      row: the slot from the digit planes and the distance by the
-//      `dot_fma` chain from 0, depth ascending (neighbour_score.cuh), the
-//      code of the split path's scoring kernel, so the distances are
-//      bit-equal to it and to the seed scan's (K3's bf16 mode). A node of
-//      -1 or an empty entry gives (+inf, SENT) and reads nothing;
-//   3. K4's split merge body runs on the keys in place (`merge_select`):
-//      the candidates sorted and merged with the sorted beam, kill,
+// A persistent kernel: as many blocks of K5_THREADS threads as fit on the
+// card, each taking a contiguous, equal share of the queries. A block
+// streams its queries' expanded nodes (nodes[q, e], -1 for none) through
+// the copy pipeline of neighbour_score.cuh in passes that divide E, and
+// after the last pass of query q:
+//   1. its ef beam rows, copied with the aux rows of its first pass,
+//      become 64-bit keys in shared memory (beam_merge.cuh);
+//   2. its E W candidates are already keys: each was scored by one
+//      thread's `dot_fma` chain from 0, depth ascending, the scoring
+//      kernel's code, so the distances are bit-equal to the split path's
+//      and to the seed scan's (K3's bf16 mode); a -1 node or an empty
+//      entry gives (+inf, SENT) and reads nothing;
+//   3. K4's split merge body runs on the keys (`merge_select`): the
+//      candidates sorted and merged with the sorted beam, kill,
 //      compaction, the next `expand` nodes, the active flag and the
-//      `stop` window.
-// The outputs (beam, expanded flags, misc) are those of the split pair
-// (gather_score.cu, then beam_merge.cu in split mode) bit for bit.
+//      `stop` window,
+// while the copies of the next query's first passes are in flight: one
+// query's merge overlaps the next one's row reads. The outputs (beam,
+// expanded flags, misc) are those of the split pair (gather_score.cu, then
+// beam_merge.cu in split mode) bit for bit.
 //
 // What bounds it on an H100: the E expanded rows a query reads (at most
 // Q E row_len bf16, 138 MB at Q = 2048, E = 8, W = 32, d = 128) plus the
 // beam read and written (ef x 12 bytes twice a query): about 151 MB, 45 us
 // at 3.35 TB/s; the 2 d operations per candidate are far below the card's
-// rate. The design is the simple one: one thread per candidate reads its
-// neighbour's 256 bytes; the merge is K4's (a sort of the E W candidates,
-// runs of 32 in registers then merge path, and one merge with the beam).
+// rate, and the merge's compares (about 3,000 a query) take less than the
+// reads when they overlap them.
 
 #include "beam_merge.cuh"
 #include "neighbour_score.cuh"
 
-constexpr int K5_THREADS = 256;    // threads a query: one candidate a thread
+constexpr int K5_THREADS = 128;
+constexpr int K5_MIN_BLOCKS = 4;             // blocks an SM
+constexpr int K5_LV = 2;                     // vector passes in flight
+constexpr size_t K5_RING_BYTES = 32 * 1024;  // the pipeline's rings
 
-__global__ void __launch_bounds__(K5_THREADS) fused_expand_kernel(
+// Bytes of a query's raw beam rows (bd, bs, be of ef rows each).
+__host__ __device__ __forceinline__ size_t k5_beam_bytes(int ef)
+{
+    return nbr_align16(12 * (size_t)ef);
+}
+
+__global__ void __launch_bounds__(K5_THREADS, K5_MIN_BLOCKS) fused_expand_kernel(
     const int* __restrict__ nodes, const bf16_t* __restrict__ table, long long row_len,
     const bf16_t* __restrict__ qb, const float* __restrict__ qn,
     const float* __restrict__ bd, const int* __restrict__ bs, const int* __restrict__ be,
-    int ef, int E, int W, int d, int ndig, int expand, int stop,
+    int Q, int ef, int expand, int stop,
     float* __restrict__ od, int* __restrict__ os, int* __restrict__ oe,
-    int* __restrict__ misc)
+    int* __restrict__ misc, NbrGeom g, int n_beam)
 {
-    extern __shared__ u64 smem[];
+    extern __shared__ __align__(16) unsigned char smem[];
     __shared__ MergeScratch sc;
+    const int E = g.E;
+    const int W = g.W;
     const int ew = E * W;
-    const MergeBufs bufs = merge_bufs(smem, ef, ew);
+    const MergeBufs bufs = merge_bufs(reinterpret_cast<u64*>(smem), ef, ew);
+    const size_t raw0 = nbr_align16(sizeof(u64) * (size_t)merge_keys(ef, ew));
+    const size_t raw_bytes = k5_beam_bytes(ef);
+    const long long qa = (long long)Q * blockIdx.x / gridDim.x;
+    const long long qz = (long long)Q * (blockIdx.x + 1) / gridDim.x;
 
-    const int tid = threadIdx.x;
-    const long long q = blockIdx.x;
-    const bf16_t* qq = qb + q * d;
-    const float qnq = qn[q];
+    NbrStream<K5_LV> st;
+    st.g = g;
+    st.l = nbr_layout(g, K5_LV, raw0 + n_beam * raw_bytes);
+    st.smem = smem;
+    st.vecs = table;
+    st.aux = table + (long long)W * g.d;
+    st.vec_stride = row_len;
+    st.aux_stride = row_len;
+    st.nodes = nodes;
+    st.qb = qb;
+    st.qn = qn;
+    st.n0 = qa * E;
+    st.n1 = qz * E;
 
-    for (int i = tid; i < ef; i += blockDim.x) {
-        bufs.beam[i] = beam_key(bd[q * ef + i], bs[q * ef + i], be[q * ef + i]);
-    }
-    for (int c = tid; c < merge_run(ew); c += blockDim.x) {
-        float dist = CUDART_INF_F;
-        int slot = SENT_SLOT;
-        const int node = c < ew ? nodes[q * E + c / W] : -1;
-        if (node >= 0) {
-            const int j = c % W;
-            const bf16_t* row = table + (long long)node * row_len;
-            const bf16_t* arow = row + (long long)W * d;
-            const int neigh = decode_slot(arow, W, j, ndig);
-            if (neigh >= 0) {
-                slot = neigh;
-                dist = neighbour_dist(qq, qnq, row + j * d, arow[j], d);
+    const u64 pad = beam_key(CUDART_INF_F, SENT_SLOT, 0);
+    for (int c = ew + threadIdx.x; c < merge_run(ew); c += blockDim.x) bufs.cand[c] = pad;
+    auto raw = [&](long long q) {
+        return reinterpret_cast<float*>(smem + raw0 + ((q - qa) % n_beam) * raw_bytes);
+    };
+    st.run(
+        [&](long long n, int j, float dist, int slot) {
+            bufs.cand[(n % E) * W + j] = beam_key(dist, slot >= 0 ? slot : SENT_SLOT, 0);
+        },
+        [&](int x) {
+            const long long f = st.first(x);
+            if (st.count(x) == 0 || f % E != 0) return;
+            const long long q = f / E;
+            float* r = raw(q);
+            copy_span<4>(r, bd + q * ef, 4 * ef);
+            copy_span<4>(r + ef, bs + q * ef, 4 * ef);
+            copy_span<4>(r + 2 * ef, be + q * ef, 4 * ef);
+        },
+        [&](int x) {
+            const long long end = st.first(x) + st.count(x);
+            if (end % E != 0) return;
+            const long long q = end / E - 1;
+            const float* r = raw(q);
+            const int* rs = reinterpret_cast<const int*>(r + ef);
+            for (int i = threadIdx.x; i < ef; i += blockDim.x) {
+                bufs.beam[i] = beam_key(r[i], rs[i], rs[ef + i]);
             }
-        }
-        bufs.cand[c] = beam_key(dist, slot, 0);
-    }
-    merge_select(bufs, ef, ew, expand, stop, q, od, os, oe, misc, &sc);
+            merge_select(bufs, ef, ew, expand, stop, q, od, os, oe, misc, &sc);
+            for (int c = ew + threadIdx.x; c < merge_run(ew); c += blockDim.x) bufs.cand[c] = pad;
+        });
 }
 
 // nodes [Q, E] i32 (E = expand), table [cap, row_len] bf16 packed rows
@@ -92,11 +129,22 @@ extern "C" int comet_fused_expand(
         expand >= MISC_ROWS || stop < 1 || stop > ef ||
         row_len != (long long)W * d + (long long)(1 + ndig) * W)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(u64) * (size_t)merge_keys(ef, expand * W);
-    const int attr = merge_smem_attr(fused_expand_kernel, smem);
-    if (attr != 0) return attr;
-    fused_expand_kernel<<<Q, K5_THREADS, smem, (cudaStream_t)stream>>>(
-        nodes, (const bf16_t*)table, row_len, (const bf16_t*)qb, qn, bd, bs, be,
-        ef, expand, W, d, ndig, expand, stop, od, os, oe, misc);
+    const bf16_t* t = (const bf16_t*)table;
+    const NbrGeom g = nbr_pick(W, d, ndig, expand, K5_LV, K5_RING_BYTES, true, t,
+                               t + (long long)W * d, row_len, row_len, qb);
+    const int P = g.P;
+    // queries whose raw beam rows are staged but not yet merged
+    const int n_beam = 1 + (nbr_ahead_aux(K5_LV) * P + expand - 1) / expand;
+    const size_t raw0 = nbr_align16(sizeof(u64) * (size_t)merge_keys(ef, expand * W));
+    const size_t smem = nbr_layout(g, K5_LV, raw0 + n_beam * k5_beam_bytes(ef)).end;
+    static size_t raised = 0;
+    static long long cache[3] = {0, 0, 0};
+    int grid = 0;
+    int err = nbr_smem_attr((const void*)fused_expand_kernel, smem, &raised);
+    if (err == 0) err = nbr_grid((const void*)fused_expand_kernel, K5_THREADS, smem, Q, cache, &grid);
+    if (err != 0) return err;
+    fused_expand_kernel<<<grid, K5_THREADS, smem, (cudaStream_t)stream>>>(
+        nodes, t, row_len, (const bf16_t*)qb, qn, bd, bs, be, Q, ef, expand, stop,
+        od, os, oe, misc, g, n_beam);
     return (int)cudaGetLastError();
 }

@@ -27,52 +27,62 @@
 // (1 + ndig) W; the packed layout (one row of W d + (1 + ndig) W bf16 per
 // node) passes the same table twice, aux offset by W d, both strides the
 // row length. A packed row is not 16-byte aligned in general (W = 4,
-// d = 16, ndig = 2: 152 bytes), which the row dot's scalar head absorbs.
+// d = 16, ndig = 2: 152 bytes), which the staging's narrower copies absorb.
 //
-// What bounds it on an H100: every live candidate reads its d bf16 values
-// (256 bytes at d = 128) and the aux row, and writes 12 bytes; at Q =
-// 2048, E = 8, W = 32 that is about 137 MB an iteration, 41 us at 3.35
-// TB/s, against 2 d operations per candidate (134 MFLOP, 2 us at 67
-// TFLOP/s): bytes bound it. The kernel is simple on purpose: one thread
-// per candidate runs the FMA chain over its neighbour's row.
+// What bounds it on an H100: every live node's aux row and live
+// neighbours' d bf16 values (256 bytes at d = 128) are read, and 12 bytes a
+// candidate written; at Q = 2048, E = 8, W = 32 that is about 137 MB an
+// iteration, 41 us at 3.35 TB/s, against 2 d operations per candidate (134
+// MFLOP, 2 us at 67 TFLOP/s): bytes bound it. So the kernel is persistent:
+// as many blocks as fit on the card, each streaming a contiguous, equal
+// share of the flat [Q E] node list through the copy pipeline of
+// neighbour_score.cuh (node ids, aux rows, then vectors, all in flight
+// passes ahead of the one scored), which keeps the reads of every SM in
+// flight from the first pass to the last, with no tail wave. One thread a
+// candidate runs the FMA chain from shared memory; the outputs are written
+// in candidate order, coalesced.
 
 #define SENT_SLOT 2147483647
 #include "neighbour_score.cuh"
 
-#define SCORE_THREADS 256
+constexpr int SCORE_THREADS = 128;
+constexpr int SCORE_MIN_BLOCKS = 4;          // blocks an SM
+constexpr int SCORE_LV = 2;                  // vector passes in flight
+constexpr size_t SCORE_RING_BYTES = 66 * 1024;    // the pipeline's rings
 
-__global__ void __launch_bounds__(SCORE_THREADS) gather_score_kernel(
+__global__ void __launch_bounds__(SCORE_THREADS, SCORE_MIN_BLOCKS) gather_score_kernel(
     const bf16_t* __restrict__ qb, const float* __restrict__ qn,
     const bf16_t* __restrict__ vecs, const bf16_t* __restrict__ aux,
     long long vec_stride, long long aux_stride,
     const int* __restrict__ nodes, const unsigned char* __restrict__ allowed, float thr,
-    long long total, int E, int W, int d, int ndig, int fused,
-    float* __restrict__ nd, int* __restrict__ ns, int* __restrict__ adm)
+    long long total, int fused, float* __restrict__ nd, int* __restrict__ ns,
+    int* __restrict__ adm, NbrGeom g)
 {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= total) return;
-    const int ew = E * W;
-    const long long q = t / ew;
-    const int c = (int)(t % ew);
-    const int e = c / W;
-    const int j = c % W;
-    const int node = nodes[q * E + e];
-    float dist = CUDART_INF_F;
-    int slot = SENT_SLOT;
-    bool ok = false;
-    if (node >= 0) {
-        const bf16_t* arow = aux + (long long)node * aux_stride;
-        const int neigh = decode_slot(arow, W, j, ndig);
-        if (neigh >= 0) {
-            ok = true;
-            slot = neigh;
-            dist = neighbour_dist(qb + q * d, qn[q], vecs + (long long)node * vec_stride + j * d,
-                                  arow[j], d);
-        }
-    }
-    nd[t] = dist;
-    ns[t] = slot;
-    if (fused) adm[t] = (ok && allowed[slot] && dist <= thr) ? 1 : 0;
+    extern __shared__ __align__(16) unsigned char smem[];
+    // this block's share of the passes over the total nodes
+    const long long passes = (total + g.P - 1) / g.P;
+    const long long pa = passes * blockIdx.x / gridDim.x;
+    const long long pb = passes * (blockIdx.x + 1) / gridDim.x;
+    NbrStream<SCORE_LV> st;
+    st.g = g;
+    st.l = nbr_layout(g, SCORE_LV, 0);
+    st.smem = smem;
+    st.vecs = vecs;
+    st.aux = aux;
+    st.vec_stride = vec_stride;
+    st.aux_stride = aux_stride;
+    st.nodes = nodes;
+    st.qb = qb;
+    st.qn = qn;
+    st.n0 = pa * g.P;
+    st.n1 = min(pb * g.P, total);
+    const int W = g.W;
+    st.run([&](long long n, int j, float dist, int slot) {
+        const long long t = n * W + j;
+        nd[t] = dist;
+        ns[t] = slot >= 0 ? slot : SENT_SLOT;
+        if (fused) adm[t] = (slot >= 0 && allowed[slot] && dist <= thr) ? 1 : 0;
+    }, [](int) {}, [](int) {});
 }
 
 // qb [Q, d] bf16, qn [Q] f32, vecs / aux the row tables (see above, strides
@@ -87,11 +97,22 @@ extern "C" int comet_gather_score(
     if (Q < 1 || E < 1 || W < 1 || d < 1 || ndig < 1 || vec_stride < (long long)W * d ||
         aux_stride < (long long)(1 + ndig) * W)
         return (int)cudaErrorInvalidValue;
-    const long long total = (long long)Q * E * W;
-    const long long blocks = (total + SCORE_THREADS - 1) / SCORE_THREADS;
-    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    gather_score_kernel<<<(unsigned)blocks, SCORE_THREADS, 0, (cudaStream_t)stream>>>(
+    const NbrGeom g = nbr_pick(W, d, ndig, E, SCORE_LV, SCORE_RING_BYTES, false, vecs, aux,
+                               vec_stride, aux_stride, qb);
+    const int P = g.P;
+    const size_t smem = nbr_layout(g, SCORE_LV, 0).end;
+    const long long total = (long long)Q * E;
+    static size_t raised = 0;
+    static long long cache[3] = {0, 0, 0};
+    int grid = 0;
+    int err = nbr_smem_attr((const void*)gather_score_kernel, smem, &raised);
+    if (err == 0) {
+        err = nbr_grid((const void*)gather_score_kernel, SCORE_THREADS, smem,
+                       (total + P - 1) / P, cache, &grid);
+    }
+    if (err != 0) return err;
+    gather_score_kernel<<<grid, SCORE_THREADS, smem, (cudaStream_t)stream>>>(
         (const bf16_t*)qb, qn, (const bf16_t*)vecs, (const bf16_t*)aux, vec_stride, aux_stride,
-        nodes, allowed, thr, total, E, W, d, ndig, fused, nd, ns, adm);
+        nodes, allowed, thr, total, fused, nd, ns, adm, g);
     return (int)cudaGetLastError();
 }

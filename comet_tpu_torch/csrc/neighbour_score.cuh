@@ -1,4 +1,4 @@
-// The in-loop distance of one neighbour of an expanded HNSW node, shared by
+// The in-loop distances of the neighbours of expanded HNSW nodes, shared by
 // the scoring kernel (gather_score.cu) and K5 (fused_expand.cu), so that
 // both give bit-equal distances for the same (query, slot).
 //
@@ -6,11 +6,186 @@
 // its aux row: W bf16 squared norms, then ndig planes of W base-128 digits
 // of slot + 1 (0 for an empty adjacency entry). The blocked layout keeps
 // the two in separate tables, the packed layout in one row; the callers
-// pass the row pointers either way.
+// pass the two row bases and strides either way.
+//
+// `NbrStream` runs one block over a contiguous range of the flat [Q E]
+// list of expanded nodes (-1 for none), in passes of P nodes, as a
+// software pipeline of asynchronous copies: at pass p it copies the node
+// ids of pass p + LN, the aux rows, query rows and query norms of pass
+// p + LA, and the live neighbours' vectors of pass p + LV, then decodes
+// the slots of pass p + LV + 1 (and widens its query rows to float32
+// once) and scores pass p. So the dependent reads of a node (its id, its
+// aux row, then its vectors) are all in flight ahead of the pass that
+// scores it, and a block never waits on one round trip per node. Copies
+// are 16-byte `cp.async` where the table's rows allow it; 8 and 4 bytes,
+// then plain 2-byte copies, for rows off those boundaries (packed rows of
+// 152 bytes, d not a multiple of 8). A -1 node and an empty entry read
+// nothing. Each candidate (node, neighbour) is one thread's `dot_fma`
+// chain from 0 over the depth in ascending order (scan_tile.cuh), the
+// query read from shared memory as float32 broadcasts and the neighbour's
+// bf16 values widened by shift, two a 32-bit word; then
+// max((qn + nsq) - 2 ip, 0). A neighbour's vector lies in shared memory at
+// a stride of an odd number of 16-byte units (2 d + 16 bytes at d = 128),
+// so the 8 threads of a quarter warp reading 16 bytes of 8 consecutive
+// neighbours at one depth hit 8 distinct bank groups.
 
 #pragma once
 
 #include "scan_tile.cuh"
+
+struct NbrGeom {
+    int W, d, ndig, E;
+    int P;            // nodes a pass
+    int qp;           // queries P consecutive nodes can touch
+    int d_pad;        // float32 elements a staged query row (d rounded up to 4)
+    int unit;         // bytes a copy of the routing rows: 16, 8, 4 or 2
+    int q_unit;       // bytes a copy of the query rows
+    int lanes_log2;   // log2 of the threads that copy one neighbour vector
+    int vec_elems;    // bf16 elements a staged neighbour vector
+    int aux_len;      // bf16 elements an aux row, (1 + ndig) W
+    int aux_elems;    // aux_len rounded up to 16 bytes
+    int qraw_elems;   // bf16 elements of a pass's query rows, rounded up to 16 bytes
+};
+
+__host__ __device__ __forceinline__ size_t nbr_align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+static inline int nbr_unit(unsigned long long m)
+{
+    int u = 16;
+    while (u > 2 && m % u != 0) u >>= 1;
+    return u;
+}
+
+// Bytes of one staged node (its W neighbour vectors).
+static inline size_t nbr_node_bytes(int W, int d)
+{
+    return 2 * (size_t)W * ((((2 * d + 15) / 16) | 1) * 8);
+}
+
+// The geometry of passes of P nodes over rows of (W, d, ndig), E nodes a
+// query, with the copy units the tables and query rows allow.
+static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, int P, const void* vecs,
+                               const void* aux, long long vec_stride, long long aux_stride,
+                               const void* qb)
+{
+    NbrGeom g;
+    g.W = W;
+    g.d = d;
+    g.ndig = ndig;
+    g.E = E;
+    g.P = P;
+    g.qp = (P - 1 + E - 1) / E + 1;
+    g.d_pad = (d + 3) & ~3;
+    g.aux_len = (1 + ndig) * W;
+    g.aux_elems = (g.aux_len + 7) & ~7;
+    g.qraw_elems = (g.qp * d + 7) & ~7;
+    g.unit = nbr_unit((unsigned long long)vecs | (unsigned long long)aux |
+                      (unsigned long long)(2 * vec_stride) |
+                      (unsigned long long)(2 * aux_stride) | (unsigned long long)(2 * d) |
+                      (unsigned long long)(2 * g.aux_len));
+    g.q_unit = nbr_unit((unsigned long long)qb | (unsigned long long)(2 * d));
+    const int chunks = 2 * d / g.unit;
+    g.lanes_log2 = 0;
+    while (g.lanes_log2 < 5 && (1 << g.lanes_log2) < chunks) ++g.lanes_log2;
+    g.vec_elems = (((2 * d + 15) / 16) | 1) * 8;
+    return g;
+}
+
+// Where a stream's rings lie, from byte `base` of dynamic shared memory:
+// node ids, aux rows (+ raw query rows and norms), slots (+ float32 query
+// rows and norms), neighbour vectors; entry sizes in bytes.
+struct NbrLayout {
+    size_t nodes, aux, srow, vec, end;
+    size_t n_entry, a_entry, s_entry, v_entry;
+    int slot_ints;
+};
+
+// Ring depths of a pipeline with LV vector passes in flight: node ids
+// 3 LV + 2 passes ahead, aux rows 2 LV + 1. A ring holds every pass from
+// its copy to its last read: the prologue copies the first LN passes' ids
+// at once, and pass x's aux row is read until pass x is scored.
+__host__ __device__ constexpr int nbr_ahead_aux(int lv) { return 2 * lv + 1; }
+__host__ __device__ constexpr int nbr_ahead_nodes(int lv) { return 3 * lv + 2; }
+__host__ __device__ constexpr int nbr_ring_nodes(int lv) { return 3 * lv + 2; }
+__host__ __device__ constexpr int nbr_ring_aux(int lv) { return 2 * lv + 2; }
+__host__ __device__ constexpr int nbr_ring_slots(int lv) { return lv + 2; }
+__host__ __device__ constexpr int nbr_ring_vec(int lv) { return lv + 1; }
+
+__host__ __device__ __forceinline__ NbrLayout nbr_layout(const NbrGeom& g, int lv, size_t base)
+{
+    NbrLayout l;
+    l.slot_ints = (g.P * g.W + 3) & ~3;
+    l.n_entry = nbr_align16(sizeof(int) * (size_t)g.P);
+    l.a_entry = nbr_align16(2 * ((size_t)g.P * g.aux_elems + g.qraw_elems) +
+                            sizeof(float) * (size_t)g.qp);
+    l.s_entry = nbr_align16(sizeof(int) * (size_t)l.slot_ints +
+                            sizeof(float) * (size_t)g.qp * (g.d_pad + 1));
+    l.v_entry = 2 * (size_t)g.P * g.W * g.vec_elems;
+    l.nodes = nbr_align16(base);
+    l.aux = l.nodes + nbr_ring_nodes(lv) * l.n_entry;
+    l.srow = l.aux + nbr_ring_aux(lv) * l.a_entry;
+    l.vec = l.srow + nbr_ring_slots(lv) * l.s_entry;
+    l.end = l.vec + nbr_ring_vec(lv) * l.v_entry;
+    return l;
+}
+
+// The geometry with the largest pass, 1 to NBR_MAX_PASS nodes, whose
+// rings (LV vector passes in flight) take at most ring_bytes; with
+// `divide_e` the pass divides E (so no pass spans two queries).
+constexpr int NBR_MAX_PASS = 64;
+
+static inline NbrGeom nbr_pick(int W, int d, int ndig, int E, int lv, size_t ring_bytes,
+                               bool divide_e, const void* vecs, const void* aux,
+                               long long vec_stride, long long aux_stride, const void* qb)
+{
+    NbrGeom g = nbr_geom(W, d, ndig, E, 1, vecs, aux, vec_stride, aux_stride, qb);
+    for (int p = 2; p <= NBR_MAX_PASS && (!divide_e || p <= E); ++p) {
+        if (divide_e && E % p != 0) continue;
+        const NbrGeom t = nbr_geom(W, d, ndig, E, p, vecs, aux, vec_stride, aux_stride, qb);
+        if (nbr_layout(t, lv, 0).end > ring_bytes) break;
+        g = t;
+    }
+    return g;
+}
+
+// Blocks of `threads` threads with `smem` bytes that fit on the card at
+// once, at most `work`: the grid of a persistent kernel. Returns a CUDA
+// error code; *cache keeps (smem, blocks an SM, SMs) of the last call.
+static inline int nbr_grid(const void* kernel, int threads, size_t smem, long long work,
+                           long long cache[3], int* grid)
+{
+    if (cache[0] != (long long)smem || cache[2] == 0) {
+        int dev = 0, sms = 0, per_sm = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+        if (err != cudaSuccess) return (int)err;
+        if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+        cache[0] = (long long)smem;
+        cache[1] = per_sm;
+        cache[2] = sms;
+    }
+    const long long n = cache[1] * cache[2];
+    *grid = (int)(work < n ? work : n);
+    return 0;
+}
+
+// Let `kernel` take `smem` bytes of dynamic shared memory: past the
+// default 48 KiB the attribute is raised, once for each larger size
+// (*raised keeps the size set). Returns a CUDA error code.
+static inline int nbr_smem_attr(const void* kernel, size_t smem, size_t* raised)
+{
+    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+    if (smem > *raised && smem + 1024 > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        *raised = smem;
+    }
+    return 0;
+}
 
 // Neighbour j's slot from the digit planes of the aux row, -1 when empty.
 __device__ __forceinline__ int decode_slot(const bf16_t* __restrict__ arow, int W, int j,
@@ -25,26 +200,280 @@ __device__ __forceinline__ int decode_slot(const bf16_t* __restrict__ arow, int 
     return (int)a1 - 1;
 }
 
-// max((qn + nsq) - 2 <qq, x>, 0) for the bf16 query row qq and neighbour
-// row x: the `dot_fma` chain from 0, depth ascending. x is read in 16-byte
-// loads between a scalar head (up to its first 16-byte boundary) and a
-// scalar tail, so any row address and any d work.
-__device__ __forceinline__ float neighbour_dist(const bf16_t* __restrict__ qq, float qn,
-                                                const bf16_t* __restrict__ x, bf16_t nsq, int d)
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// max((qn + nsq) - 2 <q, x>, 0) for the staged float32 query row q and the
+// staged neighbour vector x (16-byte aligned): the `dot_fma` chain from 0,
+// depth ascending.
+__device__ __forceinline__ float staged_dist(const float* __restrict__ q, float qn,
+                                             const bf16_t* __restrict__ x, bf16_t nsq, int d)
 {
     float acc = 0.0f;
     int k = 0;
-    const int head = min(d, (int)(((16 - ((size_t)x & 15)) & 15) >> 1));
-    for (; k < head; ++k) acc = dot_fma(to_f32(qq[k]), to_f32(x[k]), acc);
+#pragma unroll 4
     for (; k + 8 <= d; k += 8) {
         const uint4 xv = *reinterpret_cast<const uint4*>(x + k);
-        const unsigned xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {
-            acc = dot_fma(to_f32(qq[k + 2 * h]), to_f32((bf16_t)(xs[h] & 0xFFFFu)), acc);
-            acc = dot_fma(to_f32(qq[k + 2 * h + 1]), to_f32((bf16_t)(xs[h] >> 16)), acc);
-        }
+        const float4 qa = *reinterpret_cast<const float4*>(q + k);
+        const float4 qc = *reinterpret_cast<const float4*>(q + k + 4);
+        acc = dot_fma(qa.x, bf16_lo(xv.x), acc);
+        acc = dot_fma(qa.y, bf16_hi(xv.x), acc);
+        acc = dot_fma(qa.z, bf16_lo(xv.y), acc);
+        acc = dot_fma(qa.w, bf16_hi(xv.y), acc);
+        acc = dot_fma(qc.x, bf16_lo(xv.z), acc);
+        acc = dot_fma(qc.y, bf16_hi(xv.z), acc);
+        acc = dot_fma(qc.z, bf16_lo(xv.w), acc);
+        acc = dot_fma(qc.w, bf16_hi(xv.w), acc);
     }
-    for (; k < d; ++k) acc = dot_fma(to_f32(qq[k]), to_f32(x[k]), acc);
+    for (; k < d; ++k) acc = dot_fma(q[k], to_f32(x[k]), acc);
     return fmaxf((qn + to_f32(nsq)) - 2.0f * acc, 0.0f);
 }
+
+// -- copies -------------------------------------------------------------------
+
+// One U-byte copy from device memory to shared memory: asynchronous for
+// U = 16 (past L1), 8 and 4, a plain load and store for U = 2.
+template <int U>
+__device__ __forceinline__ void copy_unit(void* dst, const void* src)
+{
+    if constexpr (U == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+    } else if constexpr (U == 8) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                     ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+    } else if constexpr (U == 4) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+    } else {
+        *static_cast<unsigned short*>(dst) = *static_cast<const unsigned short*>(src);
+    }
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait()
+{
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `bytes` (a multiple of U) from device memory to shared memory, the
+// U-byte pieces spread over the block.
+template <int U>
+__device__ __forceinline__ void copy_span(void* dst, const void* src, int bytes)
+{
+    for (int c = threadIdx.x; c < bytes / U; c += blockDim.x) {
+        copy_unit<U>(static_cast<char*>(dst) + c * U, static_cast<const char*>(src) + c * U);
+    }
+}
+
+__device__ __forceinline__ void copy_span_any(void* dst, const void* src, int bytes, int unit)
+{
+    switch (unit) {
+        case 16: copy_span<16>(dst, src, bytes); break;
+        case 8: copy_span<8>(dst, src, bytes); break;
+        case 4: copy_span<4>(dst, src, bytes); break;
+        default: copy_span<2>(dst, src, bytes); break;
+    }
+}
+
+// One block's pipeline over nodes [n0, n1) of the flat node list (module
+// comment). Pass x holds nodes n0 + x P .. (fewer at the end).
+template <int LV>
+struct NbrStream {
+    static constexpr int LA = nbr_ahead_aux(LV);
+    static constexpr int LN = nbr_ahead_nodes(LV);
+
+    NbrGeom g;
+    NbrLayout l;
+    unsigned char* smem;
+    const bf16_t* vecs;
+    const bf16_t* aux;
+    long long vec_stride, aux_stride;
+    const int* nodes;       // [Q E]
+    const bf16_t* qb;       // [Q, d]
+    const float* qn;        // [Q]
+    long long n0, n1;
+
+    __device__ int count(int x) const
+    {
+        const long long a = n0 + (long long)x * g.P;
+        return a >= n1 ? 0 : (int)min((long long)g.P, n1 - a);
+    }
+    __device__ long long first(int x) const { return n0 + (long long)x * g.P; }
+    __device__ int* ids(int x) const
+    {
+        return reinterpret_cast<int*>(smem + l.nodes + (x % nbr_ring_nodes(LV)) * l.n_entry);
+    }
+    __device__ bf16_t* aux_rows(int x) const
+    {
+        return reinterpret_cast<bf16_t*>(smem + l.aux + (x % nbr_ring_aux(LV)) * l.a_entry);
+    }
+    __device__ bf16_t* q_raw(int x) const { return aux_rows(x) + (size_t)g.P * g.aux_elems; }
+    __device__ float* qn_raw(int x) const
+    {
+        return reinterpret_cast<float*>(q_raw(x) + g.qraw_elems);
+    }
+    __device__ int* slots(int x) const
+    {
+        return reinterpret_cast<int*>(smem + l.srow + (x % nbr_ring_slots(LV)) * l.s_entry);
+    }
+    __device__ float* q_f(int x) const { return reinterpret_cast<float*>(slots(x) + l.slot_ints); }
+    __device__ float* qn_f(int x) const { return q_f(x) + g.qp * g.d_pad; }
+    __device__ bf16_t* vec_rows(int x) const
+    {
+        return reinterpret_cast<bf16_t*>(smem + l.vec + (x % nbr_ring_vec(LV)) * l.v_entry);
+    }
+
+    __device__ void issue_ids(int x) const
+    {
+        copy_span<4>(ids(x), nodes + first(x), 4 * count(x));
+    }
+
+    // Aux rows, query rows and norms of pass x (its node ids landed).
+    __device__ void issue_aux(int x) const
+    {
+        const int n = count(x);
+        if (n == 0) return;
+        const int* id = ids(x);
+        for (int i = 0; i < n; ++i) {
+            if (id[i] >= 0) {
+                copy_span_any(aux_rows(x) + (size_t)i * g.aux_elems, aux + id[i] * aux_stride,
+                              2 * g.aux_len, g.unit);
+            }
+        }
+        const long long qa = first(x) / g.E;
+        const int nq = (int)((first(x) + n - 1) / g.E - qa) + 1;
+        copy_span_any(q_raw(x), qb + qa * g.d, 2 * nq * g.d, g.q_unit);
+        copy_span<4>(qn_raw(x), qn + qa, 4 * nq);
+    }
+
+    // The slots of pass x from its aux rows, its query rows in float32.
+    __device__ void decode(int x) const
+    {
+        const int n = count(x);
+        if (n == 0) return;
+        const int* id = ids(x);
+        int* sl = slots(x);
+        for (int f = threadIdx.x; f < n * g.W; f += blockDim.x) {
+            const int i = f / g.W;
+            sl[f] = id[i] >= 0
+                ? decode_slot(aux_rows(x) + (size_t)i * g.aux_elems, g.W, f - i * g.W, g.ndig)
+                : -1;
+        }
+        const long long qa = first(x) / g.E;
+        const int nq = (int)((first(x) + n - 1) / g.E - qa) + 1;
+        const bf16_t* qr = q_raw(x);
+        float* qf = q_f(x);
+        for (int e = threadIdx.x; e < nq * g.d; e += blockDim.x) {
+            const int qi = e / g.d;
+            qf[qi * g.d_pad + (e - qi * g.d)] = to_f32(qr[e]);
+        }
+        for (int i = threadIdx.x; i < nq; i += blockDim.x) qn_f(x)[i] = qn_raw(x)[i];
+    }
+
+    // The live neighbours' vectors of pass x (its slots decoded): the
+    // 2 d / U chunks of a vector go to a group of 2^lanes_log2 threads.
+    template <int U>
+    __device__ void issue_vec_u(int x) const
+    {
+        const int n = count(x);
+        const int chunks = 2 * g.d / U;
+        const int lg = g.lanes_log2;
+        const int* id = ids(x);
+        const int* sl = slots(x);
+        for (int i = 0; i < n; ++i) {
+            if (id[i] < 0) continue;
+            const char* src = reinterpret_cast<const char*>(vecs + id[i] * vec_stride);
+            char* dst = reinterpret_cast<char*>(vec_rows(x) + (size_t)i * g.W * g.vec_elems);
+            for (int f = threadIdx.x; f < (g.W << lg); f += blockDim.x) {
+                const int j = f >> lg;
+                if (sl[i * g.W + j] < 0) continue;
+                for (int c = f & ((1 << lg) - 1); c < chunks; c += 1 << lg) {
+                    copy_unit<U>(dst + 2 * j * g.vec_elems + c * U, src + 2 * j * g.d + c * U);
+                }
+            }
+        }
+    }
+
+    __device__ void issue_vec(int x) const
+    {
+        switch (g.unit) {
+            case 16: issue_vec_u<16>(x); break;
+            case 8: issue_vec_u<8>(x); break;
+            case 4: issue_vec_u<4>(x); break;
+            default: issue_vec_u<2>(x); break;
+        }
+    }
+
+    // Score pass x: emit(n, j, dist, slot) for each node n of the pass and
+    // neighbour j, (+inf, -1) for a -1 node or an empty entry.
+    template <typename Emit>
+    __device__ void score(int x, Emit& emit) const
+    {
+        const int n = count(x);
+        const long long qa = first(x) / g.E;
+        const int* sl = slots(x);
+        const bf16_t* ar = aux_rows(x);
+        const bf16_t* vr = vec_rows(x);
+        for (int f = threadIdx.x; f < n * g.W; f += blockDim.x) {
+            const int i = f / g.W;
+            const int j = f - i * g.W;
+            const long long node = first(x) + i;
+            const int slot = sl[f];
+            float dist = CUDART_INF_F;
+            if (slot >= 0) {
+                const int qo = (int)(node / g.E - qa);
+                dist = staged_dist(q_f(x) + qo * g.d_pad, qn_f(x)[qo],
+                                   vr + (size_t)f * g.vec_elems,
+                                   ar[(size_t)i * g.aux_elems + j], g.d);
+            }
+            emit(node, j, dist, slot);
+        }
+    }
+
+    // The whole range. hook(x) runs with each pass's aux copies (in their
+    // copy group); after(x) once pass x is scored, past a barrier, with
+    // the copies of the next passes in flight. Ends with no copy in flight.
+    template <typename Emit, typename Hook, typename After>
+    __device__ void run(Emit emit, Hook hook, After after) const
+    {
+        const int np = (int)((n1 - n0 + g.P - 1) / g.P);
+        for (int x = 0; x < LN; ++x) issue_ids(x);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        for (int x = 0; x < LA; ++x) {
+            issue_aux(x);
+            hook(x);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        for (int x = 0; x <= LV; ++x) decode(x);
+        __syncthreads();
+#pragma unroll
+        for (int x = 0; x < LV; ++x) {
+            issue_vec(x);
+            cp_async_commit();
+        }
+        for (int p = 0; p < np; ++p) {
+            issue_ids(p + LN);
+            issue_aux(p + LA);
+            hook(p + LA);
+            issue_vec(p + LV);
+            cp_async_commit();
+            cp_async_wait<LV>();          // pass p's vectors and what the next steps read
+            __syncthreads();
+            decode(p + LV + 1);
+            score(p, emit);
+            __syncthreads();
+            after(p);
+        }
+        cp_async_wait<0>();
+    }
+};

@@ -1,7 +1,7 @@
 """Edge cases that hold K1 (top-k select), K2 (fused distance scan), K3
-(block-sparse IVF scan) and K4 (HNSW beam merge) to their plain versions
-on the card, shared by the card tests (tests/test_torch_cuda.py) and
-chip_smoke.py.
+(block-sparse IVF scan), K4 (HNSW beam merge), the in-loop scoring kernel
+and K5 (fused expand) to their plain versions on the card, shared by the
+card tests (tests/test_torch_cuda.py) and chip_smoke.py.
 
 Each `check_*` runs a kernel's wrapper and its plain version on the same
 CUDA tensors and raises AssertionError where they differ. The inputs are
@@ -20,6 +20,7 @@ from comet_tpu_torch.ops.distance import bf16_round, preprocess
 from comet_tpu_torch.types import DistanceKind
 
 K1_KS = (1, 8, 100, 128, 1000, 8192)
+INF = float("inf")
 
 
 def k1_widths(k: int) -> list[int]:
@@ -338,3 +339,120 @@ def check_k4(dev: torch.device, q_n: int, ef: int, ew: int, expand: int, stop: i
         if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
             raise AssertionError(f"K4 {name} differs from its plain version at Q={q_n}, "
                                  f"ef={ef}, ew={ew}, expand={expand}, stop={stop}, kr={kr}")
+
+
+# (Q, E, W, d, cap) of the scoring kernel and K5: W 1-32, d 3-128, expand
+# 1, 8 and 23 (several staging passes at W = 32, d = 128), Q 1, 130 and
+# 2048; cap 16500 > 128^2 makes ndig = 3, W = 4, d = 16 at cap 4096 packed
+# rows of 152 bytes, d = 3 and d = 100 vectors off a 16-byte boundary.
+SCORE_CASES = (
+    (1, 1, 1, 3, 4096), (130, 8, 1, 16, 16500), (2048, 23, 1, 100, 4096),
+    (130, 1, 1, 128, 4096), (2048, 8, 4, 3, 4096), (130, 8, 4, 16, 4096),
+    (1, 23, 4, 16, 4096), (130, 23, 4, 100, 16500), (2048, 1, 4, 128, 4096),
+    (130, 23, 12, 3, 16500), (2048, 1, 12, 16, 4096), (130, 8, 12, 100, 4096),
+    (1, 8, 12, 128, 16500), (2048, 8, 32, 3, 4096), (130, 1, 32, 16, 16500),
+    (1, 23, 32, 100, 4096), (2048, 23, 32, 128, 4096), (2048, 8, 32, 128, 16500),
+    (130, 23, 32, 128, 16500),
+)
+
+
+def scoring_case(dev: torch.device, q_n: int, e: int, w: int, d: int, cap: int, seed: int = 0):
+    """A graph of cap Gaussian rows with a random adjacency (a fifth of the
+    entries empty, row 1 all empty), its routing tables and an iteration's
+    nodes: a seventh -1, row 1 expanded by query 0, and the last query of
+    several with nothing to expand. Returns (tables {name: (nbr_vecs, aux,
+    nodes)}, qb, qn, allowed): the blocked pair, the packed table and,
+    where a packed row is not a whole number of 16-byte units, the packed
+    table from its second row (every row's start shifted off the
+    boundaries the first layout had)."""
+    g = np.random.default_rng((seed, q_n, e, w, d, cap))
+    x = torch.from_numpy(g.normal(size=(cap, d)).astype(np.float32)).to(dev)
+    adj = g.integers(0, cap, size=(cap, w)).astype(np.int32)
+    adj[g.random(adj.shape) < 0.2] = -1
+    adj[1] = -1
+    nodes = g.integers(0, cap, size=(q_n, e)).astype(np.int32)
+    nodes[g.random(nodes.shape) < 0.15] = -1
+    nodes[0, 0] = 1
+    if q_n > 1:
+        nodes[-1] = -1
+    q = torch.from_numpy(g.normal(size=(q_n, d)).astype(np.float32)).to(dev)
+    allowed = torch.from_numpy(g.random(cap) < 0.7).to(dev)
+    adj_t, nodes_t = torch.from_numpy(adj).to(dev), torch.from_numpy(nodes).to(dev)
+    sqn = (x * x).sum(dim=1)
+    nbr_vecs, aux = beam_kernel.build_blocked_tables(adj_t, x, sqn)
+    packed = beam_kernel.build_packed_table(adj_t, x, sqn)
+    tables = {"blocked": (nbr_vecs, aux, nodes_t), "packed": (packed, None, nodes_t)}
+    if packed.shape[1] * 2 % 16:
+        tables["packed, shifted"] = (packed[1:], None,
+                                     torch.where(nodes_t < cap - 1, nodes_t, -1))
+    return tables, q.to(torch.bfloat16), beam_kernel.row_sqnorms(q), allowed
+
+
+def _equal(what: str, got, want) -> None:
+    for name, a, b in zip(("0", "1", "2", "3"), got, want):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{what}: output {name} differs")
+
+
+def check_scoring(dev: torch.device, q_n: int, e: int, w: int, d: int, cap: int,
+                  seed: int = 0) -> None:
+    """The scoring kernel (`gather_score`) bit-equal to its plain version in
+    every layout of `scoring_case` and both modes (nd, ns and adm), one
+    launch counted in the layout's counter; the packed layout also equal
+    to the blocked one."""
+    tables, qb, qn, allowed = scoring_case(dev, q_n, e, w, d, cap, seed)
+    nbr_vecs, aux, nodes = tables["blocked"]
+    nd = beam_kernel._gather_score_plain(qb, qn, nbr_vecs, aux, nodes, None, INF, False)[0]
+    fin = nd[torch.isfinite(nd)]
+    thr = float(fin.median()) if fin.numel() else INF
+    for fused in (False, True):
+        blocked = None
+        for layout, (table, aux, nodes) in tables.items():
+            args = (qb, qn, table, aux, nodes, allowed, thr, fused)
+            before = (beam_kernel.SCORE_LAUNCHES, beam_kernel.PACKED_SCORE_LAUNCHES)
+            got = beam_kernel.gather_score(*args)
+            packed = aux is None
+            if (beam_kernel.SCORE_LAUNCHES, beam_kernel.PACKED_SCORE_LAUNCHES) != (
+                    before[0] + (not packed), before[1] + packed):
+                raise AssertionError("the scoring kernel did not count one launch in its "
+                                     "layout's counter")
+            what = (f"scoring kernel, {layout} table, {'fused' if fused else 'split'} mode, "
+                    f"Q={q_n} E={e} W={w} d={d} cap={cap}")
+            _equal(what, got, beam_kernel._gather_score_plain(*args))
+            if layout == "blocked":
+                blocked = got
+            elif layout == "packed":
+                _equal(what + " against the blocked table", got, blocked)
+
+
+def check_k5(dev: torch.device, q_n: int, e: int, w: int, d: int, cap: int,
+             seed: int = 0) -> None:
+    """K5 (`fused_expand_merge`) bit-equal to its plain version and to the
+    split pair's kernels (packed scoring, then K4 split), over each packed
+    table of `scoring_case`, at stop = ef and stop < ef, one launch
+    counted; the beam is `k4_case`'s running state with its distances
+    scaled by a power of two to the candidates' range."""
+    tables, qb, qn, _ = scoring_case(dev, q_n, e, w, d, cap, seed)
+    ef = 256 if q_n > 1000 else 64
+    ew = e * w
+    bd, bs, be = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in k4_case(q_n, ef, ew, 0, seed, mid_search=True)[:3])
+    for layout, (table, aux, nodes) in tables.items():
+        if aux is not None:
+            continue
+        nd, ns, _ = beam_kernel.gather_score(qb, qn, table, None, nodes, None, INF, False)
+        fin = nd[torch.isfinite(nd)]
+        mid = float(fin.median()) if fin.numel() else 5.0
+        bds = bd * 2.0 ** round(float(np.log2(max(mid, 1e-3) / 5)))
+        for stop in (ef, max(1, ef // 4)):
+            before = beam_kernel.FUSE_LAUNCHES
+            got = beam_kernel.fused_expand_merge(nodes, table, qb, qn, bds, bs, be, ef=ef,
+                                                 expand=e, stop=stop)
+            if beam_kernel.FUSE_LAUNCHES != before + 1:
+                raise AssertionError("K5 did not count one launch")
+            what = f"K5, {layout} table, Q={q_n} E={e} W={w} d={d} cap={cap} ef={ef} stop={stop}"
+            _equal(what, got, beam_kernel._fused_expand_plain(nodes, table, qb, qn, bds, bs, be,
+                                                              ef, e, stop))
+            split = beam_kernel.beam_merge_step(bds, bs, be, nd, ns, ef=ef, ew=ew, expand=e,
+                                                fused=False, stop=stop)
+            _equal(what + " against the split pair", got, split[:4])

@@ -578,6 +578,22 @@ def test_fused_expand_kernel_matches_plain(dev, q_n, ef, expand, w, d, stop):
     assert (got[3][:, expand] == 1).any()
 
 
+@pytest.mark.parametrize("q_n,e,w,d,cap", edge_cases.SCORE_CASES)
+def test_gather_score_edges_match_plain(dev, q_n, e, w, d, cap):
+    """The scoring kernel's staging at edge shapes (W 1-32, d 3-128, expand
+    1-23, Q 1-2048, ndig 2-3, packed rows off 16-byte boundaries, -1 nodes
+    and empty entries; ops/edge_cases.py): nd, ns and adm equal to the plain
+    version in both layouts and both modes."""
+    edge_cases.check_scoring(dev, q_n, e, w, d, cap)
+
+
+@pytest.mark.parametrize("q_n,e,w,d,cap", edge_cases.SCORE_CASES)
+def test_fused_expand_edges_match_plain(dev, q_n, e, w, d, cap):
+    """K5 at the same edge shapes, at stop = ef and stop < ef: equal to its
+    plain version and to the split pair's kernels."""
+    edge_cases.check_k5(dev, q_n, e, w, d, cap)
+
+
 @pytest.mark.parametrize("cosine", [False, True])
 @pytest.mark.parametrize("q_n,n,d", [(300, 4096, 20), (64, 1024, 128), (256, 8192, 128)])
 def test_fused_dist_select_bf16_kernel_matches_plain(dev, cosine, q_n, n, d):
