@@ -10,23 +10,23 @@
 // table itself and never writes the candidates out.
 //
 // A persistent kernel: as many blocks of K5_THREADS threads as fit on the
-// card, each taking a contiguous, equal share of the queries. A block
-// streams its queries' expanded nodes (nodes[q, e], -1 for none) through
-// the copy pipeline of neighbour_score.cuh in passes that divide E, and
-// after the last pass of query q:
-//   1. its ef beam rows, copied with the aux rows of its first pass,
-//      become 64-bit keys in shared memory (beam_merge.cuh);
-//   2. its E W candidates are already keys: each was scored by one
-//      thread's `dot_fma` chain from 0, depth ascending, the scoring
-//      kernel's code, so the distances are bit-equal to the split path's
-//      and to the seed scan's (K3's bf16 mode); a -1 node or an empty
-//      entry gives (+inf, SENT) and reads nothing;
-//   3. K4's split merge body runs on the keys (`merge_select`): the
-//      candidates sorted and merged with the sorted beam, kill,
-//      compaction, the next `expand` nodes, the active flag and the
-//      `stop` window,
-// while the copies of the next query's first passes are in flight: one
-// query's merge overlaps the next one's row reads. The outputs (beam,
+// card, each walking queries q = blockIdx.x + k gridDim.x:
+//   1. the E expanded nodes (nodes[q, e], -1 for none) are staged and
+//      scored by the split path's scoring code (neighbour_score.cuh): the
+//      aux rows, then the live neighbours' vectors by coalesced
+//      asynchronous copies in passes through a ring of buffers, each
+//      candidate (e, j) one thread's `dot_fma` chain from 0, depth
+//      ascending, so the distances are bit-equal to the scoring kernel's
+//      and to the seed scan's (K3's bf16 mode). A node of -1 or an empty
+//      entry gives (+inf, SENT) and reads nothing. Each candidate becomes
+//      a 64-bit key (beam_merge.cuh);
+//   2. the next query's node ids, aux rows and first passes are put in
+//      flight;
+//   3. the ef beam rows become keys, and K4's split merge body runs
+//      (`merge_select`): the candidates sorted and merged with the sorted
+//      beam, kill, compaction, the next `expand` nodes, the active flag and
+//      the `stop` window,
+// so a query's merge overlaps the next one's row reads. The outputs (beam,
 // expanded flags, misc) are those of the split pair (gather_score.cu, then
 // beam_merge.cu in split mode) bit for bit.
 //
@@ -34,22 +34,16 @@
 // Q E row_len bf16, 138 MB at Q = 2048, E = 8, W = 32, d = 128) plus the
 // beam read and written (ef x 12 bytes twice a query): about 151 MB, 45 us
 // at 3.35 TB/s; the 2 d operations per candidate are far below the card's
-// rate, and the merge's compares (about 3,000 a query) take less than the
-// reads when they overlap them.
+// rate, and the merge's compares are hidden under the reads when they
+// overlap.
 
 #include "beam_merge.cuh"
 #include "neighbour_score.cuh"
 
 constexpr int K5_THREADS = 128;
 constexpr int K5_MIN_BLOCKS = 4;             // blocks an SM
-constexpr int K5_LV = 2;                     // vector passes in flight
-constexpr size_t K5_RING_BYTES = 32 * 1024;  // the pipeline's rings
-
-// Bytes of a query's raw beam rows (bd, bs, be of ef rows each).
-__host__ __device__ __forceinline__ size_t k5_beam_bytes(int ef)
-{
-    return nbr_align16(12 * (size_t)ef);
-}
+constexpr int K5_NBUF = 2;
+constexpr size_t K5_STAGE_BYTES = 35 * 1024;
 
 __global__ void __launch_bounds__(K5_THREADS, K5_MIN_BLOCKS) fused_expand_kernel(
     const int* __restrict__ nodes, const bf16_t* __restrict__ table, long long row_len,
@@ -57,63 +51,35 @@ __global__ void __launch_bounds__(K5_THREADS, K5_MIN_BLOCKS) fused_expand_kernel
     const float* __restrict__ bd, const int* __restrict__ bs, const int* __restrict__ be,
     int Q, int ef, int expand, int stop,
     float* __restrict__ od, int* __restrict__ os, int* __restrict__ oe,
-    int* __restrict__ misc, NbrGeom g, int n_beam)
+    int* __restrict__ misc, NbrGeom g)
 {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ MergeScratch sc;
-    const int E = g.E;
     const int W = g.W;
-    const int ew = E * W;
+    const int ew = g.E * W;
     const MergeBufs bufs = merge_bufs(reinterpret_cast<u64*>(smem), ef, ew);
-    const size_t raw0 = nbr_align16(sizeof(u64) * (size_t)merge_keys(ef, ew));
-    const size_t raw_bytes = k5_beam_bytes(ef);
-    const long long qa = (long long)Q * blockIdx.x / gridDim.x;
-    const long long qz = (long long)Q * (blockIdx.x + 1) / gridDim.x;
-
-    NbrStream<K5_LV> st;
-    st.g = g;
-    st.l = nbr_layout(g, K5_LV, raw0 + n_beam * raw_bytes);
-    st.smem = smem;
-    st.vecs = table;
-    st.aux = table + (long long)W * g.d;
-    st.vec_stride = row_len;
-    st.aux_stride = row_len;
-    st.nodes = nodes;
-    st.qb = qb;
-    st.qn = qn;
-    st.n0 = qa * E;
-    st.n1 = qz * E;
-
+    NbrWalk<K5_NBUF> w;
+    w.g = g;
+    w.l = nbr_layout(g, sizeof(u64) * (size_t)merge_keys(ef, ew));
+    w.smem = smem;
+    w.vecs = table;
+    w.aux = table + (long long)W * g.d;
+    w.vec_stride = row_len;
+    w.aux_stride = row_len;
+    w.nodes = nodes;
+    w.qb = qb;
+    w.qn = qn;
     const u64 pad = beam_key(CUDART_INF_F, SENT_SLOT, 0);
     for (int c = ew + threadIdx.x; c < merge_run(ew); c += blockDim.x) bufs.cand[c] = pad;
-    auto raw = [&](long long q) {
-        return reinterpret_cast<float*>(smem + raw0 + ((q - qa) % n_beam) * raw_bytes);
-    };
-    st.run(
-        [&](long long n, int j, float dist, int slot) {
-            bufs.cand[(n % E) * W + j] = beam_key(dist, slot >= 0 ? slot : SENT_SLOT, 0);
-        },
-        [&](int x) {
-            const long long f = st.first(x);
-            if (st.count(x) == 0 || f % E != 0) return;
-            const long long q = f / E;
-            float* r = raw(q);
-            copy_span<4>(r, bd + q * ef, 4 * ef);
-            copy_span<4>(r + ef, bs + q * ef, 4 * ef);
-            copy_span<4>(r + 2 * ef, be + q * ef, 4 * ef);
-        },
-        [&](int x) {
-            const long long end = st.first(x) + st.count(x);
-            if (end % E != 0) return;
-            const long long q = end / E - 1;
-            const float* r = raw(q);
-            const int* rs = reinterpret_cast<const int*>(r + ef);
-            for (int i = threadIdx.x; i < ef; i += blockDim.x) {
-                bufs.beam[i] = beam_key(r[i], rs[i], rs[ef + i]);
-            }
-            merge_select(bufs, ef, ew, expand, stop, q, od, os, oe, misc, &sc);
-            for (int c = ew + threadIdx.x; c < merge_run(ew); c += blockDim.x) bufs.cand[c] = pad;
-        });
+    w.run(Q, [&](long long, int e, int j, float dist, int slot) {
+        bufs.cand[e * W + j] = beam_key(dist, slot >= 0 ? slot : SENT_SLOT, 0);
+    }, [&](long long q) {
+        for (int i = threadIdx.x; i < ef; i += blockDim.x) {
+            bufs.beam[i] = beam_key(bd[q * ef + i], bs[q * ef + i], be[q * ef + i]);
+        }
+        merge_select(bufs, ef, ew, expand, stop, q, od, os, oe, misc, &sc);
+        for (int c = ew + threadIdx.x; c < merge_run(ew); c += blockDim.x) bufs.cand[c] = pad;
+    });
 }
 
 // nodes [Q, E] i32 (E = expand), table [cap, row_len] bf16 packed rows
@@ -130,13 +96,9 @@ extern "C" int comet_fused_expand(
         row_len != (long long)W * d + (long long)(1 + ndig) * W)
         return (int)cudaErrorInvalidValue;
     const bf16_t* t = (const bf16_t*)table;
-    const NbrGeom g = nbr_pick(W, d, ndig, expand, K5_LV, K5_RING_BYTES, true, t,
+    const NbrGeom g = nbr_geom(W, d, ndig, expand, K5_STAGE_BYTES, K5_NBUF, t,
                                t + (long long)W * d, row_len, row_len, qb);
-    const int P = g.P;
-    // queries whose raw beam rows are staged but not yet merged
-    const int n_beam = 1 + (nbr_ahead_aux(K5_LV) * P + expand - 1) / expand;
-    const size_t raw0 = nbr_align16(sizeof(u64) * (size_t)merge_keys(ef, expand * W));
-    const size_t smem = nbr_layout(g, K5_LV, raw0 + n_beam * k5_beam_bytes(ef)).end;
+    const size_t smem = nbr_layout(g, sizeof(u64) * (size_t)merge_keys(ef, expand * W)).end;
     static size_t raised = 0;
     static long long cache[3] = {0, 0, 0};
     int grid = 0;
@@ -145,6 +107,6 @@ extern "C" int comet_fused_expand(
     if (err != 0) return err;
     fused_expand_kernel<<<grid, K5_THREADS, smem, (cudaStream_t)stream>>>(
         nodes, t, row_len, (const bf16_t*)qb, qn, bd, bs, be, Q, ef, expand, stop,
-        od, os, oe, misc, g, n_beam);
+        od, os, oe, misc, g);
     return (int)cudaGetLastError();
 }

@@ -33,56 +33,52 @@
 // neighbours' d bf16 values (256 bytes at d = 128) are read, and 12 bytes a
 // candidate written; at Q = 2048, E = 8, W = 32 that is about 137 MB an
 // iteration, 41 us at 3.35 TB/s, against 2 d operations per candidate (134
-// MFLOP, 2 us at 67 TFLOP/s): bytes bound it. So the kernel is persistent:
-// as many blocks as fit on the card, each streaming a contiguous, equal
-// share of the flat [Q E] node list through the copy pipeline of
-// neighbour_score.cuh (node ids, aux rows, then vectors, all in flight
-// passes ahead of the one scored), which keeps the reads of every SM in
-// flight from the first pass to the last, with no tail wave. One thread a
-// candidate runs the FMA chain from shared memory; the outputs are written
-// in candidate order, coalesced.
+// MFLOP, 2 us at 67 TFLOP/s): bytes bound it. So the rows are staged
+// (neighbour_score.cuh): each expanded node's row comes into shared memory
+// by coalesced asynchronous copies, and one thread a candidate runs the FMA
+// chain from shared memory. The kernel is persistent, as many blocks as
+// fit on the card, each walking queries blockIdx.x + k gridDim.x: while a
+// query's rows are copied and scored, the next query's node ids, aux rows
+// and row are fetched, so a block's reads never wait on that chain of
+// dependent loads (the lead-in that a block a query paid, with the copies
+// of every block on an SM in step, took about 20 of its 64 us).
 
 #define SENT_SLOT 2147483647
 #include "neighbour_score.cuh"
 
-constexpr int SCORE_THREADS = 128;
-constexpr int SCORE_MIN_BLOCKS = 4;          // blocks an SM
-constexpr int SCORE_LV = 2;                  // vector passes in flight
-constexpr size_t SCORE_RING_BYTES = 66 * 1024;    // the pipeline's rings
+constexpr int SCORE_THREADS = 256;
+constexpr int SCORE_MIN_BLOCKS = 3;          // blocks an SM
+constexpr int SCORE_NBUF = 2;
+constexpr size_t SCORE_STAGE_BYTES = 52 * 1024;
 
 __global__ void __launch_bounds__(SCORE_THREADS, SCORE_MIN_BLOCKS) gather_score_kernel(
     const bf16_t* __restrict__ qb, const float* __restrict__ qn,
     const bf16_t* __restrict__ vecs, const bf16_t* __restrict__ aux,
     long long vec_stride, long long aux_stride,
     const int* __restrict__ nodes, const unsigned char* __restrict__ allowed, float thr,
-    long long total, int fused, float* __restrict__ nd, int* __restrict__ ns,
-    int* __restrict__ adm, NbrGeom g)
+    int Q, int fused, float* __restrict__ nd, int* __restrict__ ns, int* __restrict__ adm,
+    NbrGeom g)
 {
     extern __shared__ __align__(16) unsigned char smem[];
-    // this block's share of the passes over the total nodes
-    const long long passes = (total + g.P - 1) / g.P;
-    const long long pa = passes * blockIdx.x / gridDim.x;
-    const long long pb = passes * (blockIdx.x + 1) / gridDim.x;
-    NbrStream<SCORE_LV> st;
-    st.g = g;
-    st.l = nbr_layout(g, SCORE_LV, 0);
-    st.smem = smem;
-    st.vecs = vecs;
-    st.aux = aux;
-    st.vec_stride = vec_stride;
-    st.aux_stride = aux_stride;
-    st.nodes = nodes;
-    st.qb = qb;
-    st.qn = qn;
-    st.n0 = pa * g.P;
-    st.n1 = min(pb * g.P, total);
+    NbrWalk<SCORE_NBUF> w;
+    w.g = g;
+    w.l = nbr_layout(g, 0);
+    w.smem = smem;
+    w.vecs = vecs;
+    w.aux = aux;
+    w.vec_stride = vec_stride;
+    w.aux_stride = aux_stride;
+    w.nodes = nodes;
+    w.qb = qb;
+    w.qn = qn;
+    const int E = g.E;
     const int W = g.W;
-    st.run([&](long long n, int j, float dist, int slot) {
-        const long long t = n * W + j;
+    w.run(Q, [&](long long q, int e, int j, float dist, int slot) {
+        const long long t = (q * E + e) * W + j;
         nd[t] = dist;
         ns[t] = slot >= 0 ? slot : SENT_SLOT;
         if (fused) adm[t] = (slot >= 0 && allowed[slot] && dist <= thr) ? 1 : 0;
-    }, [](int) {}, [](int) {});
+    }, [](long long) {});
 }
 
 // qb [Q, d] bf16, qn [Q] f32, vecs / aux the row tables (see above, strides
@@ -97,22 +93,19 @@ extern "C" int comet_gather_score(
     if (Q < 1 || E < 1 || W < 1 || d < 1 || ndig < 1 || vec_stride < (long long)W * d ||
         aux_stride < (long long)(1 + ndig) * W)
         return (int)cudaErrorInvalidValue;
-    const NbrGeom g = nbr_pick(W, d, ndig, E, SCORE_LV, SCORE_RING_BYTES, false, vecs, aux,
+    const NbrGeom g = nbr_geom(W, d, ndig, E, SCORE_STAGE_BYTES, SCORE_NBUF, vecs, aux,
                                vec_stride, aux_stride, qb);
-    const int P = g.P;
-    const size_t smem = nbr_layout(g, SCORE_LV, 0).end;
-    const long long total = (long long)Q * E;
+    const size_t smem = nbr_layout(g, 0).end;
     static size_t raised = 0;
     static long long cache[3] = {0, 0, 0};
     int grid = 0;
     int err = nbr_smem_attr((const void*)gather_score_kernel, smem, &raised);
     if (err == 0) {
-        err = nbr_grid((const void*)gather_score_kernel, SCORE_THREADS, smem,
-                       (total + P - 1) / P, cache, &grid);
+        err = nbr_grid((const void*)gather_score_kernel, SCORE_THREADS, smem, Q, cache, &grid);
     }
     if (err != 0) return err;
     gather_score_kernel<<<grid, SCORE_THREADS, smem, (cudaStream_t)stream>>>(
         (const bf16_t*)qb, qn, (const bf16_t*)vecs, (const bf16_t*)aux, vec_stride, aux_stride,
-        nodes, allowed, thr, total, fused, nd, ns, adm, g);
+        nodes, allowed, thr, Q, fused, nd, ns, adm, g);
     return (int)cudaGetLastError();
 }

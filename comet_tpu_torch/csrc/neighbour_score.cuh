@@ -8,26 +8,31 @@
 // the two in separate tables, the packed layout in one row; the callers
 // pass the two row bases and strides either way.
 //
-// `NbrStream` runs one block over a contiguous range of the flat [Q E]
-// list of expanded nodes (-1 for none), in passes of P nodes, as a
-// software pipeline of asynchronous copies: at pass p it copies the node
-// ids of pass p + LN, the aux rows, query rows and query norms of pass
-// p + LA, and the live neighbours' vectors of pass p + LV, then decodes
-// the slots of pass p + LV + 1 (and widens its query rows to float32
-// once) and scores pass p. So the dependent reads of a node (its id, its
-// aux row, then its vectors) are all in flight ahead of the pass that
-// scores it, and a block never waits on one round trip per node. Copies
-// are 16-byte `cp.async` where the table's rows allow it; 8 and 4 bytes,
-// then plain 2-byte copies, for rows off those boundaries (packed rows of
-// 152 bytes, d not a multiple of 8). A -1 node and an empty entry read
-// nothing. Each candidate (node, neighbour) is one thread's `dot_fma`
-// chain from 0 over the depth in ascending order (scan_tile.cuh), the
-// query read from shared memory as float32 broadcasts and the neighbour's
-// bf16 values widened by shift, two a 32-bit word; then
-// max((qn + nsq) - 2 ip, 0). A neighbour's vector lies in shared memory at
-// a stride of an odd number of 16-byte units (2 d + 16 bytes at d = 128),
-// so the 8 threads of a quarter warp reading 16 bytes of 8 consecutive
-// neighbours at one depth hit 8 distinct bank groups.
+// `score_neighbours` runs one block over a list of nodes (the E expanded
+// nodes of each of the block's n_q queries, -1 for none) in three steps:
+//   1. the queries, converted once to float32, and the nodes' aux rows go
+//      to shared memory; the aux rows come by asynchronous copies, and the
+//      slots are decoded from them (-1: no node or an empty entry); with
+//      `prefetch`, the live neighbours' vectors of the nodes past the first
+//      passes are then asked into L2, so the whole query's rows are on
+//      their way while only a few passes occupy shared memory;
+//   2. the live neighbours' vectors are staged in passes of `pass` nodes
+//      through a ring of NBUF buffers: the copies of the next NBUF - 1
+//      passes are in flight while the current one is scored. A row is
+//      copied by groups of up to 32 threads, each moving `unit` bytes a
+//      copy (16-byte `cp.async` where the table's rows allow it; 8 and 4
+//      bytes, then plain 2-byte copies, for rows off those boundaries, e.g.
+//      packed rows of 152 bytes or d not a multiple of 8). A -1 node and an
+//      empty entry read nothing;
+//   3. each candidate (node, neighbour) is one thread's `dot_fma` chain
+//      from 0 over the depth in ascending order (scan_tile.cuh), the query
+//      read from shared memory as float32 broadcasts and the neighbour's
+//      bf16 values widened by shift, two a 32-bit word; then
+//      max((qn + nsq) - 2 ip, 0).
+// A neighbour's vector lies in shared memory at a stride of an odd number
+// of 16-byte units (2 d + 16 bytes at d = 128), so the 8 threads of a
+// quarter warp reading 16 bytes of 8 consecutive neighbours at one depth
+// hit 8 distinct bank groups.
 
 #pragma once
 
@@ -35,19 +40,42 @@
 
 struct NbrGeom {
     int W, d, ndig, E;
-    int P;            // nodes a pass
-    int qp;           // queries P consecutive nodes can touch
     int d_pad;        // float32 elements a staged query row (d rounded up to 4)
     int unit;         // bytes a copy of the routing rows: 16, 8, 4 or 2
-    int q_unit;       // bytes a copy of the query rows
+    int q_unit;       // bytes a copy of a query row
     int lanes_log2;   // log2 of the threads that copy one neighbour vector
     int vec_elems;    // bf16 elements a staged neighbour vector
     int aux_len;      // bf16 elements an aux row, (1 + ndig) W
     int aux_elems;    // aux_len rounded up to 16 bytes
-    int qraw_elems;   // bf16 elements of a pass's query rows, rounded up to 16 bytes
+    int pass;         // nodes a staging pass
+    int nbuf;         // staging buffers in use (fewer when fewer passes)
 };
 
 __host__ __device__ __forceinline__ size_t nbr_align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// One query's state (two of them: the query scored and the next one):
+// its float32 row, norm, raw bf16 row, node ids, aux rows and slots.
+struct NbrLayout {
+    size_t qs, qn, qraw, nodes, aux, slots, state;   // offsets within a state
+    size_t states, bars, stage, end;                // offsets from smem
+};
+
+__host__ __device__ __forceinline__ NbrLayout nbr_layout(const NbrGeom& g, size_t base)
+{
+    NbrLayout l;
+    l.qs = 0;
+    l.qn = l.qs + nbr_align16(sizeof(float) * (size_t)g.d_pad);
+    l.qraw = l.qn + 16;
+    l.nodes = l.qraw + nbr_align16(2 * (size_t)g.d);
+    l.aux = l.nodes + nbr_align16(sizeof(int) * (size_t)g.E);
+    l.slots = l.aux + 2 * (size_t)g.E * g.aux_elems;
+    l.state = l.slots + nbr_align16(sizeof(int) * (size_t)g.E * g.W);
+    l.states = nbr_align16(base);
+    l.bars = l.states + 2 * l.state;
+    l.stage = l.bars + 8 * 4;
+    l.end = l.stage + 2 * (size_t)g.nbuf * g.pass * g.W * g.vec_elems;
+    return l;
+}
 
 static inline int nbr_unit(unsigned long long m)
 {
@@ -56,29 +84,20 @@ static inline int nbr_unit(unsigned long long m)
     return u;
 }
 
-// Bytes of one staged node (its W neighbour vectors).
-static inline size_t nbr_node_bytes(int W, int d)
-{
-    return 2 * (size_t)W * ((((2 * d + 15) / 16) | 1) * 8);
-}
-
-// The geometry of passes of P nodes over rows of (W, d, ndig), E nodes a
-// query, with the copy units the tables and query rows allow.
-static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, int P, const void* vecs,
-                               const void* aux, long long vec_stride, long long aux_stride,
-                               const void* qb)
+// The geometry of E expanded nodes a query, with at most `stage_bytes` in
+// a ring of nbuf staging buffers (at least one node a pass).
+static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, size_t stage_bytes, int nbuf,
+                               const void* vecs, const void* aux, long long vec_stride,
+                               long long aux_stride, const void* qb)
 {
     NbrGeom g;
     g.W = W;
     g.d = d;
     g.ndig = ndig;
     g.E = E;
-    g.P = P;
-    g.qp = (P - 1 + E - 1) / E + 1;
     g.d_pad = (d + 3) & ~3;
     g.aux_len = (1 + ndig) * W;
     g.aux_elems = (g.aux_len + 7) & ~7;
-    g.qraw_elems = (g.qp * d + 7) & ~7;
     g.unit = nbr_unit((unsigned long long)vecs | (unsigned long long)aux |
                       (unsigned long long)(2 * vec_stride) |
                       (unsigned long long)(2 * aux_stride) | (unsigned long long)(2 * d) |
@@ -88,69 +107,18 @@ static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, int P, const void*
     g.lanes_log2 = 0;
     while (g.lanes_log2 < 5 && (1 << g.lanes_log2) < chunks) ++g.lanes_log2;
     g.vec_elems = (((2 * d + 15) / 16) | 1) * 8;
-    return g;
-}
-
-// Where a stream's rings lie, from byte `base` of dynamic shared memory:
-// node ids, aux rows (+ raw query rows and norms), slots (+ float32 query
-// rows and norms), neighbour vectors; entry sizes in bytes.
-struct NbrLayout {
-    size_t nodes, aux, srow, vec, end;
-    size_t n_entry, a_entry, s_entry, v_entry;
-    int slot_ints;
-};
-
-// Ring depths of a pipeline with LV vector passes in flight: node ids
-// 3 LV + 2 passes ahead, aux rows 2 LV + 1. A ring holds every pass from
-// its copy to its last read: the prologue copies the first LN passes' ids
-// at once, and pass x's aux row is read until pass x is scored.
-__host__ __device__ constexpr int nbr_ahead_aux(int lv) { return 2 * lv + 1; }
-__host__ __device__ constexpr int nbr_ahead_nodes(int lv) { return 3 * lv + 2; }
-__host__ __device__ constexpr int nbr_ring_nodes(int lv) { return 3 * lv + 2; }
-__host__ __device__ constexpr int nbr_ring_aux(int lv) { return 2 * lv + 2; }
-__host__ __device__ constexpr int nbr_ring_slots(int lv) { return lv + 2; }
-__host__ __device__ constexpr int nbr_ring_vec(int lv) { return lv + 1; }
-
-__host__ __device__ __forceinline__ NbrLayout nbr_layout(const NbrGeom& g, int lv, size_t base)
-{
-    NbrLayout l;
-    l.slot_ints = (g.P * g.W + 3) & ~3;
-    l.n_entry = nbr_align16(sizeof(int) * (size_t)g.P);
-    l.a_entry = nbr_align16(2 * ((size_t)g.P * g.aux_elems + g.qraw_elems) +
-                            sizeof(float) * (size_t)g.qp);
-    l.s_entry = nbr_align16(sizeof(int) * (size_t)l.slot_ints +
-                            sizeof(float) * (size_t)g.qp * (g.d_pad + 1));
-    l.v_entry = 2 * (size_t)g.P * g.W * g.vec_elems;
-    l.nodes = nbr_align16(base);
-    l.aux = l.nodes + nbr_ring_nodes(lv) * l.n_entry;
-    l.srow = l.aux + nbr_ring_aux(lv) * l.a_entry;
-    l.vec = l.srow + nbr_ring_slots(lv) * l.s_entry;
-    l.end = l.vec + nbr_ring_vec(lv) * l.v_entry;
-    return l;
-}
-
-// The geometry with the largest pass, 1 to NBR_MAX_PASS nodes, whose
-// rings (LV vector passes in flight) take at most ring_bytes; with
-// `divide_e` the pass divides E (so no pass spans two queries).
-constexpr int NBR_MAX_PASS = 64;
-
-static inline NbrGeom nbr_pick(int W, int d, int ndig, int E, int lv, size_t ring_bytes,
-                               bool divide_e, const void* vecs, const void* aux,
-                               long long vec_stride, long long aux_stride, const void* qb)
-{
-    NbrGeom g = nbr_geom(W, d, ndig, E, 1, vecs, aux, vec_stride, aux_stride, qb);
-    for (int p = 2; p <= NBR_MAX_PASS && (!divide_e || p <= E); ++p) {
-        if (divide_e && E % p != 0) continue;
-        const NbrGeom t = nbr_geom(W, d, ndig, E, p, vecs, aux, vec_stride, aux_stride, qb);
-        if (nbr_layout(t, lv, 0).end > ring_bytes) break;
-        g = t;
-    }
+    const size_t node_bytes = 2 * (size_t)W * g.vec_elems;
+    g.pass = (int)(stage_bytes / (nbuf * node_bytes));
+    if (g.pass < 1) g.pass = 1;
+    if (g.pass > E) g.pass = E;
+    const int n_pass = (E + g.pass - 1) / g.pass;
+    g.nbuf = n_pass < nbuf ? n_pass : nbuf;    // at most 4 (the mbarrier slots)
     return g;
 }
 
 // Blocks of `threads` threads with `smem` bytes that fit on the card at
 // once, at most `work`: the grid of a persistent kernel. Returns a CUDA
-// error code; *cache keeps (smem, blocks an SM, SMs) of the last call.
+// error code; cache keeps (smem, blocks an SM, SMs) of the last call.
 static inline int nbr_grid(const void* kernel, int threads, size_t smem, long long work,
                            long long cache[3], int* grid)
 {
@@ -261,6 +229,47 @@ __device__ __forceinline__ void cp_async_wait()
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// mbarriers (shared memory, 8 bytes each) and the 1-D bulk copy (TMA)
+// that completes on one.
+__device__ __forceinline__ unsigned smem_addr(const void* p)
+{
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(void* bar, unsigned count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(void* bar, unsigned bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(void* bar, unsigned parity)
+{
+    unsigned done = 0;
+    while (!done) {
+        asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, void* bar)
+{
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem()
+{
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Copy `bytes` (a multiple of U) from device memory to shared memory, the
 // U-byte pieces spread over the block.
 template <int U>
@@ -281,198 +290,221 @@ __device__ __forceinline__ void copy_span_any(void* dst, const void* src, int by
     }
 }
 
-// One block's pipeline over nodes [n0, n1) of the flat node list (module
-// comment). Pass x holds nodes n0 + x P .. (fewer at the end).
-template <int LV>
-struct NbrStream {
-    static constexpr int LA = nbr_ahead_aux(LV);
-    static constexpr int LN = nbr_ahead_nodes(LV);
 
+// One block's walk over the queries blockIdx.x, blockIdx.x + gridDim.x, ...
+// (module comment): the state of the query scored and of the next one, in
+// two slots, and the ring of staging buffers.
+template <int NBUF>
+struct NbrWalk {
+    static_assert(NBUF >= 1 && NBUF <= 4, "one mbarrier slot a buffer, four slots");
     NbrGeom g;
     NbrLayout l;
     unsigned char* smem;
     const bf16_t* vecs;
     const bf16_t* aux;
     long long vec_stride, aux_stride;
-    const int* nodes;       // [Q E]
+    const int* nodes;       // [Q, E]
     const bf16_t* qb;       // [Q, d]
     const float* qn;        // [Q]
-    long long n0, n1;
 
-    __device__ int count(int x) const
+    __device__ unsigned char* state(int c) const { return smem + l.states + c * l.state; }
+    __device__ float* qs(int c) const { return reinterpret_cast<float*>(state(c) + l.qs); }
+    __device__ float* qnf(int c) const { return reinterpret_cast<float*>(state(c) + l.qn); }
+    __device__ bf16_t* qraw(int c) const { return reinterpret_cast<bf16_t*>(state(c) + l.qraw); }
+    __device__ int* ids(int c) const { return reinterpret_cast<int*>(state(c) + l.nodes); }
+    __device__ bf16_t* auxr(int c) const { return reinterpret_cast<bf16_t*>(state(c) + l.aux); }
+    __device__ int* slots(int c) const { return reinterpret_cast<int*>(state(c) + l.slots); }
+    __device__ void* bar(int b) const { return smem + l.bars + 8 * b; }
+    __device__ bool bulk() const { return g.unit == 16; }
+    __device__ bf16_t* buf(int p) const
     {
-        const long long a = n0 + (long long)x * g.P;
-        return a >= n1 ? 0 : (int)min((long long)g.P, n1 - a);
-    }
-    __device__ long long first(int x) const { return n0 + (long long)x * g.P; }
-    __device__ int* ids(int x) const
-    {
-        return reinterpret_cast<int*>(smem + l.nodes + (x % nbr_ring_nodes(LV)) * l.n_entry);
-    }
-    __device__ bf16_t* aux_rows(int x) const
-    {
-        return reinterpret_cast<bf16_t*>(smem + l.aux + (x % nbr_ring_aux(LV)) * l.a_entry);
-    }
-    __device__ bf16_t* q_raw(int x) const { return aux_rows(x) + (size_t)g.P * g.aux_elems; }
-    __device__ float* qn_raw(int x) const
-    {
-        return reinterpret_cast<float*>(q_raw(x) + g.qraw_elems);
-    }
-    __device__ int* slots(int x) const
-    {
-        return reinterpret_cast<int*>(smem + l.srow + (x % nbr_ring_slots(LV)) * l.s_entry);
-    }
-    __device__ float* q_f(int x) const { return reinterpret_cast<float*>(slots(x) + l.slot_ints); }
-    __device__ float* qn_f(int x) const { return q_f(x) + g.qp * g.d_pad; }
-    __device__ bf16_t* vec_rows(int x) const
-    {
-        return reinterpret_cast<bf16_t*>(smem + l.vec + (x % nbr_ring_vec(LV)) * l.v_entry);
+        return reinterpret_cast<bf16_t*>(smem + l.stage) +
+            (size_t)(p % g.nbuf) * g.pass * g.W * g.vec_elems;
     }
 
-    __device__ void issue_ids(int x) const
+    // Query q's node ids, raw row and norm into slot c.
+    __device__ void issue_query(long long q, int c) const
     {
-        copy_span<4>(ids(x), nodes + first(x), 4 * count(x));
+        copy_span<4>(ids(c), nodes + q * g.E, 4 * g.E);
+        copy_span_any(qraw(c), qb + q * g.d, 2 * g.d, g.q_unit);
+        copy_span<4>(qnf(c), qn + q, 4);
     }
 
-    // Aux rows, query rows and norms of pass x (its node ids landed).
-    __device__ void issue_aux(int x) const
+    // The aux rows of slot c's nodes (its ids landed).
+    __device__ void issue_aux(int c) const
     {
-        const int n = count(x);
-        if (n == 0) return;
-        const int* id = ids(x);
-        for (int i = 0; i < n; ++i) {
+        const int* id = ids(c);
+        for (int i = 0; i < g.E; ++i) {
             if (id[i] >= 0) {
-                copy_span_any(aux_rows(x) + (size_t)i * g.aux_elems, aux + id[i] * aux_stride,
+                copy_span_any(auxr(c) + (size_t)i * g.aux_elems, aux + id[i] * aux_stride,
                               2 * g.aux_len, g.unit);
             }
         }
-        const long long qa = first(x) / g.E;
-        const int nq = (int)((first(x) + n - 1) / g.E - qa) + 1;
-        copy_span_any(q_raw(x), qb + qa * g.d, 2 * nq * g.d, g.q_unit);
-        copy_span<4>(qn_raw(x), qn + qa, 4 * nq);
     }
 
-    // The slots of pass x from its aux rows, its query rows in float32.
-    __device__ void decode(int x) const
+    // Slot c's slots from its aux rows, its row in float32 (aux landed).
+    __device__ void decode(int c) const
     {
-        const int n = count(x);
-        if (n == 0) return;
-        const int* id = ids(x);
-        int* sl = slots(x);
-        for (int f = threadIdx.x; f < n * g.W; f += blockDim.x) {
+        const int* id = ids(c);
+        for (int f = threadIdx.x; f < g.E * g.W; f += blockDim.x) {
             const int i = f / g.W;
-            sl[f] = id[i] >= 0
-                ? decode_slot(aux_rows(x) + (size_t)i * g.aux_elems, g.W, f - i * g.W, g.ndig)
+            slots(c)[f] = id[i] >= 0
+                ? decode_slot(auxr(c) + (size_t)i * g.aux_elems, g.W, f - i * g.W, g.ndig)
                 : -1;
         }
-        const long long qa = first(x) / g.E;
-        const int nq = (int)((first(x) + n - 1) / g.E - qa) + 1;
-        const bf16_t* qr = q_raw(x);
-        float* qf = q_f(x);
-        for (int e = threadIdx.x; e < nq * g.d; e += blockDim.x) {
-            const int qi = e / g.d;
-            qf[qi * g.d_pad + (e - qi * g.d)] = to_f32(qr[e]);
-        }
-        for (int i = threadIdx.x; i < nq; i += blockDim.x) qn_f(x)[i] = qn_raw(x)[i];
+        for (int k = threadIdx.x; k < g.d; k += blockDim.x) qs(c)[k] = to_f32(qraw(c)[k]);
     }
 
-    // The live neighbours' vectors of pass x (its slots decoded): the
-    // 2 d / U chunks of a vector go to a group of 2^lanes_log2 threads.
+    // The live neighbours' vectors of pass p of slot c's nodes into buffer
+    // p % nbuf: the 2 d / U chunks of a vector go to a group of
+    // 2^lanes_log2 threads.
     template <int U>
-    __device__ void issue_vec_u(int x) const
+    __device__ void issue_pass_u(int c, int p) const
     {
-        const int n = count(x);
         const int chunks = 2 * g.d / U;
         const int lg = g.lanes_log2;
-        const int* id = ids(x);
-        const int* sl = slots(x);
-        for (int i = 0; i < n; ++i) {
+        const int i0 = p * g.pass;
+        const int i1 = min(g.E, i0 + g.pass);
+        const int* id = ids(c);
+        const int* sl = slots(c);
+        for (int i = i0; i < i1; ++i) {
             if (id[i] < 0) continue;
             const char* src = reinterpret_cast<const char*>(vecs + id[i] * vec_stride);
-            char* dst = reinterpret_cast<char*>(vec_rows(x) + (size_t)i * g.W * g.vec_elems);
+            char* dst = reinterpret_cast<char*>(buf(p) + (size_t)(i - i0) * g.W * g.vec_elems);
             for (int f = threadIdx.x; f < (g.W << lg); f += blockDim.x) {
                 const int j = f >> lg;
                 if (sl[i * g.W + j] < 0) continue;
-                for (int c = f & ((1 << lg) - 1); c < chunks; c += 1 << lg) {
-                    copy_unit<U>(dst + 2 * j * g.vec_elems + c * U, src + 2 * j * g.d + c * U);
+                for (int k = f & ((1 << lg) - 1); k < chunks; k += 1 << lg) {
+                    copy_unit<U>(dst + 2 * j * g.vec_elems + k * U, src + 2 * j * g.d + k * U);
                 }
             }
         }
     }
 
-    __device__ void issue_vec(int x) const
+    // The same with one bulk copy (TMA) a live vector, completing on the
+    // buffer's mbarrier: each warp adds the bytes it copies to the
+    // barrier's count and arrives, then issues its copies.
+    __device__ void issue_pass_bulk(int c, int p) const
     {
-        switch (g.unit) {
-            case 16: issue_vec_u<16>(x); break;
-            case 8: issue_vec_u<8>(x); break;
-            case 4: issue_vec_u<4>(x); break;
-            default: issue_vec_u<2>(x); break;
-        }
-    }
-
-    // Score pass x: emit(n, j, dist, slot) for each node n of the pass and
-    // neighbour j, (+inf, -1) for a -1 node or an empty entry.
-    template <typename Emit>
-    __device__ void score(int x, Emit& emit) const
-    {
-        const int n = count(x);
-        const long long qa = first(x) / g.E;
-        const int* sl = slots(x);
-        const bf16_t* ar = aux_rows(x);
-        const bf16_t* vr = vec_rows(x);
-        for (int f = threadIdx.x; f < n * g.W; f += blockDim.x) {
-            const int i = f / g.W;
-            const int j = f - i * g.W;
-            const long long node = first(x) + i;
-            const int slot = sl[f];
-            float dist = CUDART_INF_F;
-            if (slot >= 0) {
-                const int qo = (int)(node / g.E - qa);
-                dist = staged_dist(q_f(x) + qo * g.d_pad, qn_f(x)[qo],
-                                   vr + (size_t)f * g.vec_elems,
-                                   ar[(size_t)i * g.aux_elems + j], g.d);
+        const int i0 = p * g.pass;
+        const int i1 = min(g.E, i0 + g.pass);
+        const int* id = ids(c);
+        const int* sl = slots(c);
+        void* b = bar(p % g.nbuf);
+        unsigned bytes = 0;
+        for (int i = i0; i < i1; ++i) {
+            for (int j = threadIdx.x; j < g.W; j += blockDim.x) {
+                bytes += (id[i] >= 0 && sl[i * g.W + j] >= 0) ? 2u * g.d : 0u;
             }
-            emit(node, j, dist, slot);
+        }
+        bytes = __reduce_add_sync(0xFFFFFFFFu, bytes);
+        fence_async_smem();
+        if ((threadIdx.x & 31) == 0) mbar_arrive_expect(b, bytes);
+        __syncwarp();
+        for (int i = i0; i < i1; ++i) {
+            if (id[i] < 0) continue;
+            const bf16_t* src = vecs + id[i] * vec_stride;
+            bf16_t* dst = buf(p) + (size_t)(i - i0) * g.W * g.vec_elems;
+            for (int j = threadIdx.x; j < g.W; j += blockDim.x) {
+                if (sl[i * g.W + j] >= 0) {
+                    bulk_copy(dst + (size_t)j * g.vec_elems, src + (size_t)j * g.d, 2 * g.d, b);
+                }
+            }
         }
     }
 
-    // The whole range. hook(x) runs with each pass's aux copies (in their
-    // copy group); after(x) once pass x is scored, past a barrier, with
-    // the copies of the next passes in flight. Ends with no copy in flight.
-    template <typename Emit, typename Hook, typename After>
-    __device__ void run(Emit emit, Hook hook, After after) const
+    __device__ void issue_pass(int c, int p) const
     {
-        const int np = (int)((n1 - n0 + g.P - 1) / g.P);
-        for (int x = 0; x < LN; ++x) issue_ids(x);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        for (int x = 0; x < LA; ++x) {
-            issue_aux(x);
-            hook(x);
+        if (p * g.pass >= g.E) return;
+        if (bulk()) {
+            issue_pass_bulk(c, p);
+            return;
         }
+        switch (g.unit) {
+            case 16: issue_pass_u<16>(c, p); break;
+            case 8: issue_pass_u<8>(c, p); break;
+            case 4: issue_pass_u<4>(c, p); break;
+            default: issue_pass_u<2>(c, p); break;
+        }
+    }
+
+    // Every query of the block: emit(q, e, j, dist, slot) once for each
+    // expanded node e < E of query q and neighbour j < W, (+inf, -1) for a
+    // -1 node or an empty entry; then done(q), past a barrier, with the
+    // copies of the next query's first passes in flight. Ends with no copy
+    // in flight.
+    template <typename Emit, typename Done>
+    __device__ void run(long long Q, Emit emit, Done done) const
+    {
+        const long long step = gridDim.x;
+        long long q = blockIdx.x;
+        const int n_pass = (g.E + g.pass - 1) / g.pass;
+        unsigned phase = 0;                   // parity of each buffer's next wait
+        if (bulk() && threadIdx.x == 0) {
+            for (int i = 0; i < g.nbuf; ++i) mbar_init(bar(i), blockDim.x / 32);
+            asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        }
+        issue_query(q, 0);
         cp_async_commit();
         cp_async_wait<0>();
         __syncthreads();
-        for (int x = 0; x <= LV; ++x) decode(x);
+        issue_aux(0);
+        cp_async_commit();
+        cp_async_wait<0>();
         __syncthreads();
+        decode(0);
+        __syncthreads();
+        if (q + step < Q) issue_query(q + step, 1);
 #pragma unroll
-        for (int x = 0; x < LV; ++x) {
-            issue_vec(x);
+        for (int p = 0; p < NBUF - 1; ++p) {
+            issue_pass(0, p);
             cp_async_commit();
         }
-        for (int p = 0; p < np; ++p) {
-            issue_ids(p + LN);
-            issue_aux(p + LA);
-            hook(p + LA);
-            issue_vec(p + LV);
+        for (int c = 0; q < Q; q += step, c ^= 1) {
+            const bool more = q + step < Q;
+            for (int p = 0; p < n_pass; ++p) {
+                issue_pass(c, p + NBUF - 1);
+                cp_async_commit();
+                if (bulk()) {                 // pass p, and the next query's ids
+                    if (p == 0) cp_async_wait<0>();
+                    mbar_wait(bar(p % g.nbuf), (phase >> (p % g.nbuf)) & 1u);
+                    phase ^= 1u << (p % g.nbuf);
+                } else {
+                    cp_async_wait<NBUF - 1>();
+                }
+                __syncthreads();
+                if (p == 0 && more) issue_aux(c ^ 1);
+                const int i0 = p * g.pass;
+                const int np = min(g.E - i0, g.pass);
+                const bf16_t* b = buf(p);
+                const int* sl = slots(c);
+                for (int f = threadIdx.x; f < np * g.W; f += blockDim.x) {
+                    const int i = i0 + f / g.W;
+                    const int j = f - (f / g.W) * g.W;
+                    const int slot = sl[i * g.W + j];
+                    float dist = CUDART_INF_F;
+                    if (slot >= 0) {
+                        dist = staged_dist(qs(c), qnf(c)[0], b + (size_t)f * g.vec_elems,
+                                           auxr(c)[(size_t)i * g.aux_elems + j], g.d);
+                    }
+                    emit(q, i, j, dist, slot);
+                }
+                __syncthreads();              // buffer p % nbuf is free again
+            }
             cp_async_commit();
-            cp_async_wait<LV>();          // pass p's vectors and what the next steps read
+            cp_async_wait<0>();               // the next query's aux rows landed
             __syncthreads();
-            decode(p + LV + 1);
-            score(p, emit);
-            __syncthreads();
-            after(p);
+            if (more) {
+                decode(c ^ 1);
+                __syncthreads();
+                if (q + 2 * step < Q) issue_query(q + 2 * step, c);
+#pragma unroll
+                for (int p = 0; p < NBUF - 1; ++p) {
+                    issue_pass(c ^ 1, p);
+                    cp_async_commit();
+                }
+            }
+            done(q);
         }
         cp_async_wait<0>();
     }

@@ -34,22 +34,23 @@ from comet_tpu_torch.ops import _build  # noqa: E402
 from comet_tpu_torch.ops import beam_kernel as bk  # noqa: E402
 from comet_tpu_torch.ops.edge_cases import k4_case  # noqa: E402
 
-# name: (scoring threads, min blocks, vector passes in flight, ring bytes;
-#        K5 threads, min blocks, vector passes in flight, ring bytes)
+# name: (scoring threads, min blocks, ring, stage bytes;
+#        K5 threads, min blocks, ring, stage bytes)
+NO_BULK = [("__device__ bool bulk() const { return g.unit == 16; }",
+            "__device__ bool bulk() const { return false; }")]
 VARIANTS = {
-    "v1": ((128, 4, 2, 66 * 1024), (128, 4, 2, 32 * 1024)),
-    "v2": ((128, 4, 1, 40 * 1024), (128, 4, 1, 22 * 1024)),
-    "v3": ((128, 4, 3, 40 * 1024), (128, 4, 3, 40 * 1024)),
-    "v4": ((256, 3, 2, 66 * 1024), (256, 3, 2, 32 * 1024)),
-    "v5": ((128, 4, 2, 32 * 1024), (128, 4, 2, 58 * 1024)),
-    "v6": ((128, 5, 4, 48 * 1024), (128, 5, 1, 40 * 1024)),
-    "v7": ((64, 8, 2, 32 * 1024), (64, 8, 2, 32 * 1024)),
+    "z1": ((256, 3, 2, 52 * 1024), (128, 4, 2, 35 * 1024), []),
+    "z2": ((256, 3, 2, 52 * 1024), (128, 4, 2, 35 * 1024), NO_BULK),
+    "z3": ((256, 3, 3, 52 * 1024), (128, 4, 3, 26 * 1024), []),
+    "z4": ((128, 4, 2, 35 * 1024), (128, 5, 2, 26 * 1024), []),
+    "z5": ((256, 2, 2, 70 * 1024), (256, 3, 2, 52 * 1024), []),
+    "z6": ((128, 6, 2, 26 * 1024), (64, 8, 2, 17 * 1024), []),
 }
 SOURCES = ("gather_score.cu", "fused_expand.cu", "beam_merge.cu")
 
 
 def rewrite(text, name, value):
-    new, n = re.subn(rf"(constexpr (?:int|size_t) {name} = )[^;]+;", rf"\g<1>{value};", text)
+    new, n = re.subn(rf"(constexpr (?:int|size_t|bool) {name} = )[^;]+;", rf"\g<1>{value};", text)
     if n != 1:
         raise RuntimeError(f"{name} not found once")
     return new
@@ -58,18 +59,25 @@ def rewrite(text, name, value):
 def build_all():
     nvcc = _build.find_nvcc()
     jobs = {}
-    for name, (sc, k5) in VARIANTS.items():
+    for name, (sc, k5, patches) in VARIANTS.items():
         src = os.path.join(ROOT, "build", "variants", name)
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(_build.CSRC_DIR, src)
         p = os.path.join(src, "gather_score.cu")
         t = open(p).read()
-        for key, v in zip(("THREADS", "MIN_BLOCKS", "LV", "RING_BYTES"), sc):
+        for key, v in zip(("THREADS", "MIN_BLOCKS", "NBUF", "STAGE_BYTES"), sc):
             t = rewrite(t, f"SCORE_{key}", v)
+        open(p, "w").write(t)
+        p = os.path.join(src, "neighbour_score.cuh")
+        t = open(p).read()
+        for old, new in patches:
+            if t.count(old) != 1:
+                raise RuntimeError(f"patch not found once: {old}")
+            t = t.replace(old, new)
         open(p, "w").write(t)
         p = os.path.join(src, "fused_expand.cu")
         t = open(p).read()
-        for key, v in zip(("THREADS", "MIN_BLOCKS", "LV", "RING_BYTES"), k5):
+        for key, v in zip(("THREADS", "MIN_BLOCKS", "NBUF", "STAGE_BYTES"), k5):
             t = rewrite(t, f"K5_{key}", v)
         open(p, "w").write(t)
         objs = [os.path.join(src, f + ".o") for f in SOURCES]
@@ -87,7 +95,7 @@ def build_all():
                        capture_output=True)
         regs = [ln.strip() for ln in "".join(logs).splitlines()
                 if "Used" in ln and "registers" in ln]
-        print(f"{name}: {VARIANTS[name]}; ptxas: {regs}")
+        print(f"{name}: {VARIANTS[name][:2]}, {len(VARIANTS[name][2])} patches; ptxas: {regs}")
         lib = ctypes.CDLL(so)
         for fn, argtypes in _build.SIGNATURES.items():
             if hasattr(lib, fn):
@@ -155,9 +163,10 @@ def main():
             gs = bk._gather_score_cuda(*sb)
             gp = bk._gather_score_cuda(*sp)
             torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, want_k5)):
+            probe = bool(VARIANTS[name][2])
+            if not probe and not all(torch.equal(a, b) for a, b in zip(got, want_k5)):
                 raise AssertionError(f"{name}: K5 differs from its plain version")
-            if not all(torch.equal(a, b) and torch.equal(a, c)
+            if not probe and not all(torch.equal(a, b) and torch.equal(a, c)
                        for a, b, c in zip(gs[:2], want_sb[:2], gp[:2])):
                 raise AssertionError(f"{name}: the scoring kernel differs from its plain version")
             us_k5 = cs.device_us(lambda: bk._fused_expand_cuda(*k5), ("fused_expand",))[0]
@@ -171,6 +180,17 @@ def main():
                   f"{ms_k5:.4f} ms, blocked scoring {ms_sb:.4f} ms, split pair {ms_pair:.4f} ms "
                   f"[{card}]", flush=True)
 
+
+    # the same kernel with every node among the first rows of the table:
+    # how much the span of the rows read costs
+    for name in names[:1]:
+        _build._lib = libs[name]
+        for span in (1 << 20, 1 << 14):
+            near = torch.where(nodes >= 0, nodes % span, nodes)
+            args = (qb, qn, nbr_vecs, aux, near, None, inf, False)
+            us = cs.device_us(lambda: bk._gather_score_cuda(*args), ("gather_score",))[0]
+            print(f"{name} blocked scoring, nodes among the first {span} rows "
+                  f"({span * 8448 / 2**20:.0f} MiB of rows): device {us:.1f} us [{card}]")
 
 if __name__ == "__main__":
     main()
