@@ -35,19 +35,19 @@
 // iteration, 41 us at 3.35 TB/s, against 2 d operations per candidate (134
 // MFLOP, 2 us at 67 TFLOP/s): bytes bound it. So the rows are staged
 // (neighbour_score.cuh): each expanded node's row comes into shared memory
-// by coalesced asynchronous copies, and one thread a candidate runs the FMA
-// chain from shared memory. The kernel is persistent, as many blocks as
-// fit on the card, each walking queries blockIdx.x + k gridDim.x: while a
-// query's rows are copied and scored, the next query's node ids, aux rows
-// and row are fetched, so a block's reads never wait on that chain of
-// dependent loads (the lead-in that a block a query paid, with the copies
-// of every block on an SM in step, took about 20 of its 64 us).
+// by coalesced asynchronous copies, the first passes of a block in flight
+// before the first is scored, and one thread a candidate runs the FMA
+// chain from shared memory. A block takes SCORE_CANDIDATES / (E W)
+// queries (at least one, at most SCORE_MAX_Q) and stages at most
+// SCORE_STAGE_BYTES in a ring of SCORE_NBUF buffers.
 
 #define SENT_SLOT 2147483647
 #include "neighbour_score.cuh"
 
 constexpr int SCORE_THREADS = 256;
-constexpr int SCORE_MIN_BLOCKS = 3;          // blocks an SM
+constexpr int SCORE_MIN_BLOCKS = 4;          // blocks an SM
+constexpr int SCORE_CANDIDATES = 256;        // candidates a block, at least one query
+constexpr int SCORE_MAX_Q = 8;
 constexpr int SCORE_NBUF = 2;
 constexpr size_t SCORE_STAGE_BYTES = 52 * 1024;
 
@@ -60,25 +60,17 @@ __global__ void __launch_bounds__(SCORE_THREADS, SCORE_MIN_BLOCKS) gather_score_
     NbrGeom g)
 {
     extern __shared__ __align__(16) unsigned char smem[];
-    NbrWalk<SCORE_NBUF> w;
-    w.g = g;
-    w.l = nbr_layout(g, 0);
-    w.smem = smem;
-    w.vecs = vecs;
-    w.aux = aux;
-    w.vec_stride = vec_stride;
-    w.aux_stride = aux_stride;
-    w.nodes = nodes;
-    w.qb = qb;
-    w.qn = qn;
-    const int E = g.E;
-    const int W = g.W;
-    w.run(Q, [&](long long q, int e, int j, float dist, int slot) {
-        const long long t = (q * E + e) * W + j;
-        nd[t] = dist;
-        ns[t] = slot >= 0 ? slot : SENT_SLOT;
-        if (fused) adm[t] = (slot >= 0 && allowed[slot] && dist <= thr) ? 1 : 0;
-    }, [](long long) {});
+    const long long q0 = (long long)blockIdx.x * g.n_q;
+    const int n_q = (int)min((long long)g.n_q, Q - q0);
+    const long long t0 = q0 * g.E * g.W;
+    score_neighbours<SCORE_NBUF>(
+        g, smem, 0, vecs, aux, vec_stride, aux_stride, nodes + q0 * g.E, n_q, qb + q0 * g.d,
+        qn + q0, [&](int i, int j, float dist, int slot) {
+            const long long t = t0 + (long long)i * g.W + j;
+            nd[t] = dist;
+            ns[t] = slot >= 0 ? slot : SENT_SLOT;
+            if (fused) adm[t] = (slot >= 0 && allowed[slot] && dist <= thr) ? 1 : 0;
+        });
 }
 
 // qb [Q, d] bf16, qn [Q] f32, vecs / aux the row tables (see above, strides
@@ -93,18 +85,14 @@ extern "C" int comet_gather_score(
     if (Q < 1 || E < 1 || W < 1 || d < 1 || ndig < 1 || vec_stride < (long long)W * d ||
         aux_stride < (long long)(1 + ndig) * W)
         return (int)cudaErrorInvalidValue;
-    const NbrGeom g = nbr_geom(W, d, ndig, E, SCORE_STAGE_BYTES, SCORE_NBUF, vecs, aux,
-                               vec_stride, aux_stride, qb);
+    const int n_q = max(1, min(SCORE_MAX_Q, SCORE_CANDIDATES / (E * W)));
+    const NbrGeom g = nbr_geom(W, d, ndig, E, n_q, SCORE_STAGE_BYTES, SCORE_NBUF, vecs, aux,
+                               vec_stride, aux_stride);
     const size_t smem = nbr_layout(g, 0).end;
     static size_t raised = 0;
-    static long long cache[3] = {0, 0, 0};
-    int grid = 0;
-    int err = nbr_smem_attr((const void*)gather_score_kernel, smem, &raised);
-    if (err == 0) {
-        err = nbr_grid((const void*)gather_score_kernel, SCORE_THREADS, smem, Q, cache, &grid);
-    }
-    if (err != 0) return err;
-    gather_score_kernel<<<grid, SCORE_THREADS, smem, (cudaStream_t)stream>>>(
+    const int attr = nbr_smem_attr((const void*)gather_score_kernel, smem, &raised);
+    if (attr != 0) return attr;
+    gather_score_kernel<<<(Q + n_q - 1) / n_q, SCORE_THREADS, smem, (cudaStream_t)stream>>>(
         (const bf16_t*)qb, qn, (const bf16_t*)vecs, (const bf16_t*)aux, vec_stride, aux_stride,
         nodes, allowed, thr, Q, fused, nd, ns, adm, g);
     return (int)cudaGetLastError();

@@ -12,10 +12,7 @@
 // nodes of each of the block's n_q queries, -1 for none) in three steps:
 //   1. the queries, converted once to float32, and the nodes' aux rows go
 //      to shared memory; the aux rows come by asynchronous copies, and the
-//      slots are decoded from them (-1: no node or an empty entry); with
-//      `prefetch`, the live neighbours' vectors of the nodes past the first
-//      passes are then asked into L2, so the whole query's rows are on
-//      their way while only a few passes occupy shared memory;
+//      slots are decoded from them (-1: no node or an empty entry);
 //   2. the live neighbours' vectors are staged in passes of `pass` nodes
 //      through a ring of NBUF buffers: the copies of the next NBUF - 1
 //      passes are in flight while the current one is scored. A row is
@@ -40,9 +37,9 @@
 
 struct NbrGeom {
     int W, d, ndig, E;
+    int n_q;          // queries a block
     int d_pad;        // float32 elements a staged query row (d rounded up to 4)
-    int unit;         // bytes a copy of the routing rows: 16, 8, 4 or 2
-    int q_unit;       // bytes a copy of a query row
+    int unit;         // bytes a copy: 16, 8, 4 or 2
     int lanes_log2;   // log2 of the threads that copy one neighbour vector
     int vec_elems;    // bf16 elements a staged neighbour vector
     int aux_len;      // bf16 elements an aux row, (1 + ndig) W
@@ -51,93 +48,61 @@ struct NbrGeom {
     int nbuf;         // staging buffers in use (fewer when fewer passes)
 };
 
-__host__ __device__ __forceinline__ size_t nbr_align16(size_t n) { return (n + 15) & ~(size_t)15; }
-
-// One query's state (two of them: the query scored and the next one):
-// its float32 row, norm, raw bf16 row, node ids, aux rows and slots.
+// Byte offsets of the regions: query rows, query norms, nodes, slots, aux
+// rows, then the staging buffers (last, so a caller may reuse them).
 struct NbrLayout {
-    size_t qs, qn, qraw, nodes, aux, slots, state;   // offsets within a state
-    size_t states, bars, stage, end;                // offsets from smem
+    size_t qs, qn, nodes, slots, aux, stage, end;
 };
+
+__host__ __device__ __forceinline__ size_t nbr_align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
 __host__ __device__ __forceinline__ NbrLayout nbr_layout(const NbrGeom& g, size_t base)
 {
+    const int n_nodes = g.n_q * g.E;
     NbrLayout l;
-    l.qs = 0;
-    l.qn = l.qs + nbr_align16(sizeof(float) * (size_t)g.d_pad);
-    l.qraw = l.qn + 16;
-    l.nodes = l.qraw + nbr_align16(2 * (size_t)g.d);
-    l.aux = l.nodes + nbr_align16(sizeof(int) * (size_t)g.E);
-    l.slots = l.aux + 2 * (size_t)g.E * g.aux_elems;
-    l.state = l.slots + nbr_align16(sizeof(int) * (size_t)g.E * g.W);
-    l.states = nbr_align16(base);
-    l.bars = l.states + 2 * l.state;
-    l.stage = l.bars + 8 * 4;
+    l.qs = nbr_align16(base);
+    l.qn = l.qs + nbr_align16(sizeof(float) * (size_t)g.n_q * g.d_pad);
+    l.nodes = l.qn + nbr_align16(sizeof(float) * (size_t)g.n_q);
+    l.slots = l.nodes + nbr_align16(sizeof(int) * (size_t)n_nodes);
+    l.aux = l.slots + nbr_align16(sizeof(int) * (size_t)n_nodes * g.W);
+    l.stage = l.aux + 2 * (size_t)n_nodes * g.aux_elems;
     l.end = l.stage + 2 * (size_t)g.nbuf * g.pass * g.W * g.vec_elems;
     return l;
 }
 
-static inline int nbr_unit(unsigned long long m)
-{
-    int u = 16;
-    while (u > 2 && m % u != 0) u >>= 1;
-    return u;
-}
-
-// The geometry of E expanded nodes a query, with at most `stage_bytes` in
-// a ring of nbuf staging buffers (at least one node a pass).
-static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, size_t stage_bytes, int nbuf,
-                               const void* vecs, const void* aux, long long vec_stride,
-                               long long aux_stride, const void* qb)
+// The geometry of a block of n_q queries of E expanded nodes each, with at
+// most `stage_bytes` in a ring of nbuf staging buffers (at least one node a
+// pass).
+static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, int n_q, size_t stage_bytes,
+                               int nbuf, const void* vecs, const void* aux,
+                               long long vec_stride, long long aux_stride)
 {
     NbrGeom g;
     g.W = W;
     g.d = d;
     g.ndig = ndig;
     g.E = E;
+    g.n_q = n_q;
     g.d_pad = (d + 3) & ~3;
     g.aux_len = (1 + ndig) * W;
     g.aux_elems = (g.aux_len + 7) & ~7;
-    g.unit = nbr_unit((unsigned long long)vecs | (unsigned long long)aux |
-                      (unsigned long long)(2 * vec_stride) |
-                      (unsigned long long)(2 * aux_stride) | (unsigned long long)(2 * d) |
-                      (unsigned long long)(2 * g.aux_len));
-    g.q_unit = nbr_unit((unsigned long long)qb | (unsigned long long)(2 * d));
+    const unsigned long long m = (unsigned long long)vecs | (unsigned long long)aux |
+        (unsigned long long)(2 * vec_stride) | (unsigned long long)(2 * aux_stride) |
+        (unsigned long long)(2 * d) | (unsigned long long)(2 * g.aux_len);
+    g.unit = 16;
+    while (g.unit > 2 && m % g.unit != 0) g.unit >>= 1;
     const int chunks = 2 * d / g.unit;
     g.lanes_log2 = 0;
     while (g.lanes_log2 < 5 && (1 << g.lanes_log2) < chunks) ++g.lanes_log2;
     g.vec_elems = (((2 * d + 15) / 16) | 1) * 8;
     const size_t node_bytes = 2 * (size_t)W * g.vec_elems;
+    const int n_nodes = n_q * E;
     g.pass = (int)(stage_bytes / (nbuf * node_bytes));
     if (g.pass < 1) g.pass = 1;
-    if (g.pass > E) g.pass = E;
-    const int n_pass = (E + g.pass - 1) / g.pass;
-    g.nbuf = n_pass < nbuf ? n_pass : nbuf;    // at most 4 (the mbarrier slots)
+    if (g.pass > n_nodes) g.pass = n_nodes;
+    const int n_pass = (n_nodes + g.pass - 1) / g.pass;
+    g.nbuf = n_pass < nbuf ? n_pass : nbuf;
     return g;
-}
-
-// Blocks of `threads` threads with `smem` bytes that fit on the card at
-// once, at most `work`: the grid of a persistent kernel. Returns a CUDA
-// error code; cache keeps (smem, blocks an SM, SMs) of the last call.
-static inline int nbr_grid(const void* kernel, int threads, size_t smem, long long work,
-                           long long cache[3], int* grid)
-{
-    if (cache[0] != (long long)smem || cache[2] == 0) {
-        int dev = 0, sms = 0, per_sm = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (err == cudaSuccess)
-            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-        if (err != cudaSuccess) return (int)err;
-        if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-        cache[0] = (long long)smem;
-        cache[1] = per_sm;
-        cache[2] = sms;
-    }
-    const long long n = cache[1] * cache[2];
-    *grid = (int)(work < n ? work : n);
-    return 0;
 }
 
 // Let `kernel` take `smem` bytes of dynamic shared memory: past the
@@ -229,47 +194,6 @@ __device__ __forceinline__ void cp_async_wait()
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// mbarriers (shared memory, 8 bytes each) and the 1-D bulk copy (TMA)
-// that completes on one.
-__device__ __forceinline__ unsigned smem_addr(const void* p)
-{
-    return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(void* bar, unsigned count)
-{
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect(void* bar, unsigned bytes)
-{
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(void* bar, unsigned parity)
-{
-    unsigned done = 0;
-    while (!done) {
-        asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     " selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-    }
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, void* bar)
-{
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                 "[%0], [%1], %2, [%3];\n"
-                 ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void fence_async_smem()
-{
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // Copy `bytes` (a multiple of U) from device memory to shared memory, the
 // U-byte pieces spread over the block.
 template <int U>
@@ -291,221 +215,139 @@ __device__ __forceinline__ void copy_span_any(void* dst, const void* src, int by
 }
 
 
-// One block's walk over the queries blockIdx.x, blockIdx.x + gridDim.x, ...
-// (module comment): the state of the query scored and of the next one, in
-// two slots, and the ring of staging buffers.
-template <int NBUF>
-struct NbrWalk {
-    static_assert(NBUF >= 1 && NBUF <= 4, "one mbarrier slot a buffer, four slots");
-    NbrGeom g;
-    NbrLayout l;
-    unsigned char* smem;
-    const bf16_t* vecs;
-    const bf16_t* aux;
-    long long vec_stride, aux_stride;
-    const int* nodes;       // [Q, E]
-    const bf16_t* qb;       // [Q, d]
-    const float* qn;        // [Q]
-
-    __device__ unsigned char* state(int c) const { return smem + l.states + c * l.state; }
-    __device__ float* qs(int c) const { return reinterpret_cast<float*>(state(c) + l.qs); }
-    __device__ float* qnf(int c) const { return reinterpret_cast<float*>(state(c) + l.qn); }
-    __device__ bf16_t* qraw(int c) const { return reinterpret_cast<bf16_t*>(state(c) + l.qraw); }
-    __device__ int* ids(int c) const { return reinterpret_cast<int*>(state(c) + l.nodes); }
-    __device__ bf16_t* auxr(int c) const { return reinterpret_cast<bf16_t*>(state(c) + l.aux); }
-    __device__ int* slots(int c) const { return reinterpret_cast<int*>(state(c) + l.slots); }
-    __device__ void* bar(int b) const { return smem + l.bars + 8 * b; }
-    __device__ bool bulk() const { return g.unit == 16; }
-    __device__ bf16_t* buf(int p) const
-    {
-        return reinterpret_cast<bf16_t*>(smem + l.stage) +
-            (size_t)(p % g.nbuf) * g.pass * g.W * g.vec_elems;
-    }
-
-    // Query q's node ids, raw row and norm into slot c.
-    __device__ void issue_query(long long q, int c) const
-    {
-        copy_span<4>(ids(c), nodes + q * g.E, 4 * g.E);
-        copy_span_any(qraw(c), qb + q * g.d, 2 * g.d, g.q_unit);
-        copy_span<4>(qnf(c), qn + q, 4);
-    }
-
-    // The aux rows of slot c's nodes (its ids landed).
-    __device__ void issue_aux(int c) const
-    {
-        const int* id = ids(c);
-        for (int i = 0; i < g.E; ++i) {
-            if (id[i] >= 0) {
-                copy_span_any(auxr(c) + (size_t)i * g.aux_elems, aux + id[i] * aux_stride,
-                              2 * g.aux_len, g.unit);
-            }
-        }
-    }
-
-    // Slot c's slots from its aux rows, its row in float32 (aux landed).
-    __device__ void decode(int c) const
-    {
-        const int* id = ids(c);
-        for (int f = threadIdx.x; f < g.E * g.W; f += blockDim.x) {
-            const int i = f / g.W;
-            slots(c)[f] = id[i] >= 0
-                ? decode_slot(auxr(c) + (size_t)i * g.aux_elems, g.W, f - i * g.W, g.ndig)
-                : -1;
-        }
-        for (int k = threadIdx.x; k < g.d; k += blockDim.x) qs(c)[k] = to_f32(qraw(c)[k]);
-    }
-
-    // The live neighbours' vectors of pass p of slot c's nodes into buffer
-    // p % nbuf: the 2 d / U chunks of a vector go to a group of
-    // 2^lanes_log2 threads.
-    template <int U>
-    __device__ void issue_pass_u(int c, int p) const
-    {
-        const int chunks = 2 * g.d / U;
-        const int lg = g.lanes_log2;
-        const int i0 = p * g.pass;
-        const int i1 = min(g.E, i0 + g.pass);
-        const int* id = ids(c);
-        const int* sl = slots(c);
-        for (int i = i0; i < i1; ++i) {
-            if (id[i] < 0) continue;
-            const char* src = reinterpret_cast<const char*>(vecs + id[i] * vec_stride);
-            char* dst = reinterpret_cast<char*>(buf(p) + (size_t)(i - i0) * g.W * g.vec_elems);
-            for (int f = threadIdx.x; f < (g.W << lg); f += blockDim.x) {
-                const int j = f >> lg;
-                if (sl[i * g.W + j] < 0) continue;
-                for (int k = f & ((1 << lg) - 1); k < chunks; k += 1 << lg) {
-                    copy_unit<U>(dst + 2 * j * g.vec_elems + k * U, src + 2 * j * g.d + k * U);
-                }
-            }
-        }
-    }
-
-    // The same with one bulk copy (TMA) a live vector, completing on the
-    // buffer's mbarrier: each warp adds the bytes it copies to the
-    // barrier's count and arrives, then issues its copies.
-    __device__ void issue_pass_bulk(int c, int p) const
-    {
-        const int i0 = p * g.pass;
-        const int i1 = min(g.E, i0 + g.pass);
-        const int* id = ids(c);
-        const int* sl = slots(c);
-        void* b = bar(p % g.nbuf);
-        unsigned bytes = 0;
-        for (int i = i0; i < i1; ++i) {
-            for (int j = threadIdx.x; j < g.W; j += blockDim.x) {
-                bytes += (id[i] >= 0 && sl[i * g.W + j] >= 0) ? 2u * g.d : 0u;
-            }
-        }
-        bytes = __reduce_add_sync(0xFFFFFFFFu, bytes);
-        fence_async_smem();
-        if ((threadIdx.x & 31) == 0) mbar_arrive_expect(b, bytes);
-        __syncwarp();
-        for (int i = i0; i < i1; ++i) {
-            if (id[i] < 0) continue;
-            const bf16_t* src = vecs + id[i] * vec_stride;
-            bf16_t* dst = buf(p) + (size_t)(i - i0) * g.W * g.vec_elems;
-            for (int j = threadIdx.x; j < g.W; j += blockDim.x) {
-                if (sl[i * g.W + j] >= 0) {
-                    bulk_copy(dst + (size_t)j * g.vec_elems, src + (size_t)j * g.d, 2 * g.d, b);
-                }
-            }
-        }
-    }
-
-    __device__ void issue_pass(int c, int p) const
-    {
-        if (p * g.pass >= g.E) return;
-        if (bulk()) {
-            issue_pass_bulk(c, p);
-            return;
-        }
-        switch (g.unit) {
-            case 16: issue_pass_u<16>(c, p); break;
-            case 8: issue_pass_u<8>(c, p); break;
-            case 4: issue_pass_u<4>(c, p); break;
-            default: issue_pass_u<2>(c, p); break;
-        }
-    }
-
-    // Every query of the block: emit(q, e, j, dist, slot) once for each
-    // expanded node e < E of query q and neighbour j < W, (+inf, -1) for a
-    // -1 node or an empty entry; then done(q), past a barrier, with the
-    // copies of the next query's first passes in flight. Ends with no copy
-    // in flight.
-    template <typename Emit, typename Done>
-    __device__ void run(long long Q, Emit emit, Done done) const
-    {
-        const long long step = gridDim.x;
-        long long q = blockIdx.x;
-        const int n_pass = (g.E + g.pass - 1) / g.pass;
-        unsigned phase = 0;                   // parity of each buffer's next wait
-        if (bulk() && threadIdx.x == 0) {
-            for (int i = 0; i < g.nbuf; ++i) mbar_init(bar(i), blockDim.x / 32);
-            asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        }
-        issue_query(q, 0);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        issue_aux(0);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        decode(0);
-        __syncthreads();
-        if (q + step < Q) issue_query(q + step, 1);
-#pragma unroll
-        for (int p = 0; p < NBUF - 1; ++p) {
-            issue_pass(0, p);
-            cp_async_commit();
-        }
-        for (int c = 0; q < Q; q += step, c ^= 1) {
-            const bool more = q + step < Q;
-            for (int p = 0; p < n_pass; ++p) {
-                issue_pass(c, p + NBUF - 1);
-                cp_async_commit();
-                if (bulk()) {                 // pass p, and the next query's ids
-                    if (p == 0) cp_async_wait<0>();
-                    mbar_wait(bar(p % g.nbuf), (phase >> (p % g.nbuf)) & 1u);
-                    phase ^= 1u << (p % g.nbuf);
-                } else {
-                    cp_async_wait<NBUF - 1>();
-                }
-                __syncthreads();
-                if (p == 0 && more) issue_aux(c ^ 1);
-                const int i0 = p * g.pass;
-                const int np = min(g.E - i0, g.pass);
-                const bf16_t* b = buf(p);
-                const int* sl = slots(c);
-                for (int f = threadIdx.x; f < np * g.W; f += blockDim.x) {
-                    const int i = i0 + f / g.W;
-                    const int j = f - (f / g.W) * g.W;
-                    const int slot = sl[i * g.W + j];
-                    float dist = CUDART_INF_F;
-                    if (slot >= 0) {
-                        dist = staged_dist(qs(c), qnf(c)[0], b + (size_t)f * g.vec_elems,
-                                           auxr(c)[(size_t)i * g.aux_elems + j], g.d);
-                    }
-                    emit(q, i, j, dist, slot);
-                }
-                __syncthreads();              // buffer p % nbuf is free again
-            }
-            cp_async_commit();
-            cp_async_wait<0>();               // the next query's aux rows landed
-            __syncthreads();
-            if (more) {
-                decode(c ^ 1);
-                __syncthreads();
-                if (q + 2 * step < Q) issue_query(q + 2 * step, c);
-#pragma unroll
-                for (int p = 0; p < NBUF - 1; ++p) {
-                    issue_pass(c ^ 1, p);
-                    cp_async_commit();
-                }
-            }
-            done(q);
-        }
-        cp_async_wait<0>();
-    }
+struct NbrSmem {
+    float* qs;
+    float* qn;
+    int* nodes;
+    int* slots;
+    bf16_t* aux;
+    bf16_t* stage;
 };
+
+__device__ __forceinline__ NbrSmem nbr_smem(unsigned char* smem, const NbrGeom& g, size_t base)
+{
+    const NbrLayout l = nbr_layout(g, base);
+    NbrSmem s;
+    s.qs = reinterpret_cast<float*>(smem + l.qs);
+    s.qn = reinterpret_cast<float*>(smem + l.qn);
+    s.nodes = reinterpret_cast<int*>(smem + l.nodes);
+    s.slots = reinterpret_cast<int*>(smem + l.slots);
+    s.aux = reinterpret_cast<bf16_t*>(smem + l.aux);
+    s.stage = reinterpret_cast<bf16_t*>(smem + l.stage);
+    return s;
+}
+
+// The live neighbour vectors of pass p's nodes into buffer p % nbuf: the
+// 2 d / U chunks of a vector go to a group of 2^lanes_log2 threads.
+template <int U>
+__device__ __forceinline__ void issue_pass(const NbrGeom& g, const NbrSmem& s,
+                                           const bf16_t* __restrict__ vecs, long long vec_stride,
+                                           int n_nodes, int p)
+{
+    const int chunks = 2 * g.d / U;
+    const int lg = g.lanes_log2;
+    const int i0 = p * g.pass;
+    const int i1 = min(n_nodes, i0 + g.pass);
+    bf16_t* buf = s.stage + (size_t)(p % g.nbuf) * g.pass * g.W * g.vec_elems;
+    for (int i = i0; i < i1; ++i) {
+        const int node = s.nodes[i];
+        if (node < 0) continue;
+        const char* src = reinterpret_cast<const char*>(vecs + node * vec_stride);
+        char* dst = reinterpret_cast<char*>(buf + (size_t)(i - i0) * g.W * g.vec_elems);
+        for (int f = threadIdx.x; f < (g.W << lg); f += blockDim.x) {
+            const int j = f >> lg;
+            if (s.slots[i * g.W + j] < 0) continue;
+            for (int c = f & ((1 << lg) - 1); c < chunks; c += 1 << lg) {
+                copy_unit<U>(dst + 2 * j * g.vec_elems + c * U, src + 2 * j * g.d + c * U);
+            }
+        }
+    }
+}
+
+__device__ __forceinline__ void issue_pass_any(const NbrGeom& g, const NbrSmem& s,
+                                               const bf16_t* vecs, long long vec_stride, int n,
+                                               int p)
+{
+    switch (g.unit) {
+        case 16: issue_pass<16>(g, s, vecs, vec_stride, n, p); break;
+        case 8: issue_pass<8>(g, s, vecs, vec_stride, n, p); break;
+        case 4: issue_pass<4>(g, s, vecs, vec_stride, n, p); break;
+        default: issue_pass<2>(g, s, vecs, vec_stride, n, p); break;
+    }
+}
+
+// Score every neighbour of the block's nodes: node i < n_q E of the block
+// is nodes[i] (query i / E, whose bf16 row is qb[i / E] and norm qn[i /
+// E]); calls emit(i, j, dist, slot) once for each neighbour j < W, with
+// (+inf, -1) for a -1 node or an empty entry, in the order of i W + j
+// within a pass across the threads. The staging starts at byte `base` of
+// smem (nbr_layout); NBUF is the ring depth g was made for. Ends with a
+// barrier after the last read of the staging buffers, with no copy in
+// flight.
+template <int NBUF, typename Emit>
+__device__ __forceinline__ void score_neighbours(
+    const NbrGeom& g, unsigned char* smem, size_t base,
+    const bf16_t* __restrict__ vecs, const bf16_t* __restrict__ aux,
+    long long vec_stride, long long aux_stride,
+    const int* __restrict__ nodes, int n_q, const bf16_t* __restrict__ qb,
+    const float* __restrict__ qn, Emit emit)
+{
+    const NbrSmem s = nbr_smem(smem, g, base);
+    const int tid = threadIdx.x;
+    const int n_nodes = n_q * g.E;
+    for (int i = tid; i < n_nodes; i += blockDim.x) s.nodes[i] = nodes[i];
+    for (int e = tid; e < n_q * g.d; e += blockDim.x) {
+        const int qi = e / g.d;
+        s.qs[qi * g.d_pad + (e - qi * g.d)] = to_f32(qb[e]);
+    }
+    if (tid < n_q) s.qn[tid] = qn[tid];
+    __syncthreads();
+    for (int i = 0; i < n_nodes; ++i) {
+        if (s.nodes[i] >= 0) {
+            copy_span_any(s.aux + (size_t)i * g.aux_elems, aux + s.nodes[i] * aux_stride,
+                          2 * g.aux_len, g.unit);
+        }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int f = tid; f < n_nodes * g.W; f += blockDim.x) {
+        const int i = f / g.W;
+        const int j = f - i * g.W;
+        s.slots[f] = s.nodes[i] >= 0
+            ? decode_slot(s.aux + (size_t)i * g.aux_elems, g.W, j, g.ndig) : -1;
+    }
+    __syncthreads();
+
+    const int n_pass = (n_nodes + g.pass - 1) / g.pass;
+#pragma unroll
+    for (int p = 0; p < NBUF - 1; ++p) {
+        issue_pass_any(g, s, vecs, vec_stride, n_nodes, p);
+        cp_async_commit();
+    }
+    for (int p = 0; p < n_pass; ++p) {
+        issue_pass_any(g, s, vecs, vec_stride, n_nodes, p + NBUF - 1);
+        cp_async_commit();
+        cp_async_wait<NBUF - 1>();        // pass p has landed, later ones may be in flight
+        __syncthreads();
+        const int i0 = p * g.pass;
+        const int np = min(n_nodes - i0, g.pass);
+        const bf16_t* buf = s.stage + (size_t)(p % g.nbuf) * g.pass * g.W * g.vec_elems;
+        for (int f = tid; f < np * g.W; f += blockDim.x) {
+            const int il = f / g.W;
+            const int j = f - il * g.W;
+            const int i = i0 + il;
+            const int slot = s.slots[i * g.W + j];
+            float dist = CUDART_INF_F;
+            if (slot >= 0) {
+                const int qi = i / g.E;
+                dist = staged_dist(s.qs + qi * g.d_pad, s.qn[qi],
+                                   buf + (size_t)f * g.vec_elems,
+                                   s.aux[(size_t)i * g.aux_elems + j], g.d);
+            }
+            emit(i, j, dist, slot);
+        }
+        __syncthreads();                  // buffer p % nbuf is free again
+    }
+    cp_async_wait<0>();
+}

@@ -34,17 +34,31 @@ from comet_tpu_torch.ops import _build  # noqa: E402
 from comet_tpu_torch.ops import beam_kernel as bk  # noqa: E402
 from comet_tpu_torch.ops.edge_cases import k4_case  # noqa: E402
 
-# name: (scoring threads, min blocks, ring, stage bytes;
-#        K5 threads, min blocks, ring, stage bytes)
-NO_BULK = [("__device__ bool bulk() const { return g.unit == 16; }",
-            "__device__ bool bulk() const { return false; }")]
+# name: (scoring threads, min blocks, candidates, ring, stage bytes;
+#        K5 threads, min blocks, ring, stage bytes; source patches of
+#        neighbour_score.cuh: other copy instructions, or probes that leave a
+#        part out to show where the time goes, whose outputs are not checked)
+SC = (256, 4, 256, 2, 52 * 1024)
+K5 = (128, 8, 2, 17 * 1024)
+CG16 = "cp.async.cg.shared.global [%0], [%1], 16;"
+HINT_128 = [(CG16, "cp.async.cg.shared.global.L2::128B [%0], [%1], 16;")]
+HINT_256 = [(CG16, "cp.async.cg.shared.global.L2::256B [%0], [%1], 16;")]
+CA16 = [(CG16, "cp.async.ca.shared.global [%0], [%1], 16;")]
+NO_DOT = [("dist = staged_dist(s.qs + qi * g.d_pad, s.qn[qi],",
+           "dist = (float)buf[(size_t)f * g.vec_elems] + 0.0f * (float)qi; "
+           "(void)(s.qs + qi * g.d_pad, s.qn[qi],")]
+NO_COPY = [("copy_unit<U>(dst + 2 * j * g.vec_elems + c * U, src + 2 * j * g.d + c * U);",
+            "(void)src;")]
 VARIANTS = {
-    "z1": ((256, 3, 2, 52 * 1024), (128, 4, 2, 35 * 1024), []),
-    "z2": ((256, 3, 2, 52 * 1024), (128, 4, 2, 35 * 1024), NO_BULK),
-    "z3": ((256, 3, 3, 52 * 1024), (128, 4, 3, 26 * 1024), []),
-    "z4": ((128, 4, 2, 35 * 1024), (128, 5, 2, 26 * 1024), []),
-    "z5": ((256, 2, 2, 70 * 1024), (256, 3, 2, 52 * 1024), []),
-    "z6": ((128, 6, 2, 26 * 1024), (64, 8, 2, 17 * 1024), []),
+    "a1": (SC, K5, []),
+    "a2": (SC, K5, HINT_128),
+    "a3": (SC, K5, HINT_256),
+    "a4": (SC, K5, CA16),
+    "a5": ((256, 3, 256, 2, 70 * 1024), (128, 5, 2, 35 * 1024), HINT_256),
+    "a6": ((256, 4, 256, 3, 52 * 1024), (64, 8, 2, 17 * 1024), HINT_256),
+    "p1": (SC, K5, NO_DOT),
+    "p2": (SC, K5, NO_COPY),
+    "p3": (SC, K5, NO_DOT + NO_COPY),
 }
 SOURCES = ("gather_score.cu", "fused_expand.cu", "beam_merge.cu")
 
@@ -65,7 +79,7 @@ def build_all():
         shutil.copytree(_build.CSRC_DIR, src)
         p = os.path.join(src, "gather_score.cu")
         t = open(p).read()
-        for key, v in zip(("THREADS", "MIN_BLOCKS", "NBUF", "STAGE_BYTES"), sc):
+        for key, v in zip(("THREADS", "MIN_BLOCKS", "CANDIDATES", "NBUF", "STAGE_BYTES"), sc):
             t = rewrite(t, f"SCORE_{key}", v)
         open(p, "w").write(t)
         p = os.path.join(src, "neighbour_score.cuh")
@@ -183,7 +197,7 @@ def main():
 
     # the same kernel with every node among the first rows of the table:
     # how much the span of the rows read costs
-    for name in names[:1]:
+    for name in ("a1", "a3"):
         _build._lib = libs[name]
         for span in (1 << 20, 1 << 14):
             near = torch.where(nodes >= 0, nodes % span, nodes)
