@@ -21,18 +21,27 @@
    nprobe (16) and kb (32), each with its member share; K4 (beam merge,
    csrc/beam_merge.cu) split and fused and K5 (csrc/fused_expand.cu) at
    Q = 2048, ef = ew = kr = 256, E = 8, W = 32 on a running search's beam
-   state made from the seed, K5 over a packed table of the corpus with a random adjacency.
-   Times are CUDA-event medians of 5, the host's launch included.
-   `--kernels-only` stops here: a copy of this script placed at the root
-   of another checkout times that checkout's kernels the same way. Then
+   state made from the seed, K5 over a packed table of the corpus with a
+   random adjacency, beside the split pair (packed scoring + K4 split);
+   the in-loop scoring kernel (csrc/gather_score.cu) on the same nodes over
+   the packed and the blocked table (nd, ns and adm held to the plain
+   version, split and fused mode). Times are CUDA-event medians of 5, the
+   host's launch included; the device time a launch of K5, the split
+   pair's two kernels and the scoring kernel in both layouts comes from
+   torch.profiler. `--kernels-only` stops here: a copy of this script
+   placed at the root of another checkout times that checkout's kernels
+   the same way. Then
    K1 (widths 1 to 65539, k 1 to 8192, ties, signed zeros, +inf and
    repeated keys, both layouts), all three modes of K2 (Q 1-300, d 1-128,
    N 128-4096, with and without a threshold), K3's two modes (0-128
    probing queries a step, dead steps, S = 1, a zero-padded group, d
    3-128, L2 and cosine, with and without a threshold) and K4 split and
    fused (ties, copies, SENT and +inf rows, ew 7-300, beams and result
-   sets out of slot order) are held to their plain versions at edge
-   shapes (ops/edge_cases.py).
+   sets out of slot order), the scoring kernel (both layouts, both modes)
+   and K5 (stop = ef and ef / 4, also against the split pair) at W 1-32,
+   d 3-128, expand 1-23, Q 1-2048, ndig 2-3, packed rows off 16-byte
+   boundaries, -1 nodes and empty entries are held to their plain
+   versions at edge shapes (ops/edge_cases.py).
 3. Drives the flat path through the public API at the users' size: a
    FlatIndex of 1,048,576 x 128 SIFT-range integer vectors (L2), searched
    with 2048 queries at k = 100. On integer data every float32 distance is
@@ -79,8 +88,9 @@
    of 2^16 rows. Every HNSW search's ids and scores must be array-equal to
    the plain beam (the same index with every wrapper on its plain version,
    on the card). K4 (both modes), K3's bf16 mode and the scoring kernel
-   are held bit-equal to their plain versions on the inputs of a real
-   iteration, and timed; a Gaussian index shows seed and in-loop distances
+   (nd, ns and the admission flags adm, split mode and the fused mode of
+   the filtered search) are held bit-equal to their plain versions on the
+   inputs of a real iteration, and timed; a Gaussian index shows seed and in-loop distances
    bit-equal; one iteration's blocked-table row gather is timed.
    `--profile` adds breakdowns of one insertion round and two steady
    seeded batches.
@@ -1438,8 +1448,8 @@ def main():
                     help="trace two steady flat, IVF and HNSW batches and one insertion "
                          "round with torch.profiler")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after holding K1 and K2 to their plain versions at the main "
-                         "path's shapes and timing them")
+                    help="stop after holding K1-K5 and the scoring kernel to their plain "
+                         "versions at the main path's shapes and timing them")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():

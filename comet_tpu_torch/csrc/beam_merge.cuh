@@ -324,17 +324,3 @@ __device__ __forceinline__ const u64* merge_select(
     if (tid < MISC_ROWS) misc[q * MISC_ROWS + tid] = sc->misc[tid];
     return cand;
 }
-
-// Opt a merge kernel in to `smem` bytes of dynamic shared memory (past the
-// default 48 KiB with its static scratch). Returns a CUDA error code.
-template <typename Kernel>
-static inline int merge_smem_attr(Kernel kernel, size_t smem)
-{
-    if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
-    if (smem + 1024 > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    return 0;
-}

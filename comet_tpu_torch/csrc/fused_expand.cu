@@ -42,7 +42,6 @@
 
 constexpr int K5_THREADS = 128;
 constexpr int K5_MIN_BLOCKS = 8;             // blocks an SM
-constexpr int K5_NBUF = 2;
 constexpr size_t K5_STAGE_BYTES = 17 * 1024;
 
 // Bytes of dynamic shared memory: the beam and candidate keys, then the
@@ -84,8 +83,8 @@ __global__ void __launch_bounds__(K5_THREADS, K5_MIN_BLOCKS) fused_expand_kernel
     }
     u64* cand = bufs.cand;
     const int W = g.W;
-    score_neighbours<K5_NBUF>(
-        g, smem, base, table, table + (long long)W * g.d, row_len, row_len, nodes + q * g.E, 1,
+    score_neighbours(
+        g, smem, base, table, table + (long long)W * g.d, row_len, row_len, nodes + q * g.E,
         qb + q * g.d, qn + q, [&](int i, int j, float dist, int slot) {
             cand[i * W + j] = beam_key(dist, slot >= 0 ? slot : SENT_SLOT, 0);
         });
@@ -106,12 +105,11 @@ extern "C" int comet_fused_expand(
         row_len != (long long)W * d + (long long)(1 + ndig) * W)
         return (int)cudaErrorInvalidValue;
     const bf16_t* t = (const bf16_t*)table;
-    const NbrGeom g = nbr_geom(W, d, ndig, expand, 1, K5_STAGE_BYTES, K5_NBUF, t,
+    const NbrGeom g = nbr_geom(W, d, ndig, expand, K5_STAGE_BYTES, t,
                                t + (long long)W * d, row_len, row_len);
     size_t base;
     const size_t smem = k5_smem(g, ef, expand * W, &base);
-    static size_t raised = 0;
-    const int attr = nbr_smem_attr((const void*)fused_expand_kernel, smem, &raised);
+    const int attr = smem_attr(fused_expand_kernel, smem);
     if (attr != 0) return attr;
     fused_expand_kernel<<<Q, K5_THREADS, smem, (cudaStream_t)stream>>>(
         nodes, t, row_len, (const bf16_t*)qb, qn, bd, bs, be, ef, expand, stop,

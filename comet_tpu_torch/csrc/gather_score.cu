@@ -37,18 +37,17 @@
 // (neighbour_score.cuh): each expanded node's row comes into shared memory
 // by coalesced asynchronous copies, the first passes of a block in flight
 // before the first is scored, and one thread a candidate runs the FMA
-// chain from shared memory. A block takes SCORE_CANDIDATES / (E W)
-// queries (at least one, at most SCORE_MAX_Q) and stages at most
-// SCORE_STAGE_BYTES in a ring of SCORE_NBUF buffers.
+// chain from shared memory. A block takes one query and stages at most
+// SCORE_STAGE_BYTES in its two staging buffers: 3 nodes a pass at
+// W = 32, d = 128, two passes in flight, about 56 KB of shared memory, so
+// four blocks share an SM (PERF.md, PR 7, has the shapes that were
+// measured against it).
 
 #define SENT_SLOT 2147483647
 #include "neighbour_score.cuh"
 
 constexpr int SCORE_THREADS = 256;
 constexpr int SCORE_MIN_BLOCKS = 4;          // blocks an SM
-constexpr int SCORE_CANDIDATES = 256;        // candidates a block, at least one query
-constexpr int SCORE_MAX_Q = 8;
-constexpr int SCORE_NBUF = 2;
 constexpr size_t SCORE_STAGE_BYTES = 52 * 1024;
 
 __global__ void __launch_bounds__(SCORE_THREADS, SCORE_MIN_BLOCKS) gather_score_kernel(
@@ -56,16 +55,15 @@ __global__ void __launch_bounds__(SCORE_THREADS, SCORE_MIN_BLOCKS) gather_score_
     const bf16_t* __restrict__ vecs, const bf16_t* __restrict__ aux,
     long long vec_stride, long long aux_stride,
     const int* __restrict__ nodes, const unsigned char* __restrict__ allowed, float thr,
-    int Q, int fused, float* __restrict__ nd, int* __restrict__ ns, int* __restrict__ adm,
+    int fused, float* __restrict__ nd, int* __restrict__ ns, int* __restrict__ adm,
     NbrGeom g)
 {
     extern __shared__ __align__(16) unsigned char smem[];
-    const long long q0 = (long long)blockIdx.x * g.n_q;
-    const int n_q = (int)min((long long)g.n_q, Q - q0);
-    const long long t0 = q0 * g.E * g.W;
-    score_neighbours<SCORE_NBUF>(
-        g, smem, 0, vecs, aux, vec_stride, aux_stride, nodes + q0 * g.E, n_q, qb + q0 * g.d,
-        qn + q0, [&](int i, int j, float dist, int slot) {
+    const long long q = blockIdx.x;
+    const long long t0 = q * g.E * g.W;
+    score_neighbours(
+        g, smem, 0, vecs, aux, vec_stride, aux_stride, nodes + q * g.E, qb + q * g.d, qn + q,
+        [&](int i, int j, float dist, int slot) {
             const long long t = t0 + (long long)i * g.W + j;
             nd[t] = dist;
             ns[t] = slot >= 0 ? slot : SENT_SLOT;
@@ -85,15 +83,13 @@ extern "C" int comet_gather_score(
     if (Q < 1 || E < 1 || W < 1 || d < 1 || ndig < 1 || vec_stride < (long long)W * d ||
         aux_stride < (long long)(1 + ndig) * W)
         return (int)cudaErrorInvalidValue;
-    const int n_q = max(1, min(SCORE_MAX_Q, SCORE_CANDIDATES / (E * W)));
-    const NbrGeom g = nbr_geom(W, d, ndig, E, n_q, SCORE_STAGE_BYTES, SCORE_NBUF, vecs, aux,
+    const NbrGeom g = nbr_geom(W, d, ndig, E, SCORE_STAGE_BYTES, vecs, aux,
                                vec_stride, aux_stride);
     const size_t smem = nbr_layout(g, 0).end;
-    static size_t raised = 0;
-    const int attr = nbr_smem_attr((const void*)gather_score_kernel, smem, &raised);
+    const int attr = smem_attr(gather_score_kernel, smem);
     if (attr != 0) return attr;
-    gather_score_kernel<<<(Q + n_q - 1) / n_q, SCORE_THREADS, smem, (cudaStream_t)stream>>>(
+    gather_score_kernel<<<Q, SCORE_THREADS, smem, (cudaStream_t)stream>>>(
         (const bf16_t*)qb, qn, (const bf16_t*)vecs, (const bf16_t*)aux, vec_stride, aux_stride,
-        nodes, allowed, thr, Q, fused, nd, ns, adm, g);
+        nodes, allowed, thr, fused, nd, ns, adm, g);
     return (int)cudaGetLastError();
 }

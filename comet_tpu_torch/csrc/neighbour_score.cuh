@@ -8,14 +8,14 @@
 // the two in separate tables, the packed layout in one row; the callers
 // pass the two row bases and strides either way.
 //
-// `score_neighbours` runs one block over a list of nodes (the E expanded
-// nodes of each of the block's n_q queries, -1 for none) in three steps:
-//   1. the queries, converted once to float32, and the nodes' aux rows go
+// `score_neighbours` runs one block over the E expanded nodes of one
+// query (-1 for none) in three steps:
+//   1. the query, converted once to float32, and the nodes' aux rows go
 //      to shared memory; the aux rows come by asynchronous copies, and the
 //      slots are decoded from them (-1: no node or an empty entry);
 //   2. the live neighbours' vectors are staged in passes of `pass` nodes
-//      through a ring of NBUF buffers: the copies of the next NBUF - 1
-//      passes are in flight while the current one is scored. A row is
+//      through two buffers: the copies of the next pass are in flight
+//      while the current one is scored. A row is
 //      copied by groups of up to 32 threads, each moving `unit` bytes a
 //      copy (16-byte `cp.async` where the table's rows allow it; 8 and 4
 //      bytes, then plain 2-byte copies, for rows off those boundaries, e.g.
@@ -37,18 +37,16 @@
 
 struct NbrGeom {
     int W, d, ndig, E;
-    int n_q;          // queries a block
-    int d_pad;        // float32 elements a staged query row (d rounded up to 4)
     int unit;         // bytes a copy: 16, 8, 4 or 2
     int lanes_log2;   // log2 of the threads that copy one neighbour vector
     int vec_elems;    // bf16 elements a staged neighbour vector
     int aux_len;      // bf16 elements an aux row, (1 + ndig) W
     int aux_elems;    // aux_len rounded up to 16 bytes
     int pass;         // nodes a staging pass
-    int nbuf;         // staging buffers in use (fewer when fewer passes)
+    int nbuf;         // staging buffers in use: 2, or 1 when one pass holds every node
 };
 
-// Byte offsets of the regions: query rows, query norms, nodes, slots, aux
+// Byte offsets of the regions: the query row, its norm, nodes, slots, aux
 // rows, then the staging buffers (last, so a caller may reuse them).
 struct NbrLayout {
     size_t qs, qn, nodes, slots, aux, stage, end;
@@ -58,23 +56,21 @@ __host__ __device__ __forceinline__ size_t nbr_align16(size_t n) { return (n + 1
 
 __host__ __device__ __forceinline__ NbrLayout nbr_layout(const NbrGeom& g, size_t base)
 {
-    const int n_nodes = g.n_q * g.E;
     NbrLayout l;
     l.qs = nbr_align16(base);
-    l.qn = l.qs + nbr_align16(sizeof(float) * (size_t)g.n_q * g.d_pad);
-    l.nodes = l.qn + nbr_align16(sizeof(float) * (size_t)g.n_q);
-    l.slots = l.nodes + nbr_align16(sizeof(int) * (size_t)n_nodes);
-    l.aux = l.slots + nbr_align16(sizeof(int) * (size_t)n_nodes * g.W);
-    l.stage = l.aux + 2 * (size_t)n_nodes * g.aux_elems;
+    l.qn = l.qs + nbr_align16(sizeof(float) * (size_t)g.d);
+    l.nodes = l.qn + 16;
+    l.slots = l.nodes + nbr_align16(sizeof(int) * (size_t)g.E);
+    l.aux = l.slots + nbr_align16(sizeof(int) * (size_t)g.E * g.W);
+    l.stage = l.aux + 2 * (size_t)g.E * g.aux_elems;
     l.end = l.stage + 2 * (size_t)g.nbuf * g.pass * g.W * g.vec_elems;
     return l;
 }
 
-// The geometry of a block of n_q queries of E expanded nodes each, with at
-// most `stage_bytes` in a ring of nbuf staging buffers (at least one node a
-// pass).
-static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, int n_q, size_t stage_bytes,
-                               int nbuf, const void* vecs, const void* aux,
+// The geometry of a block of E expanded nodes, with at most `stage_bytes`
+// in two staging buffers (at least one node a pass).
+static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, size_t stage_bytes,
+                               const void* vecs, const void* aux,
                                long long vec_stride, long long aux_stride)
 {
     NbrGeom g;
@@ -82,8 +78,6 @@ static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, int n_q, size_t st
     g.d = d;
     g.ndig = ndig;
     g.E = E;
-    g.n_q = n_q;
-    g.d_pad = (d + 3) & ~3;
     g.aux_len = (1 + ndig) * W;
     g.aux_elems = (g.aux_len + 7) & ~7;
     const unsigned long long m = (unsigned long long)vecs | (unsigned long long)aux |
@@ -96,28 +90,11 @@ static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, int n_q, size_t st
     while (g.lanes_log2 < 5 && (1 << g.lanes_log2) < chunks) ++g.lanes_log2;
     g.vec_elems = (((2 * d + 15) / 16) | 1) * 8;
     const size_t node_bytes = 2 * (size_t)W * g.vec_elems;
-    const int n_nodes = n_q * E;
-    g.pass = (int)(stage_bytes / (nbuf * node_bytes));
+    g.pass = (int)(stage_bytes / (2 * node_bytes));
     if (g.pass < 1) g.pass = 1;
-    if (g.pass > n_nodes) g.pass = n_nodes;
-    const int n_pass = (n_nodes + g.pass - 1) / g.pass;
-    g.nbuf = n_pass < nbuf ? n_pass : nbuf;
+    if (g.pass > E) g.pass = E;
+    g.nbuf = g.pass < E ? 2 : 1;
     return g;
-}
-
-// Let `kernel` take `smem` bytes of dynamic shared memory: past the
-// default 48 KiB the attribute is raised, once for each larger size
-// (*raised keeps the size set). Returns a CUDA error code.
-static inline int nbr_smem_attr(const void* kernel, size_t smem, size_t* raised)
-{
-    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    if (smem > *raised && smem + 1024 > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        *raised = smem;
-    }
-    return 0;
 }
 
 // Neighbour j's slot from the digit planes of the aux row, -1 when empty.
@@ -137,7 +114,7 @@ __device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w 
 __device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xFFFF0000u); }
 
 // max((qn + nsq) - 2 <q, x>, 0) for the staged float32 query row q and the
-// staged neighbour vector x (16-byte aligned): the `dot_fma` chain from 0,
+// staged neighbour vector x (both 16-byte aligned): the `dot_fma` chain from 0,
 // depth ascending.
 __device__ __forceinline__ float staged_dist(const float* __restrict__ q, float qn,
                                              const bf16_t* __restrict__ x, bf16_t nsq, int d)
@@ -194,27 +171,6 @@ __device__ __forceinline__ void cp_async_wait()
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy `bytes` (a multiple of U) from device memory to shared memory, the
-// U-byte pieces spread over the block.
-template <int U>
-__device__ __forceinline__ void copy_span(void* dst, const void* src, int bytes)
-{
-    for (int c = threadIdx.x; c < bytes / U; c += blockDim.x) {
-        copy_unit<U>(static_cast<char*>(dst) + c * U, static_cast<const char*>(src) + c * U);
-    }
-}
-
-__device__ __forceinline__ void copy_span_any(void* dst, const void* src, int bytes, int unit)
-{
-    switch (unit) {
-        case 16: copy_span<16>(dst, src, bytes); break;
-        case 8: copy_span<8>(dst, src, bytes); break;
-        case 4: copy_span<4>(dst, src, bytes); break;
-        default: copy_span<2>(dst, src, bytes); break;
-    }
-}
-
-
 struct NbrSmem {
     float* qs;
     float* qn;
@@ -235,6 +191,25 @@ __device__ __forceinline__ NbrSmem nbr_smem(unsigned char* smem, const NbrGeom& 
     s.aux = reinterpret_cast<bf16_t*>(smem + l.aux);
     s.stage = reinterpret_cast<bf16_t*>(smem + l.stage);
     return s;
+}
+
+// The aux rows of the n_nodes nodes, the U-byte pieces of all rows spread
+// over the block.
+template <int U>
+__device__ __forceinline__ void issue_aux(const NbrGeom& g, const NbrSmem& s,
+                                          const bf16_t* __restrict__ aux, long long aux_stride,
+                                          int n_nodes)
+{
+    const int per = 2 * g.aux_len / U;
+    for (int f = threadIdx.x; f < n_nodes * per; f += blockDim.x) {
+        const int i = f / per;
+        const int c = f - i * per;
+        const int node = s.nodes[i];
+        if (node >= 0) {
+            copy_unit<U>(reinterpret_cast<char*>(s.aux + (size_t)i * g.aux_elems) + c * U,
+                         reinterpret_cast<const char*>(aux + node * aux_stride) + c * U);
+        }
+    }
 }
 
 // The live neighbour vectors of pass p's nodes into buffer p % nbuf: the
@@ -264,6 +239,17 @@ __device__ __forceinline__ void issue_pass(const NbrGeom& g, const NbrSmem& s,
     }
 }
 
+__device__ __forceinline__ void issue_aux_any(const NbrGeom& g, const NbrSmem& s,
+                                              const bf16_t* aux, long long aux_stride, int n)
+{
+    switch (g.unit) {
+        case 16: issue_aux<16>(g, s, aux, aux_stride, n); break;
+        case 8: issue_aux<8>(g, s, aux, aux_stride, n); break;
+        case 4: issue_aux<4>(g, s, aux, aux_stride, n); break;
+        default: issue_aux<2>(g, s, aux, aux_stride, n); break;
+    }
+}
+
 __device__ __forceinline__ void issue_pass_any(const NbrGeom& g, const NbrSmem& s,
                                                const bf16_t* vecs, long long vec_stride, int n,
                                                int p)
@@ -276,38 +262,29 @@ __device__ __forceinline__ void issue_pass_any(const NbrGeom& g, const NbrSmem& 
     }
 }
 
-// Score every neighbour of the block's nodes: node i < n_q E of the block
-// is nodes[i] (query i / E, whose bf16 row is qb[i / E] and norm qn[i /
-// E]); calls emit(i, j, dist, slot) once for each neighbour j < W, with
+// Score every neighbour of the query's nodes: node i < E is nodes[i], the
+// query's bf16 row qb and its norm *qn; calls emit(i, j, dist, slot) once
+// for each neighbour j < W, with
 // (+inf, -1) for a -1 node or an empty entry, in the order of i W + j
 // within a pass across the threads. The staging starts at byte `base` of
-// smem (nbr_layout); NBUF is the ring depth g was made for. Ends with a
-// barrier after the last read of the staging buffers, with no copy in
-// flight.
-template <int NBUF, typename Emit>
+// smem (nbr_layout). Ends with a barrier after the last read of the
+// staging buffers, with no copy in flight.
+template <typename Emit>
 __device__ __forceinline__ void score_neighbours(
     const NbrGeom& g, unsigned char* smem, size_t base,
     const bf16_t* __restrict__ vecs, const bf16_t* __restrict__ aux,
     long long vec_stride, long long aux_stride,
-    const int* __restrict__ nodes, int n_q, const bf16_t* __restrict__ qb,
+    const int* __restrict__ nodes, const bf16_t* __restrict__ qb,
     const float* __restrict__ qn, Emit emit)
 {
     const NbrSmem s = nbr_smem(smem, g, base);
     const int tid = threadIdx.x;
-    const int n_nodes = n_q * g.E;
+    const int n_nodes = g.E;
     for (int i = tid; i < n_nodes; i += blockDim.x) s.nodes[i] = nodes[i];
-    for (int e = tid; e < n_q * g.d; e += blockDim.x) {
-        const int qi = e / g.d;
-        s.qs[qi * g.d_pad + (e - qi * g.d)] = to_f32(qb[e]);
-    }
-    if (tid < n_q) s.qn[tid] = qn[tid];
+    for (int k = tid; k < g.d; k += blockDim.x) s.qs[k] = to_f32(qb[k]);
+    if (tid == 0) s.qn[0] = *qn;
     __syncthreads();
-    for (int i = 0; i < n_nodes; ++i) {
-        if (s.nodes[i] >= 0) {
-            copy_span_any(s.aux + (size_t)i * g.aux_elems, aux + s.nodes[i] * aux_stride,
-                          2 * g.aux_len, g.unit);
-        }
-    }
+    issue_aux_any(g, s, aux, aux_stride, n_nodes);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -320,15 +297,12 @@ __device__ __forceinline__ void score_neighbours(
     __syncthreads();
 
     const int n_pass = (n_nodes + g.pass - 1) / g.pass;
-#pragma unroll
-    for (int p = 0; p < NBUF - 1; ++p) {
-        issue_pass_any(g, s, vecs, vec_stride, n_nodes, p);
-        cp_async_commit();
-    }
+    issue_pass_any(g, s, vecs, vec_stride, n_nodes, 0);
+    cp_async_commit();
     for (int p = 0; p < n_pass; ++p) {
-        issue_pass_any(g, s, vecs, vec_stride, n_nodes, p + NBUF - 1);
+        issue_pass_any(g, s, vecs, vec_stride, n_nodes, p + 1);
         cp_async_commit();
-        cp_async_wait<NBUF - 1>();        // pass p has landed, later ones may be in flight
+        cp_async_wait<1>();               // pass p has landed, pass p + 1 may be in flight
         __syncthreads();
         const int i0 = p * g.pass;
         const int np = min(n_nodes - i0, g.pass);
@@ -340,9 +314,7 @@ __device__ __forceinline__ void score_neighbours(
             const int slot = s.slots[i * g.W + j];
             float dist = CUDART_INF_F;
             if (slot >= 0) {
-                const int qi = i / g.E;
-                dist = staged_dist(s.qs + qi * g.d_pad, s.qn[qi],
-                                   buf + (size_t)f * g.vec_elems,
+                dist = staged_dist(s.qs, s.qn[0], buf + (size_t)f * g.vec_elems,
                                    s.aux[(size_t)i * g.aux_elems + j], g.d);
             }
             emit(i, j, dist, slot);

@@ -1,5 +1,7 @@
 // Definitions shared by the distance kernels: K2's tile (fused_tile.cuh),
-// K3 (ivf_sparse.cu) and the in-loop scoring (neighbour_score.cuh).
+// K3 (ivf_sparse.cu) and the in-loop scoring (neighbour_score.cuh); and
+// `smem_attr`, which K4, K5 and the scoring kernel use to take more than
+// 48 KiB of shared memory.
 //
 // The epilogue is the reference's, in its order of operations:
 //   L2:     max((qn + mask[n]) - 2 * ip, 0)     mask = squared norm, +inf if invalid
@@ -50,4 +52,18 @@ __device__ __forceinline__ float scan_distance(float ip, float qni, float m, flo
         dd = fmaxf(s - 2.0f * ip, 0.0f);
     }
     return dd <= thr ? dd : CUDART_INF_F;
+}
+
+// Opt a kernel in to `smem` bytes of dynamic shared memory (past the
+// default 48 KiB with its static scratch). Returns a CUDA error code.
+template <typename Kernel>
+static inline int smem_attr(Kernel kernel, size_t smem)
+{
+    if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+    if (smem + 1024 > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
 }

@@ -201,11 +201,31 @@ def test_blocked_tables_match_reference(cap):
     assert bk._aux_digits(cap) == ref._aux_digits(cap) == (2 if cap == 512 else 3)
 
 
+# (n, cap, W, d) of the scoring tests: the shape of the reference's tests;
+# d = 100, W = 12 (vectors off 16-byte boundaries); a cap past 128^2, so
+# ndig = 3, with neighbours among the last slots
+SCORE_SHAPES = [(300, 512, 8, 16), (300, 512, 12, 100), (300, 20000, 8, 16)]
+
+
+def _far_neighbours(rng, vectors, sqn, adj, n):
+    """Point column 3 of the first n rows at the last slots of a cap past
+    128^2 (every base-128 digit of slot + 1 in use), with vectors there."""
+    cap, d = vectors.shape
+    if cap <= 128 ** 2:
+        return
+    far = cap - 1 - np.arange(n) % 7
+    vectors[far] = rng.integers(0, 256, size=(n, d))
+    sqn[:] = (vectors * vectors).sum(axis=1)
+    adj[:n, 3] = far
+
+
 @pytest.mark.parametrize("fused", [False, True])
-def test_gather_score_matches_reference(fused):
+@pytest.mark.parametrize("n,cap,w,d", SCORE_SHAPES)
+def test_gather_score_matches_reference(fused, n, cap, w, d):
     rng = np.random.default_rng(11)
-    n, cap, w, d, e = 300, 512, 8, 16, 4
+    e = 4
     vectors, sqn, adj = _graph(rng, n, cap, w, d)
+    _far_neighbours(rng, vectors, sqn, adj, n)
     nv, aux = ref.build_blocked_tables(jnp.asarray(adj), jnp.asarray(vectors), jnp.asarray(sqn))
     q = rng.integers(0, 256, size=(Q, d)).astype(np.float32)
     nodes = rng.integers(-1, n, size=(e, Q)).astype(np.int32)
@@ -401,13 +421,16 @@ def test_packed_table_and_row_updates_match_reference(cap):
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_gather_score_packed_matches_blocked_and_reference(fused):
+@pytest.mark.parametrize("n,cap,w,d", [(300, 512, 4, 16)] + SCORE_SHAPES[1:])
+def test_gather_score_packed_matches_blocked_and_reference(fused, n, cap, w, d):
     """The packed layout scores bit-equal to the blocked one and to the
     reference's packed `_gather_score`; W = 4, d = 16, cap 512 makes rows
-    of 152 bytes, most of them off a 16-byte boundary."""
+    of 152 bytes, most of them off a 16-byte boundary (W = 12, d = 100:
+    2472 bytes)."""
     rng = np.random.default_rng(14)
-    n, cap, w, d, e = 300, 512, 4, 16, 4
+    e = 4
     vectors, sqn, adj = _graph(rng, n, cap, w, d)
+    _far_neighbours(rng, vectors, sqn, adj, n)
     t = torch.from_numpy
     packed = bk.build_packed_table(t(adj), t(vectors), t(sqn))
     nv, aux = bk.build_blocked_tables(t(adj), t(vectors), t(sqn))
