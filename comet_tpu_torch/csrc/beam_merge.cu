@@ -128,7 +128,7 @@ extern "C" int comet_beam_merge(
     size_t keys = (size_t)merge_keys(ef, ew);
     if (fused) keys += 2 * (size_t)merge_run(kr) + 2 * (size_t)merge_run(ew) + 2 * (size_t)kr;
     const size_t smem = sizeof(u64) * keys;
-    const int attr = smem_attr(beam_merge_kernel, smem);
+    const int attr = smem_attr<beam_merge_kernel>(smem);
     if (attr != 0) return attr;
     beam_merge_kernel<<<Q, K4_THREADS, smem, (cudaStream_t)stream>>>(
         bd, bs, be, nd, ns, rd, rs, adm, ef, ew, expand, stop, kr, fused,

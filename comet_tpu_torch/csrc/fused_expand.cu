@@ -109,7 +109,7 @@ extern "C" int comet_fused_expand(
                                t + (long long)W * d, row_len, row_len);
     size_t base;
     const size_t smem = k5_smem(g, ef, expand * W, &base);
-    const int attr = smem_attr(fused_expand_kernel, smem);
+    const int attr = smem_attr<fused_expand_kernel>(smem);
     if (attr != 0) return attr;
     fused_expand_kernel<<<Q, K5_THREADS, smem, (cudaStream_t)stream>>>(
         nodes, t, row_len, (const bf16_t*)qb, qn, bd, bs, be, ef, expand, stop,

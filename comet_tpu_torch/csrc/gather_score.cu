@@ -86,7 +86,7 @@ extern "C" int comet_gather_score(
     const NbrGeom g = nbr_geom(W, d, ndig, E, SCORE_STAGE_BYTES, vecs, aux,
                                vec_stride, aux_stride);
     const size_t smem = nbr_layout(g, 0).end;
-    const int attr = smem_attr(gather_score_kernel, smem);
+    const int attr = smem_attr<gather_score_kernel>(smem);
     if (attr != 0) return attr;
     gather_score_kernel<<<Q, SCORE_THREADS, smem, (cudaStream_t)stream>>>(
         (const bf16_t*)qb, qn, (const bf16_t*)vecs, (const bf16_t*)aux, vec_stride, aux_stride,

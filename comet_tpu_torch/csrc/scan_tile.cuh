@@ -54,16 +54,20 @@ __device__ __forceinline__ float scan_distance(float ip, float qni, float m, flo
     return dd <= thr ? dd : CUDART_INF_F;
 }
 
-// Opt a kernel in to `smem` bytes of dynamic shared memory (past the
-// default 48 KiB with its static scratch). Returns a CUDA error code.
-template <typename Kernel>
-static inline int smem_attr(Kernel kernel, size_t smem)
+// Opt `Kernel` in to `smem` bytes of dynamic shared memory (past the
+// default 48 KiB with its static scratch), once for each larger size: the
+// attribute stays set, and the call is host time on every launch of the
+// beam's loop. Returns a CUDA error code.
+template <auto Kernel>
+static inline int smem_attr(size_t smem)
 {
+    static size_t raised = 48 * 1024 - 1024;
     if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
-    if (smem + 1024 > 48 * 1024) {
+    if (smem > raised) {
         const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
+        raised = smem;
     }
     return 0;
 }
