@@ -40,8 +40,8 @@
 // chain from shared memory. A block takes one query and stages at most
 // SCORE_STAGE_BYTES in its two staging buffers: 3 nodes a pass at
 // W = 32, d = 128, two passes in flight, about 56 KB of shared memory, so
-// four blocks share an SM (PERF.md, PR 7, has the shapes that were
-// measured against it).
+// four blocks share an SM (PERF.md §6 has the shapes that were measured
+// against it).
 
 #define SENT_SLOT 2147483647
 #include "neighbour_score.cuh"
