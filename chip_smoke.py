@@ -92,8 +92,8 @@
    the filtered search) are held bit-equal to their plain versions on the
    inputs of a real iteration, and timed; a Gaussian index shows seed and in-loop distances
    bit-equal; one iteration's blocked-table row gather is timed.
-   `--profile` adds breakdowns of one insertion round and two steady
-   seeded batches.
+   `--profile` adds breakdowns of one insertion round and of two steady
+   seeded and two classic batches of the grown index.
 
 Any mismatch raises, so the run exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it names the kernels with
@@ -302,7 +302,7 @@ def tied_ids_hold(got_ids, got_scores, want_ids, queries, corpus):
     return bool(np.array_equal(true, got_scores[r, c]))
 
 
-def profile_window(fn):
+def profile_window(fn, label=""):
     """torch.profiler over `fn`: prints the kernels by device time and the
     device's busy and idle share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -321,8 +321,8 @@ def profile_window(fn):
         if dev_us > 0:
             rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows)
-    print(f"profile: {busy / 1e3:.3f} ms of device activity in {wall_us / 1e3:.3f} ms of wall "
-          f"time, idle share {1 - busy / wall_us:.3f}")
+    print(f"profile{f' ({label})' if label else ''}: {busy / 1e3:.3f} ms of device activity in "
+          f"{wall_us / 1e3:.3f} ms of wall time, idle share {1 - busy / wall_us:.3f}")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {100 * dev_us / busy:6.2f} %  {count:5d} x {dev_us / count:10.3f} us  {key[:90]}")
 
@@ -439,7 +439,7 @@ def beam_section(x_dev, queries, seed, dev, tag, time_ms):
     a packed routing table of the corpus with a random W = 32 adjacency.
     Each held array-equal to its plain version and timed."""
     from comet_tpu_torch.ops import beam_kernel as bk
-    from comet_tpu_torch.ops.edge_cases import k4_case
+    from comet_tpu_torch.ops.edge_cases import equal, k4_case
 
     ef = ew = kr = 256
     expand, w = 8, 32
@@ -451,10 +451,8 @@ def beam_section(x_dev, queries, seed, dev, tag, time_ms):
         got = bk._merge_cuda(*args, *rest)
         want = bk._merge_plain(*args, *rest)
         torch.cuda.synchronize()
-        for g, wv in zip(got, want):
-            if (g is None) != (wv is None) or (g is not None and not torch.equal(g, wv)):
-                raise AssertionError(f"K4 ({'fused' if fused else 'split'}) differs from its "
-                                     f"plain version on the running search's state")
+        equal(f"K4 ({'fused' if fused else 'split'}) against its plain version on the running "
+              f"search's state", got, want)
         ms = time_ms(lambda: bk._merge_cuda(*args, *rest))
         pms = time_ms(lambda: bk._merge_plain(*args, *rest))
         print(f"K4 beam merge ({'fused' if fused else 'split'}) Q={BATCH} ef={ef} ew={ew} "
@@ -505,9 +503,9 @@ def beam_section(x_dev, queries, seed, dev, tag, time_ms):
         else:
             table, aux = packed, None
         sa = (qb, qn, table, aux, nodes, allowed, inf, False)
-        check_scoring(sa, f"{layout} table, the running search's nodes")
+        hold_scoring(sa, f"{layout} table, the running search's nodes")
         nd = bk._gather_score_plain(*sa)[0]
-        n_adm = check_scoring(sa[:6] + (float(nd[torch.isfinite(nd)].median()), True),
+        n_adm = hold_scoring(sa[:6] + (float(nd[torch.isfinite(nd)].median()), True),
                               f"{layout} table, fused mode, the running search's nodes")
         ms = time_ms(lambda: bk._gather_score_cuda(*sa))
         pms = time_ms(lambda: bk._gather_score_plain(*sa))
@@ -892,18 +890,17 @@ class env_set:
                 os.environ[k] = v
 
 
-def check_scoring(args, what):
+def hold_scoring(args, what):
     """The scoring kernel's three outputs (nd, ns, and adm, or None unless
     fused) held to its plain version on `args`. Returns the admitted count."""
     from comet_tpu_torch.ops import beam_kernel as bk
+    from comet_tpu_torch.ops.edge_cases import equal
 
     got = bk._gather_score_cuda(*args)
     want = bk._gather_score_plain(*args)
     torch.cuda.synchronize()
-    for name, g, w in zip(("nd", "ns", "adm"), got, want):
-        if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
-            raise AssertionError(f"the scoring kernel's {name} differs from its plain version "
-                                 f"({what})")
+    equal(f"the scoring kernel against its plain version ({what})", got, want,
+          ("nd", "ns", "adm"))
     return None if got[2] is None else int(got[2].sum())
 
 
@@ -914,6 +911,7 @@ def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_fscore, cap_seed, r
     inputs of real iterations, timed."""
     from comet_tpu_torch.ops import beam_kernel as bk
     from comet_tpu_torch.ops import ivf_sparse as sp
+    from comet_tpu_torch.ops.edge_cases import equal
 
     for key, cap in (("beam_merge", cap_merge), ("beam_merge_fused", cap_fused)):
         a, kw = cap.args, cap.kwargs
@@ -928,9 +926,7 @@ def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_fscore, cap_seed, r
         got = bk._merge_cuda(*args, *rest)
         want = bk._merge_plain(*args, *rest)
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
-                raise AssertionError(f"K4 ({key}) differs from its plain version")
+        equal(f"K4 ({key}) against its plain version", got, want)
         q_n = args[0].shape[0]
         ms = time_ms(lambda: bk._merge_cuda(*args, *rest))
         pms = time_ms(lambda: bk._merge_plain(*args, *rest))
@@ -949,11 +945,11 @@ def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_fscore, cap_seed, r
 
     a = cap_score.args
     qb, qn, nbr_vecs, aux, nodes, allowed_dev, thr_k, fused = a
-    check_scoring(a, "blocked table, a seeded search's iteration 3")
+    hold_scoring(a, "blocked table, a seeded search's iteration 3")
     fa = cap_fscore.args
     if not fa[7] or fa[3] is None:
         raise AssertionError("the filtered search did not score the blocked table in fused mode")
-    n_adm = check_scoring(fa, "blocked table, fused mode, a filtered search's iteration 3")
+    n_adm = hold_scoring(fa, "blocked table, fused mode, a filtered search's iteration 3")
     print(f"in-loop scoring, fused mode (filter + threshold {fa[6]:.3f}), iteration 3: nd, ns "
           f"and adm equal to plain; {n_adm} of {fa[4].numel() * nbr_vecs.shape[1]} candidates "
           f"admitted {tag}")
@@ -1108,12 +1104,12 @@ def check_k5_packed_scoring(cap_k5, cap_score, report, dev, tag, time_ms):
     a = cap_score.args
     if a[3] is not None:
         raise AssertionError("the packed search scored a blocked table")
-    check_scoring(a, "packed table, a seeded search's iteration 3")
+    hold_scoring(a, "packed table, a seeded search's iteration 3")
     # the same nodes in fused mode: the search's allowed mask, a threshold
     # at the median finite distance
     nd = bk._gather_score_plain(*a)[0]
     fa = a[:6] + (float(nd[torch.isfinite(nd)].median()), True)
-    n_adm = check_scoring(fa, "packed table, fused mode on a seeded search's iteration 3")
+    n_adm = hold_scoring(fa, "packed table, fused mode on a seeded search's iteration 3")
     ms = time_ms(lambda: bk._gather_score_cuda(*a))
     pms = time_ms(lambda: bk._gather_score_plain(*a))
     qb, qn, packed, nodes = a[0], a[1], a[2], a[4]
@@ -1131,7 +1127,7 @@ def check_k5_packed_scoring(cap_k5, cap_score, report, dev, tag, time_ms):
     ua = (qs.to(torch.bfloat16), (qs * qs).sum(dim=1), small, None,
           torch.from_numpy(rng.integers(-1, 4096, size=(512, 8)).astype(np.int32)).to(dev),
           None, float("inf"), False)
-    check_scoring(ua, "packed table of 152-byte rows")
+    hold_scoring(ua, "packed table of 152-byte rows")
     print(f"packed scoring Q={nodes.shape[0]} E={nodes.shape[1]} W={w} ({live} nodes expanded), "
           f"iteration 3 of a seeded search: nd, ns and adm equal to plain (fused mode: {n_adm} "
           f"admitted), and on 152-byte rows (W=4, d=16, {small.shape[0]} rows); kernel "
@@ -1337,7 +1333,10 @@ def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, 
           f"no removed id returned; first batch {r_first:.3f} s (seed mask refresh included)")
     if profile:
         profile_window(lambda: [index.search_batch(queries, k=K, ef_search=EF_SEARCH)
-                                for _ in range(2)])
+                                for _ in range(2)], "HNSW seeded")
+        with env_set(COMET_HNSW_SEED="0"):
+            profile_window(lambda: [index.search_batch(queries, k=K, ef_search=EF_SEARCH)
+                                    for _ in range(2)], "HNSW classic")
     time_gather(index, n, dev, tag, time_ms)
     del index
     torch.cuda.empty_cache()
@@ -1430,7 +1429,7 @@ def edge_checks(dev, seed, tag):
           f"in {len(edge_cases.K4_CASES)} steps (ties, copies, SENT and +inf rows, ew 7-300, "
           f"beams and result sets out of slot order); the scoring kernel (nd, ns, adm; both "
           f"layouts, both modes) and K5 (stop = ef and ef / 4; also against the split pair) in "
-          f"{len(edge_cases.SCORE_CASES)} shapes (W 1-32, d 3-128, expand 1-23, Q 1-2048, ndig "
+          f"{len(edge_cases.SCORE_CASES)} shapes (W 1-64, d 3-1536, expand 1-23, Q 1-2048, ndig "
           f"2-3, 152-byte and shifted packed rows, -1 nodes and empty entries) "
           f"({time.perf_counter() - t0:.1f} s) {tag}")
 

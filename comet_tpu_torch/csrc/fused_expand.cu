@@ -35,7 +35,9 @@
 // at 3.35 TB/s; the 2 d operations per candidate are far below the card's
 // rate. One query a block: the merge of one block overlaps the copies of
 // the others on its SM, so the blocks are small (K5_STAGE_BYTES of
-// staging, one node a pass at W = 32, d = 128) and eight share an SM.
+// staging, one node a pass at W = 32, d = 128; a slice of a node's
+// neighbours a pass past W d of about 4,300, as in gather_score.cu) and
+// eight share an SM.
 
 #include "beam_merge.cuh"
 #include "neighbour_score.cuh"

@@ -41,7 +41,12 @@
 // SCORE_STAGE_BYTES in its two staging buffers: 3 nodes a pass at
 // W = 32, d = 128, two passes in flight, about 56 KB of shared memory, so
 // four blocks share an SM (PERF.md §6 has the shapes that were measured
-// against it).
+// against it). Past W d of about 13,000 (W = 32 at d = 1536, W = 64 at
+// d = 768) two buffers of one node pass that budget, and a pass holds a
+// slice of a node's neighbours, down to one vector. What still grows with
+// d is the float32 query row and two staged vectors, about 8 d bytes, so
+// a block fits the 200 KB a launch may take up to d of about 24,500;
+// past it the launch is refused.
 
 #define SENT_SLOT 2147483647
 #include "neighbour_score.cuh"

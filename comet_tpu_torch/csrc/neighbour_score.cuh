@@ -13,10 +13,12 @@
 //   1. the query, converted once to float32, and the nodes' aux rows go
 //      to shared memory; the aux rows come by asynchronous copies, and the
 //      slots are decoded from them (-1: no node or an empty entry);
-//   2. the live neighbours' vectors are staged in passes of `pass` nodes
+//   2. the live neighbours' vectors are staged in passes of `pass`
+//      candidates (whole nodes where two buffers of a node fit the
+//      staging budget, else slices of a node's neighbours, down to one
+//      vector, so the buffers stay within the budget whatever W d is)
 //      through two buffers: the copies of the next pass are in flight
-//      while the current one is scored. A row is
-//      copied by groups of up to 32 threads, each moving `unit` bytes a
+//      while the current one is scored. A vector is copied by groups of up to 32 threads, each moving `unit` bytes a
 //      copy (16-byte `cp.async` where the table's rows allow it; 8 and 4
 //      bytes, then plain 2-byte copies, for rows off those boundaries, e.g.
 //      packed rows of 152 bytes or d not a multiple of 8). A -1 node and an
@@ -26,6 +28,8 @@
 //      read from shared memory as float32 broadcasts and the neighbour's
 //      bf16 values widened by shift, two a 32-bit word; then
 //      max((qn + nsq) - 2 ip, 0).
+// A query with no node to expand skips steps 1-3 and gives (+inf, -1)
+// for every candidate.
 // A neighbour's vector lies in shared memory at a stride of an odd number
 // of 16-byte units (2 d + 16 bytes at d = 128), so the 8 threads of a
 // quarter warp reading 16 bytes of 8 consecutive neighbours at one depth
@@ -42,8 +46,8 @@ struct NbrGeom {
     int vec_elems;    // bf16 elements a staged neighbour vector
     int aux_len;      // bf16 elements an aux row, (1 + ndig) W
     int aux_elems;    // aux_len rounded up to 16 bytes
-    int pass;         // nodes a staging pass
-    int nbuf;         // staging buffers in use: 2, or 1 when one pass holds every node
+    int pass;         // candidates (node, neighbour) a staging pass
+    int nbuf;         // staging buffers in use: 2, or 1 when one pass holds every candidate
 };
 
 // Byte offsets of the regions: the query row, its norm, nodes, slots, aux
@@ -63,12 +67,13 @@ __host__ __device__ __forceinline__ NbrLayout nbr_layout(const NbrGeom& g, size_
     l.slots = l.nodes + nbr_align16(sizeof(int) * (size_t)g.E);
     l.aux = l.slots + nbr_align16(sizeof(int) * (size_t)g.E * g.W);
     l.stage = l.aux + 2 * (size_t)g.E * g.aux_elems;
-    l.end = l.stage + 2 * (size_t)g.nbuf * g.pass * g.W * g.vec_elems;
+    l.end = l.stage + 2 * (size_t)g.nbuf * g.pass * g.vec_elems;
     return l;
 }
 
 // The geometry of a block of E expanded nodes, with at most `stage_bytes`
-// in two staging buffers (at least one node a pass).
+// in two staging buffers: whole nodes a pass where a node fits, else as
+// many of a node's neighbours as fit (at least one).
 static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, size_t stage_bytes,
                                const void* vecs, const void* aux,
                                long long vec_stride, long long aux_stride)
@@ -89,11 +94,14 @@ static inline NbrGeom nbr_geom(int W, int d, int ndig, int E, size_t stage_bytes
     g.lanes_log2 = 0;
     while (g.lanes_log2 < 5 && (1 << g.lanes_log2) < chunks) ++g.lanes_log2;
     g.vec_elems = (((2 * d + 15) / 16) | 1) * 8;
-    const size_t node_bytes = 2 * (size_t)W * g.vec_elems;
-    g.pass = (int)(stage_bytes / (2 * node_bytes));
-    if (g.pass < 1) g.pass = 1;
-    if (g.pass > E) g.pass = E;
-    g.nbuf = g.pass < E ? 2 : 1;
+    const size_t vec_bytes = 2 * (size_t)g.vec_elems;
+    const size_t nodes_fit = stage_bytes / (2 * W * vec_bytes);
+    const size_t vecs_fit = stage_bytes / (2 * vec_bytes);
+    const size_t n_cand = (size_t)E * W;
+    size_t pass = nodes_fit >= 1 ? nodes_fit * W : (vecs_fit >= 1 ? vecs_fit : 1);
+    if (pass > n_cand) pass = n_cand;
+    g.pass = (int)pass;
+    g.nbuf = pass < n_cand ? 2 : 1;
     return g;
 }
 
@@ -212,29 +220,30 @@ __device__ __forceinline__ void issue_aux(const NbrGeom& g, const NbrSmem& s,
     }
 }
 
-// The live neighbour vectors of pass p's nodes into buffer p % nbuf: the
-// 2 d / U chunks of a vector go to a group of 2^lanes_log2 threads.
+// The live neighbour vectors of pass p's candidates into buffer p % nbuf:
+// the 2 d / U chunks of a vector go to a group of 2^lanes_log2 threads.
 template <int U>
 __device__ __forceinline__ void issue_pass(const NbrGeom& g, const NbrSmem& s,
                                            const bf16_t* __restrict__ vecs, long long vec_stride,
-                                           int n_nodes, int p)
+                                           int n_cand, int p)
 {
     const int chunks = 2 * g.d / U;
     const int lg = g.lanes_log2;
-    const int i0 = p * g.pass;
-    const int i1 = min(n_nodes, i0 + g.pass);
-    bf16_t* buf = s.stage + (size_t)(p % g.nbuf) * g.pass * g.W * g.vec_elems;
-    for (int i = i0; i < i1; ++i) {
-        const int node = s.nodes[i];
-        if (node < 0) continue;
-        const char* src = reinterpret_cast<const char*>(vecs + node * vec_stride);
-        char* dst = reinterpret_cast<char*>(buf + (size_t)(i - i0) * g.W * g.vec_elems);
-        for (int f = threadIdx.x; f < (g.W << lg); f += blockDim.x) {
-            const int j = f >> lg;
-            if (s.slots[i * g.W + j] < 0) continue;
-            for (int c = f & ((1 << lg) - 1); c < chunks; c += 1 << lg) {
-                copy_unit<U>(dst + 2 * j * g.vec_elems + c * U, src + 2 * j * g.d + c * U);
-            }
+    const int c0 = p * g.pass;
+    const int np = min(n_cand - c0, g.pass);
+    if (np <= 0) return;
+    char* buf = reinterpret_cast<char*>(s.stage + (size_t)(p % g.nbuf) * g.pass * g.vec_elems);
+    for (int f = threadIdx.x; f < (np << lg); f += blockDim.x) {
+        const int cl = f >> lg;
+        const int c = c0 + cl;
+        if (s.slots[c] < 0) continue;        // a -1 node or an empty entry
+        const int i = c / g.W;
+        const int j = c - i * g.W;
+        const char* src = reinterpret_cast<const char*>(vecs + s.nodes[i] * vec_stride) +
+                          2 * (size_t)j * g.d;
+        char* dst = buf + 2 * (size_t)cl * g.vec_elems;
+        for (int k = f & ((1 << lg) - 1); k < chunks; k += 1 << lg) {
+            copy_unit<U>(dst + k * U, src + k * U);
         }
     }
 }
@@ -267,8 +276,8 @@ __device__ __forceinline__ void issue_pass_any(const NbrGeom& g, const NbrSmem& 
 // for each neighbour j < W, with
 // (+inf, -1) for a -1 node or an empty entry, in the order of i W + j
 // within a pass across the threads. The staging starts at byte `base` of
-// smem (nbr_layout). Ends with a barrier after the last read of the
-// staging buffers, with no copy in flight.
+// smem (nbr_layout). Ends with a barrier after the last emit and the last
+// read of the staging buffers, with no copy in flight.
 template <typename Emit>
 __device__ __forceinline__ void score_neighbours(
     const NbrGeom& g, unsigned char* smem, size_t base,
@@ -280,15 +289,26 @@ __device__ __forceinline__ void score_neighbours(
     const NbrSmem s = nbr_smem(smem, g, base);
     const int tid = threadIdx.x;
     const int n_nodes = g.E;
-    for (int i = tid; i < n_nodes; i += blockDim.x) s.nodes[i] = nodes[i];
+    const int n_cand = n_nodes * g.W;
+    int live = 0;
+    for (int i = tid; i < n_nodes; i += blockDim.x) {
+        s.nodes[i] = nodes[i];
+        live |= nodes[i] >= 0;
+    }
+    if (!__syncthreads_or(live)) {       // nothing to expand: no copy, no pass
+        for (int c = tid; c < n_cand; c += blockDim.x) {
+            emit(c / g.W, c % g.W, CUDART_INF_F, -1);
+        }
+        __syncthreads();
+        return;
+    }
     for (int k = tid; k < g.d; k += blockDim.x) s.qs[k] = to_f32(qb[k]);
     if (tid == 0) s.qn[0] = *qn;
-    __syncthreads();
     issue_aux_any(g, s, aux, aux_stride, n_nodes);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    for (int f = tid; f < n_nodes * g.W; f += blockDim.x) {
+    for (int f = tid; f < n_cand; f += blockDim.x) {
         const int i = f / g.W;
         const int j = f - i * g.W;
         s.slots[f] = s.nodes[i] >= 0
@@ -296,22 +316,22 @@ __device__ __forceinline__ void score_neighbours(
     }
     __syncthreads();
 
-    const int n_pass = (n_nodes + g.pass - 1) / g.pass;
-    issue_pass_any(g, s, vecs, vec_stride, n_nodes, 0);
+    const int n_pass = (n_cand + g.pass - 1) / g.pass;
+    issue_pass_any(g, s, vecs, vec_stride, n_cand, 0);
     cp_async_commit();
     for (int p = 0; p < n_pass; ++p) {
-        issue_pass_any(g, s, vecs, vec_stride, n_nodes, p + 1);
+        issue_pass_any(g, s, vecs, vec_stride, n_cand, p + 1);
         cp_async_commit();
         cp_async_wait<1>();               // pass p has landed, pass p + 1 may be in flight
         __syncthreads();
-        const int i0 = p * g.pass;
-        const int np = min(n_nodes - i0, g.pass);
-        const bf16_t* buf = s.stage + (size_t)(p % g.nbuf) * g.pass * g.W * g.vec_elems;
-        for (int f = tid; f < np * g.W; f += blockDim.x) {
-            const int il = f / g.W;
-            const int j = f - il * g.W;
-            const int i = i0 + il;
-            const int slot = s.slots[i * g.W + j];
+        const int c0 = p * g.pass;
+        const int np = min(n_cand - c0, g.pass);
+        const bf16_t* buf = s.stage + (size_t)(p % g.nbuf) * g.pass * g.vec_elems;
+        for (int f = tid; f < np; f += blockDim.x) {
+            const int c = c0 + f;
+            const int i = c / g.W;
+            const int j = c - i * g.W;
+            const int slot = s.slots[c];
             float dist = CUDART_INF_F;
             if (slot >= 0) {
                 dist = staged_dist(s.qs, s.qn[0], buf + (size_t)f * g.vec_elems,

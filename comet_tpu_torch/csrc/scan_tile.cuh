@@ -55,19 +55,23 @@ __device__ __forceinline__ float scan_distance(float ip, float qni, float m, flo
 }
 
 // Opt `Kernel` in to `smem` bytes of dynamic shared memory (past the
-// default 48 KiB with its static scratch), once for each larger size: the
-// attribute stays set, and the call is host time on every launch of the
-// beam's loop. Returns a CUDA error code.
+// default 48 KiB with its static scratch) on the current device, once for
+// each larger size a device: the attribute stays set on that device, and
+// the call is host time on every launch of the beam's loop. Returns a
+// CUDA error code.
 template <auto Kernel>
 static inline int smem_attr(size_t smem)
 {
-    static size_t raised = 48 * 1024 - 1024;
+    constexpr int MAX_DEVICES = 64;
+    static size_t raised[MAX_DEVICES] = {};
     if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
-    if (smem > raised) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        raised = smem;
-    }
+    if (smem + 1024 <= 48 * 1024) return 0;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES && smem <= raised[dev]) return 0;
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) raised[dev] = smem;
     return 0;
 }

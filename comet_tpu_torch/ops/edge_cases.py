@@ -317,6 +317,14 @@ def k4_case(q_n: int, ef: int, ew: int, kr: int, seed: int = 0, mid_search: bool
     return bd, bs, be, nd, ns, rd[:, :kr], rs[:, :kr], adm
 
 
+def equal(what: str, got, want, names=None) -> None:
+    """Each output of `got` (a tensor or None) equal to `want`'s; raises
+    naming the first that differs (`names[i]`, else its index)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{what}: {names[i] if names else f'output {i}'} differs")
+
+
 def check_k4(dev: torch.device, q_n: int, ef: int, ew: int, expand: int, stop: int, kr: int,
              seed: int = 0) -> None:
     """K4 (`beam_merge_step`, fused when kr > 0) array-equal to its plain
@@ -335,16 +343,17 @@ def check_k4(dev: torch.device, q_n: int, ef: int, ew: int, expand: int, stop: i
     want = beam_kernel._merge_plain(bd, bs, be, nd, ns, rd if fused else None,
                                     rs if fused else None, adm if fused else None,
                                     ef, ew, expand, fused, kr, stop)
-    for name, a, b in zip(("beam_d", "beam_s", "beam_e", "misc", "res_d", "res_s"), got, want):
-        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-            raise AssertionError(f"K4 {name} differs from its plain version at Q={q_n}, "
-                                 f"ef={ef}, ew={ew}, expand={expand}, stop={stop}, kr={kr}")
+    equal(f"K4 against its plain version at Q={q_n}, ef={ef}, ew={ew}, expand={expand}, "
+          f"stop={stop}, kr={kr}", got, want, ("beam_d", "beam_s", "beam_e", "misc", "res_d",
+                                               "res_s"))
 
 
-# (Q, E, W, d, cap) of the scoring kernel and K5: W 1-32, d 3-128, expand
+# (Q, E, W, d, cap) of the scoring kernel and K5: W 1-64, d 3-1536, expand
 # 1, 8 and 23 (several staging passes at W = 32, d = 128), Q 1, 130 and
 # 2048; cap 16500 > 128^2 makes ndig = 3, W = 4, d = 16 at cap 4096 packed
-# rows of 152 bytes, d = 3 and d = 100 vectors off a 16-byte boundary.
+# rows of 152 bytes, d = 3 and d = 100 vectors off a 16-byte boundary;
+# W = 32 at d = 1536 and W = 64 at d = 768, where two buffers of one node
+# pass the staging budget, so a pass holds a slice of a node's neighbours.
 SCORE_CASES = (
     (1, 1, 1, 3, 4096), (130, 8, 1, 16, 16500), (2048, 23, 1, 100, 4096),
     (130, 1, 1, 128, 4096), (2048, 8, 4, 3, 4096), (130, 8, 4, 16, 4096),
@@ -352,7 +361,7 @@ SCORE_CASES = (
     (130, 23, 12, 3, 16500), (2048, 1, 12, 16, 4096), (130, 8, 12, 100, 4096),
     (1, 8, 12, 128, 16500), (2048, 8, 32, 3, 4096), (130, 1, 32, 16, 16500),
     (1, 23, 32, 100, 4096), (2048, 23, 32, 128, 4096), (2048, 8, 32, 128, 16500),
-    (130, 23, 32, 128, 16500),
+    (130, 23, 32, 128, 16500), (130, 8, 32, 1536, 16500), (130, 8, 64, 768, 4096),
 )
 
 
@@ -388,12 +397,6 @@ def scoring_case(dev: torch.device, q_n: int, e: int, w: int, d: int, cap: int, 
     return tables, q.to(torch.bfloat16), beam_kernel.row_sqnorms(q), allowed
 
 
-def _equal(what: str, got, want) -> None:
-    for name, a, b in zip(("0", "1", "2", "3"), got, want):
-        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-            raise AssertionError(f"{what}: output {name} differs")
-
-
 def check_scoring(dev: torch.device, q_n: int, e: int, w: int, d: int, cap: int,
                   seed: int = 0) -> None:
     """The scoring kernel (`gather_score`) bit-equal to its plain version in
@@ -418,11 +421,11 @@ def check_scoring(dev: torch.device, q_n: int, e: int, w: int, d: int, cap: int,
                                      "layout's counter")
             what = (f"scoring kernel, {layout} table, {'fused' if fused else 'split'} mode, "
                     f"Q={q_n} E={e} W={w} d={d} cap={cap}")
-            _equal(what, got, beam_kernel._gather_score_plain(*args))
+            equal(what, got, beam_kernel._gather_score_plain(*args))
             if layout == "blocked":
                 blocked = got
             elif layout == "packed":
-                _equal(what + " against the blocked table", got, blocked)
+                equal(what + " against the blocked table", got, blocked)
 
 
 def check_k5(dev: torch.device, q_n: int, e: int, w: int, d: int, cap: int,
@@ -451,8 +454,8 @@ def check_k5(dev: torch.device, q_n: int, e: int, w: int, d: int, cap: int,
             if beam_kernel.FUSE_LAUNCHES != before + 1:
                 raise AssertionError("K5 did not count one launch")
             what = f"K5, {layout} table, Q={q_n} E={e} W={w} d={d} cap={cap} ef={ef} stop={stop}"
-            _equal(what, got, beam_kernel._fused_expand_plain(nodes, table, qb, qn, bds, bs, be,
+            equal(what, got, beam_kernel._fused_expand_plain(nodes, table, qb, qn, bds, bs, be,
                                                               ef, e, stop))
             split = beam_kernel.beam_merge_step(bds, bs, be, nd, ns, ef=ef, ew=ew, expand=e,
                                                 fused=False, stop=stop)
-            _equal(what + " against the split pair", got, split[:4])
+            equal(what + " against the split pair", got, split[:4])

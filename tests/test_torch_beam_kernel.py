@@ -243,7 +243,7 @@ def test_gather_score_matches_reference(fused, n, cap, w, d):
         torch.from_numpy(np.ascontiguousarray(nodes.T)), torch.from_numpy(allowed), thr, fused)
     np.testing.assert_array_equal(pnd.numpy(), np.asarray(rnd).T)
     np.testing.assert_array_equal(pns.numpy(), np.asarray(rns).T)
-    assert np.isinf(pnd.numpy()[0]).all()
+    assert np.isinf(pnd.numpy()[0]).all() and (pns.numpy()[0] == SENT).all()
     if fused:
         rns_t = np.asarray(rns).T
         want = (np.asarray(rok).T & allowed[np.where(rns_t == SENT, 0, rns_t)]
@@ -436,7 +436,7 @@ def test_gather_score_packed_matches_blocked_and_reference(fused, n, cap, w, d):
     nv, aux = bk.build_blocked_tables(t(adj), t(vectors), t(sqn))
     q = rng.integers(0, 256, size=(Q, d)).astype(np.float32)
     nodes = rng.integers(-1, n, size=(Q, e)).astype(np.int32)
-    nodes[0] = -1
+    nodes[0] = -1                             # a query with nothing to expand
     qn = (q * q).sum(axis=1)
     qb = t(q).to(torch.bfloat16)
     allowed = t(rng.random(cap) < 0.7)
@@ -452,6 +452,7 @@ def test_gather_score_packed_matches_blocked_and_reference(fused, n, cap, w, d):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(rnd).T)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(rns).T)
     assert np.isinf(got[0].numpy()[0]).all() and np.isfinite(got[0].numpy()).any()
+    assert (got[1].numpy()[0] == SENT).all()
 
 
 def _fuse_case():

@@ -580,10 +580,10 @@ def test_fused_expand_kernel_matches_plain(dev, q_n, ef, expand, w, d, stop):
 
 @pytest.mark.parametrize("q_n,e,w,d,cap", edge_cases.SCORE_CASES)
 def test_gather_score_edges_match_plain(dev, q_n, e, w, d, cap):
-    """The scoring kernel's staging at edge shapes (W 1-32, d 3-128, expand
-    1-23, Q 1-2048, ndig 2-3, packed rows off 16-byte boundaries, -1 nodes
-    and empty entries; ops/edge_cases.py): nd, ns and adm equal to the plain
-    version in both layouts and both modes."""
+    """The scoring kernel's staging at edge shapes (W 1-64, d 3-1536, expand
+    1-23, Q 1-2048, ndig 2-3, packed rows off 16-byte boundaries, passes of
+    a slice of a node, -1 nodes and empty entries; ops/edge_cases.py): nd,
+    ns and adm equal to the plain version in both layouts and both modes."""
     edge_cases.check_scoring(dev, q_n, e, w, d, cap)
 
 
