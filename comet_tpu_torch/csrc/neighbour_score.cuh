@@ -220,8 +220,9 @@ __device__ __forceinline__ void issue_aux(const NbrGeom& g, const NbrSmem& s,
     }
 }
 
-// The live neighbour vectors of pass p's candidates into buffer p % nbuf:
-// the 2 d / U chunks of a vector go to a group of 2^lanes_log2 threads.
+// The live neighbour vectors of pass p's candidates into buffer p % nbuf,
+// node by node (whole nodes, or a slice of one): the 2 d / U chunks of a
+// vector go to a group of 2^lanes_log2 threads.
 template <int U>
 __device__ __forceinline__ void issue_pass(const NbrGeom& g, const NbrSmem& s,
                                            const bf16_t* __restrict__ vecs, long long vec_stride,
@@ -230,20 +231,21 @@ __device__ __forceinline__ void issue_pass(const NbrGeom& g, const NbrSmem& s,
     const int chunks = 2 * g.d / U;
     const int lg = g.lanes_log2;
     const int c0 = p * g.pass;
-    const int np = min(n_cand - c0, g.pass);
-    if (np <= 0) return;
-    char* buf = reinterpret_cast<char*>(s.stage + (size_t)(p % g.nbuf) * g.pass * g.vec_elems);
-    for (int f = threadIdx.x; f < (np << lg); f += blockDim.x) {
-        const int cl = f >> lg;
-        const int c = c0 + cl;
-        if (s.slots[c] < 0) continue;        // a -1 node or an empty entry
-        const int i = c / g.W;
-        const int j = c - i * g.W;
-        const char* src = reinterpret_cast<const char*>(vecs + s.nodes[i] * vec_stride) +
-                          2 * (size_t)j * g.d;
-        char* dst = buf + 2 * (size_t)cl * g.vec_elems;
-        for (int k = f & ((1 << lg) - 1); k < chunks; k += 1 << lg) {
-            copy_unit<U>(dst + k * U, src + k * U);
+    const int c1 = min(n_cand, c0 + g.pass);
+    bf16_t* buf = s.stage + (size_t)(p % g.nbuf) * g.pass * g.vec_elems;
+    for (int i = c0 / g.W; i * g.W < c1; ++i) {
+        const int node = s.nodes[i];
+        if (node < 0) continue;
+        const int j0 = max(c0 - i * g.W, 0);
+        const int j1 = min(c1 - i * g.W, g.W);
+        const char* src = reinterpret_cast<const char*>(vecs + node * vec_stride);
+        for (int f = threadIdx.x; f < ((j1 - j0) << lg); f += blockDim.x) {
+            const int j = j0 + (f >> lg);
+            if (s.slots[i * g.W + j] < 0) continue;
+            char* dst = reinterpret_cast<char*>(buf + (size_t)(i * g.W + j - c0) * g.vec_elems);
+            for (int k = f & ((1 << lg) - 1); k < chunks; k += 1 << lg) {
+                copy_unit<U>(dst + k * U, src + 2 * j * g.d + k * U);
+            }
         }
     }
 }
@@ -295,6 +297,8 @@ __device__ __forceinline__ void score_neighbours(
         s.nodes[i] = nodes[i];
         live |= nodes[i] >= 0;
     }
+    for (int k = tid; k < g.d; k += blockDim.x) s.qs[k] = to_f32(qb[k]);
+    if (tid == 0) s.qn[0] = *qn;
     if (!__syncthreads_or(live)) {       // nothing to expand: no copy, no pass
         for (int c = tid; c < n_cand; c += blockDim.x) {
             emit(c / g.W, c % g.W, CUDART_INF_F, -1);
@@ -302,8 +306,6 @@ __device__ __forceinline__ void score_neighbours(
         __syncthreads();
         return;
     }
-    for (int k = tid; k < g.d; k += blockDim.x) s.qs[k] = to_f32(qb[k]);
-    if (tid == 0) s.qn[0] = *qn;
     issue_aux_any(g, s, aux, aux_stride, n_nodes);
     cp_async_commit();
     cp_async_wait<0>();
