@@ -1,7 +1,7 @@
 """Time HNSW search over one index with the kernel libraries of several
 source trees, in one process, in alternating turns.
 
-    python3 scripts/ab_hnsw_kernels.py TREE [TREE ...]
+    python3 scripts/ab_hnsw_kernels.py [--kernels-only] TREE [TREE ...]
 
 Each TREE is the root of a checkout of this repository (the parent's,
 unpacked with `git archive`, or `.`); its `comet_tpu_torch/csrc` is built
@@ -9,7 +9,13 @@ into its own `build/kernels`, all trees at once. The Python package is this
 checkout's in every turn: only the kernel library changes, so a difference
 between libraries is the kernels' and their launches', not the host code's.
 
-Builds chip_smoke.py's 1M x 128 graph (seed 0, M = 16), then for the
+First, for each library in two turns (the order reversed in the second),
+chip_smoke.py's `beam_section`: K4, K5 and the scoring kernel (packed and
+blocked) on its running search's state over the 1M x 128 corpus, held to
+their plain versions, timed, with their torch.profiler device times a
+launch. `--kernels-only` stops there.
+
+Then builds chip_smoke.py's 1M x 128 graph (seed 0, M = 16), then for the
 classic start (COMET_HNSW_SEED=0) and the seeded one: a warm batch a
 library, then TURNS turns of 4 steady 2048-query batches a library, the
 order of the libraries reversed every other turn, ids and scores held
@@ -21,6 +27,7 @@ a launch. Needs one NVIDIA card.
 
 from __future__ import annotations
 
+import argparse
 import os
 import statistics
 import subprocess
@@ -56,6 +63,20 @@ def libraries(trees):
     return libs
 
 
+def time_ms(fn, reps=5):
+    """Median CUDA-event time of `fn`, in ms, after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 def window(index, queries):
     """Device activity, wall time (ms) and the scoring kernel's mean device
     time a launch (us) over two batches under torch.profiler."""
@@ -80,12 +101,26 @@ def window(index, queries):
 
 
 def main():
-    trees = [os.path.abspath(t) for t in sys.argv[1:]]
-    if not trees or not torch.cuda.is_available():
-        sys.exit(__doc__.splitlines()[2].strip() + " (needs an NVIDIA card)")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--kernels-only", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("ab_hnsw_kernels: torch.cuda.is_available() is False; this needs an NVIDIA card")
+    trees = [os.path.abspath(t) for t in args.trees]
     libs = libraries(trees)
     rng = np.random.default_rng(0)
     corpus, queries, _ = cs.sift_like(rng, cs.N, cs.BATCH, cs.DIM)
+    x_dev = torch.from_numpy(corpus).cuda()
+    for turn in range(2):
+        for t in (trees if turn == 0 else trees[::-1]):
+            _build._lib = libs[t]
+            cs.beam_section(x_dev, queries, 0, x_dev.device, f"[{os.path.relpath(t, ROOT)}]",
+                            time_ms)
+    del x_dev
+    torch.cuda.empty_cache()
+    if args.kernels_only:
+        return
     _build._lib = libs[trees[-1]]
     index = HNSWIndex(cs.DIM, DistanceKind.L2, device="cuda")
     index.add_batch(corpus, ids=np.arange(1, cs.N + 1, dtype=np.uint32))
