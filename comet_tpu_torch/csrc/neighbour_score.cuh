@@ -28,8 +28,6 @@
 //      read from shared memory as float32 broadcasts and the neighbour's
 //      bf16 values widened by shift, two a 32-bit word; then
 //      max((qn + nsq) - 2 ip, 0).
-// A query with no node to expand skips steps 1-3 and gives (+inf, -1)
-// for every candidate.
 // A neighbour's vector lies in shared memory at a stride of an odd number
 // of 16-byte units (2 d + 16 bytes at d = 128), so the 8 threads of a
 // quarter warp reading 16 bytes of 8 consecutive neighbours at one depth
@@ -278,8 +276,8 @@ __device__ __forceinline__ void issue_pass_any(const NbrGeom& g, const NbrSmem& 
 // for each neighbour j < W, with
 // (+inf, -1) for a -1 node or an empty entry, in the order of i W + j
 // within a pass across the threads. The staging starts at byte `base` of
-// smem (nbr_layout). Ends with a barrier after the last emit and the last
-// read of the staging buffers, with no copy in flight.
+// smem (nbr_layout). Ends with a barrier after the last read of the
+// staging buffers, with no copy in flight.
 template <typename Emit>
 __device__ __forceinline__ void score_neighbours(
     const NbrGeom& g, unsigned char* smem, size_t base,
@@ -292,20 +290,10 @@ __device__ __forceinline__ void score_neighbours(
     const int tid = threadIdx.x;
     const int n_nodes = g.E;
     const int n_cand = n_nodes * g.W;
-    int live = 0;
-    for (int i = tid; i < n_nodes; i += blockDim.x) {
-        s.nodes[i] = nodes[i];
-        live |= nodes[i] >= 0;
-    }
+    for (int i = tid; i < n_nodes; i += blockDim.x) s.nodes[i] = nodes[i];
     for (int k = tid; k < g.d; k += blockDim.x) s.qs[k] = to_f32(qb[k]);
     if (tid == 0) s.qn[0] = *qn;
-    if (!__syncthreads_or(live)) {       // nothing to expand: no copy, no pass
-        for (int c = tid; c < n_cand; c += blockDim.x) {
-            emit(c / g.W, c % g.W, CUDART_INF_F, -1);
-        }
-        __syncthreads();
-        return;
-    }
+    __syncthreads();
     issue_aux_any(g, s, aux, aux_stride, n_nodes);
     cp_async_commit();
     cp_async_wait<0>();
