@@ -302,6 +302,22 @@ def tied_ids_hold(got_ids, got_scores, want_ids, queries, corpus):
     return bool(np.array_equal(true, got_scores[r, c]))
 
 
+def kernel_rows(prof):
+    """(device us, count, name) of each device event of a torch.profiler
+    trace (kernels, copies): the device's own rows only, not the CPU ops
+    that launched them, whose device time would count each kernel twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    return rows
+
+
 def profile_window(fn, label=""):
     """torch.profiler over `fn`: prints the kernels by device time and the
     device's busy and idle share of the window's wall time."""
@@ -313,13 +329,7 @@ def profile_window(fn, label=""):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
+    rows = kernel_rows(prof)
     busy = sum(r[0] for r in rows)
     print(f"profile{f' ({label})' if label else ''}: {busy / 1e3:.3f} ms of device activity in "
           f"{wall_us / 1e3:.3f} ms of wall time, idle share {1 - busy / wall_us:.3f}")
@@ -538,15 +548,13 @@ def device_us(fn, keys, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    rows = kernel_rows(prof)
     out = []
     for key in keys:
         tot = cnt = 0
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if key in e.key and us > 0:
-                tot, cnt = tot + us, cnt + e.count
+        for us, count, name in rows:
+            if key in name:
+                tot, cnt = tot + us, cnt + count
         if cnt < reps // 2:
             raise AssertionError(f"the profiler saw {cnt} launches of {key} in {reps} calls")
         out.append(tot / cnt)

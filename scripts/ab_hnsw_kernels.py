@@ -89,15 +89,10 @@ def window(index, queries):
             index.search_batch(queries, k=cs.K, ef_search=cs.EF_SEARCH)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = score = n = 0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        busy += us
-        if "gather_score" in e.key and us > 0:
-            score, n = score + us, n + e.count
-    return busy / 1e3, wall, score / max(n, 1), n
+    rows = cs.kernel_rows(prof)
+    score = [(us, count) for us, count, name in rows if "gather_score" in name]
+    n = sum(c for _, c in score)
+    return (sum(r[0] for r in rows) / 1e3, wall, sum(us for us, _ in score) / max(n, 1), n)
 
 
 def main():
