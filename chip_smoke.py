@@ -95,6 +95,34 @@
    `--profile` adds breakdowns of one insertion round and of two steady
    seeded and two classic batches of the grown index.
 
+8. Flat float16 and int8 storage: K2's float16 and int8 operands (the
+   scans the reference runs in XLA, comet_tpu/ops/topk.py:155) held
+   bit-equal to their plain versions on 256 queries x 1M x 128 (the int8
+   rows quantised with the abs-max scale the index fits) and timed, the
+   float16 product alone timed as torch.mm into float32 beside them; then
+   FlatIndex(storage="float16" | "int8") without and with `rerank`, each
+   equal to its plain pipeline on the card (256 queries): float16 ids and
+   scores equal to the float32 path (the data are exact in float16), int8
+   with its recall@100 against the float32 ids; queries/s, launches.
+9. PQ and IVFPQ at the reference's operating points (bench.py:293-361):
+   trained on the first 100,000 rows, m = 16, nbits = 8, the 1M corpus
+   added. PQ on its dense route (K2, K1) and on ADC (K1's selects) with
+   `pq.DECODED_BYTES_MAX` patched to 0; IVFPQ nlist 1024 with the
+   originals on the sparse route (K3, K1) at nprobe 1-32 and with nrefine
+   256 at nprobe 10 (the device re-rank), the dense route (K2's nprobe
+   mode) at nprobe 10 with and without nrefine, the LUT walk past the byte
+   cap, and an OPQ index at k = 10, nprobe 10, nrefine 64. Each search is
+   held to the same search with every wrapper on its plain version on the
+   card: array-equal on ADC and the walk; where K2 or K3 sums the trained
+   model's non-integer reconstructions, whose plain product (cuBLAS) adds
+   in another order, scores allclose(1e-5, 1e-4) with ids equal but at
+   near ties, and array-equal on an integer twin (the same codes with the
+   codebooks and centroids rounded, an OPQ rotation replaced by a signed
+   permutation), where every distance is exact. With recall@100 (recall@10
+   for OPQ) against the flat path's exact ids, train, add and search
+   times, queries/s and each route's launches.
+   `--profile` adds a breakdown of one IVFPQ nprobe-10 batch.
+
 Any mismatch raises, so the run exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it names the kernels with
 their launches, errors, times and bounds, and the line before that the card.
@@ -245,7 +273,7 @@ def reset_launches():
     from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
 
     sortnet.LAUNCHES = fused_scan.LAUNCHES = fused_scan.NPROBE_LAUNCHES = 0
-    fused_scan.BF16_LAUNCHES = 0
+    fused_scan.BF16_LAUNCHES = fused_scan.F16_LAUNCHES = fused_scan.INT8_LAUNCHES = 0
     ivf_sparse.LAUNCHES = ivf_sparse.BF16_LAUNCHES = 0
     beam_kernel.LAUNCHES = beam_kernel.FUSED_LAUNCHES = beam_kernel.SCORE_LAUNCHES = 0
     beam_kernel.PACKED_SCORE_LAUNCHES = beam_kernel.FUSE_LAUNCHES = 0
@@ -257,6 +285,8 @@ def read_launches():
     return {"topk_cl": sortnet.LAUNCHES, "fused_dist_select": fused_scan.LAUNCHES,
             "fused_dist_select_nprobe": fused_scan.NPROBE_LAUNCHES,
             "fused_dist_select_bf16": fused_scan.BF16_LAUNCHES,
+            "fused_dist_select_f16": fused_scan.F16_LAUNCHES,
+            "fused_dist_select_int8": fused_scan.INT8_LAUNCHES,
             "sparse_scan": ivf_sparse.LAUNCHES, "sparse_scan_bf16": ivf_sparse.BF16_LAUNCHES,
             "beam_merge": beam_kernel.LAUNCHES, "beam_merge_fused": beam_kernel.FUSED_LAUNCHES,
             "gather_score": beam_kernel.SCORE_LAUNCHES,
@@ -779,6 +809,290 @@ def flat_bf16_phase(corpus, queries, flat_ids, flat_scores, dev, tag, time_ms):
     return {"report": report, "launches": launches}
 
 
+def flat_lossy_phase(corpus, queries, flat_ids, flat_scores, dev, tag, time_ms):
+    """Section 8 of the module docstring. Returns {"report": K2's float16
+    and int8 operands, "launches": the float16 / int8 flat path's counts}."""
+    from comet_tpu_torch import DistanceKind, FlatIndex
+    from comet_tpu_torch.ops import fused_scan, sortnet
+
+    inf = float("inf")
+    x_dev = torch.from_numpy(corpus).to(dev)
+    q256 = torch.from_numpy(queries[:256]).to(dev)
+    # the scale the untrained int8 index fits to this corpus
+    scale = float(np.float32(max(float(np.abs(corpus).max()), 1e-30) / 127.0))
+    s_t = torch.tensor(scale, dtype=torch.float32, device=dev)
+    x8 = torch.clamp(torch.round(x_dev / s_t), -127, 127).to(torch.int8)
+    deq = x8.to(torch.float32) * s_t
+    operands = (("f16", x_dev.to(torch.float16), (x_dev * x_dev).sum(dim=1), None, 2),
+                ("int8", x8, (deq * deq).sum(dim=1), scale, 1))
+    del x_dev, deq
+    report = {}
+    for name, xs, mask, sc, width in operands:
+        dist, gsel = fused_scan.fused_dist_select(q256, xs, mask, inf, 128, scale=sc)
+        pdist, pgmin = fused_scan._fused_dist_select_plain(q256, xs, mask, inf, False,
+                                                           scale=sc)
+        pgsel = sortnet._topk_rows_plain(pgmin, None, 128)[1]
+        torch.cuda.synchronize()
+        if not (torch.equal(dist, pdist) and torch.equal(gsel, pgsel)):
+            raise AssertionError(f"K2's {name} operand differs from its plain version")
+        del dist, pdist, pgmin, gsel, pgsel
+        ms = time_ms(lambda: fused_scan._fused_scan_cuda(q256, xs, mask, inf, False, scale=sc))
+        pms = time_ms(lambda: fused_scan._fused_dist_select_plain(q256, xs, mask, inf, False,
+                                                                  scale=sc), reps=1)
+        # queries (float16 or bf16), the corpus and the mask read once; dist
+        # and the group minima written; the products at the 16-bit
+        # tensor-core peak (int8 rows widen exactly to bf16)
+        n_bytes = (2 * 256 * DIM + width * N * DIM + 4 * N + 4 * 256 * N
+                   + 4 * 256 * (N // 128))
+        key = f"fused_dist_select_{name}"
+        report[key] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
+                           bound=bound(n_bytes, 2 * 256 * N * DIM, PEAK_BF16))
+        b = report[key]["bound"]
+        extra = ""
+        if name == "f16":
+            qh = q256.to(torch.float16)
+            mm_ms = time_ms(lambda: torch.mm(qh, xs.T, out_dtype=torch.float32))
+            report[key]["mm_ms"] = mm_ms
+            extra = f"; the product alone, torch.mm(out_dtype=torch.float32), {mm_ms:.3f} ms"
+        print(f"K2 {name} operand 256 x {N} x {DIM} kb=128 L2: dist and group choice equal to "
+              f"plain; kernel {ms:.3f} ms, plain {pms:.3f} ms; bound {b[0]:.3f} ms ({b[1]})"
+              f"{extra} {tag}")
+    del operands, xs, mask, x8, q256
+    torch.cuda.empty_cache()
+
+    ids = np.arange(1, N + 1, dtype=np.uint32)
+    reset_launches()
+    for storage in ("float16", "int8"):
+        for rerank in (False, True):
+            index = FlatIndex(DIM, DistanceKind.L2, storage=storage, rerank=rerank,
+                              device="cuda")
+            index.add_batch(corpus, ids=ids)
+            t0 = time.perf_counter()
+            got = index.search_batch(queries, k=K)
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(ROUNDS):
+                again = index.search_batch(queries, k=K)
+            qps = ROUNDS * BATCH / (time.perf_counter() - t0)
+            if not (np.array_equal(again[0], got[0]) and np.array_equal(again[1], got[1])):
+                raise AssertionError(f"repeated flat {storage} searches differ")
+            with uncounted(), plain_versions():
+                plain = index.search_batch(queries[:256], k=K)
+            if not (np.array_equal(plain[0], got[0][:256])
+                    and np.array_equal(plain[1], got[1][:256])):
+                raise AssertionError(f"flat {storage} (rerank={rerank}) differs from the plain "
+                                     f"pipeline")
+            name = f"FlatIndex(storage={storage!r}, rerank={rerank}) {N} x {DIM} k={K}"
+            if storage == "float16":
+                if not (np.array_equal(got[0], flat_ids) and np.array_equal(got[1], flat_scores)):
+                    raise AssertionError(f"{name} differs from the float32 flat path")
+                held = "ids and scores equal to the float32 flat path"
+            else:
+                held = f"recall@{K} against the float32 ids {recall_at_k(got[0], flat_ids):.4f}"
+            print(f"{name}: equal to the plain pipeline (256 queries); {held}; {qps:.1f} "
+                  f"queries/s steady, first batch {first:.3f} s (the lossy copy included) {tag}")
+            report[f"qps_{storage}_rerank_{rerank}"] = qps
+            del index
+            torch.cuda.empty_cache()
+    launches = read_launches()
+    print(f"kernel launches of the float16 / int8 flat path ({4 * (1 + ROUNDS)} search_batch "
+          f"calls): {launches}")
+    if min(launches["fused_dist_select_f16"], launches["fused_dist_select_int8"],
+           launches["topk_cl"]) <= 0:
+        raise AssertionError(f"a kernel of the float16 / int8 flat path never launched: "
+                             f"{launches}")
+    return {"report": report, "launches": launches}
+
+
+PQ_M, PQ_NBITS = 16, 8           # bench.py's PQ / IVFPQ operating point
+
+
+def close_to_plain(name, ids, scores, p_ids, p_scores):
+    """A float32 scan of non-integer rows against its plain version, whose
+    product (cuBLAS) sums in another order than the kernels' FMA chain:
+    scores allclose(1e-5, 1e-4), and every id whose plain score lies below
+    the row's k-th by more than that tolerance present in the kernel's
+    row. Returns the positions whose ids differ (near ties)."""
+    np.testing.assert_allclose(scores, p_scores, rtol=1e-5, atol=1e-4,
+                               err_msg=f"{name}: scores differ from the plain route")
+    kth = p_scores[:, -1:]
+    safe = p_scores < kth - (1e-4 + 1e-5 * np.abs(kth))
+    for r in np.flatnonzero(safe.any(axis=1)):
+        if not np.isin(p_ids[r][safe[r]], ids[r]).all():
+            raise AssertionError(f"{name}: an id below the k-th score is missing (row {r})")
+    return int((ids != p_ids).sum())
+
+
+def snapped_twin(index):
+    """The index's state with its codebooks and centroids rounded to
+    integers and an OPQ rotation replaced by a signed permutation: on this
+    integer corpus every distance of every route is then exact, so each
+    route must be bit-equal to its plain version."""
+    from comet_tpu_torch import IVFPQIndex, PQIndex
+
+    st = index._store
+    rot = None
+    if index._rot is not None:
+        g = np.random.default_rng(1)
+        rot = (np.eye(DIM, dtype=np.float32)[g.permutation(DIM)]
+               * g.choice([-1.0, 1.0], DIM)).astype(np.float32)
+    books = np.rint(index._codebooks)
+    if isinstance(index, PQIndex):
+        return PQIndex.load_reference_state(st.ids, index._codes, st.valid, st.n, books, rot,
+                                            device="cuda")
+    return IVFPQIndex.load_reference_state(
+        st.ids, index._codes, index._assign, st.valid, st.n, np.rint(index._centroids), books,
+        rot, st.vectors if index._store_originals else None, device="cuda")
+
+
+def pq_search_checked(index, name, queries, flat_ids, tag, rounds=ROUNDS, recall_k=K,
+                      twin=None, **kw):
+    """search_batch through the kernels (a first batch, then `rounds` steady
+    ones), with recall against the flat path's exact ids and queries/s,
+    then the same batch with every wrapper on its plain version on the
+    card: array-equal, or, with a `twin` (a route whose float32 product
+    sums the trained model's non-integer rows), `close_to_plain` there and
+    array-equal on the twin's integer state. Returns (ids, scores,
+    launches)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, scores = index.search_batch(queries, k=recall_k, **kw)
+    first = time.perf_counter() - t0
+    qps = None
+    if rounds:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            again = index.search_batch(queries, k=recall_k, **kw)
+        qps = rounds * len(queries) / (time.perf_counter() - t0)
+        if not (np.array_equal(again[0], ids) and np.array_equal(again[1], scores)):
+            raise AssertionError(f"{name}: repeated searches differ")
+    launches = read_launches()
+    if ids.shape != (len(queries), recall_k) or not np.isfinite(scores).all():
+        raise AssertionError(f"{name}: bad result shape {ids.shape} or non-finite scores")
+    with uncounted():
+        with plain_versions():
+            p_ids, p_scores = index.search_batch(queries, k=recall_k, **kw)
+        if twin is None:
+            if not (np.array_equal(ids, p_ids) and np.array_equal(scores, p_scores)):
+                raise AssertionError(f"{name}: ids or scores differ from the plain route")
+            held = "ids and scores equal to the plain route"
+        else:
+            near = close_to_plain(name, ids, scores, p_ids, p_scores)
+            t_ids, t_scores = twin.search_batch(queries, k=recall_k, **kw)
+            with plain_versions():
+                tp_ids, tp_scores = twin.search_batch(queries, k=recall_k, **kw)
+            if not (np.array_equal(t_ids, tp_ids) and np.array_equal(t_scores, tp_scores)):
+                raise AssertionError(f"{name}: the integer twin differs from its plain route")
+            held = (f"allclose(1e-5, 1e-4) to the plain route ({near} ids at near ties "
+                    f"differ), the integer twin equal to its plain route")
+    rec = recall_at_k(ids, flat_ids[:len(queries), :recall_k])
+    used = {k: v for k, v in launches.items() if v}
+    print(f"{name}: {held}; recall@{recall_k} {rec:.4f}; "
+          + (f"{qps:.1f} queries/s steady, " if qps else "")
+          + f"first batch {first:.3f} s; launches {used} {tag}")
+    return ids, scores, launches
+
+
+def pq_phase(corpus, queries, flat_ids, tag, profile):
+    """Section 9 of the module docstring. Returns {"launches": the PQ and
+    IVFPQ paths' counts (the routes past the byte cap included)}."""
+    from comet_tpu_torch import DistanceKind, IVFPQIndex, PQIndex
+    from comet_tpu_torch.indexes import pq
+
+    ids = np.arange(1, N + 1, dtype=np.uint32)
+    total = {}
+
+    def add(launches):
+        for key, v in launches.items():
+            total[key] = total.get(key, 0) + v
+
+    def built(index, what):
+        t0 = time.perf_counter()
+        index.train(corpus[:N_TRAIN])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index.add_batch(corpus, ids=ids)
+        torch.cuda.synchronize()
+        print(f"{what}: train on {N_TRAIN} rows {t_train:.3f} s, add_batch {N} x {DIM} "
+              f"{time.perf_counter() - t0:.3f} s {tag}")
+        return index
+
+    # PQ: the dense route, then ADC past the byte cap
+    pqi = built(PQIndex(DIM, DistanceKind.L2, m=PQ_M, nbits=PQ_NBITS, device="cuda"),
+                f"PQIndex m={PQ_M} nbits={PQ_NBITS}")
+    twin = snapped_twin(pqi)
+    dense_ids, _, launches = pq_search_checked(pqi, "PQ dense route k=100", queries,
+                                               flat_ids, tag, twin=twin)
+    add(launches)
+    saved = pq.DECODED_BYTES_MAX
+    pq.DECODED_BYTES_MAX = 0
+    try:
+        adc_ids, _, launches = pq_search_checked(pqi, "PQ ADC route (byte cap 0) k=100",
+                                                 queries, flat_ids, tag, rounds=1)
+    finally:
+        pq.DECODED_BYTES_MAX = saved
+    add(launches)
+    del twin
+    print(f"PQ: the ADC route's ids differ from the dense route's at "
+          f"{int((adc_ids != dense_ids).sum())} of {adc_ids.size} places (near ties of "
+          f"the two float32 sums)")
+    del pqi
+    torch.cuda.empty_cache()
+
+    # IVFPQ nlist 1024 with the originals: the sparse route at each nprobe
+    ivf = built(IVFPQIndex(DIM, DistanceKind.L2, nlist=NLIST, m=PQ_M, nbits=PQ_NBITS,
+                           store_originals=True, device="cuda"),
+                f"IVFPQIndex nlist={NLIST} m={PQ_M} nbits={PQ_NBITS} store_originals")
+    twin = snapped_twin(ivf)
+    for nprobe in NPROBES:
+        _, _, launches = pq_search_checked(ivf, f"IVFPQ sparse route nprobe {nprobe:2d} k=100",
+                                           queries, flat_ids, tag, twin=twin, nprobes=nprobe)
+        add(launches)
+    _, _, launches = pq_search_checked(ivf, "IVFPQ sparse route nprobe 10 nrefine 256 k=100",
+                                       queries, flat_ids, tag, twin=twin, nprobes=10,
+                                       nrefine=256)
+    add(launches)
+    with env_set(COMET_IVFPQ_SPARSE="0"):
+        _, _, launches = pq_search_checked(ivf, "IVFPQ dense route nprobe 10 k=100", queries,
+                                           flat_ids, tag, rounds=1, twin=twin, nprobes=10)
+        add(launches)
+        _, _, launches = pq_search_checked(ivf, "IVFPQ dense route nprobe 10 nrefine 256 "
+                                           "k=100", queries, flat_ids, tag, rounds=1,
+                                           twin=twin, nprobes=10, nrefine=256)
+        add(launches)
+    del twin
+    saved = pq.DECODED_BYTES_MAX
+    pq.DECODED_BYTES_MAX = 0
+    try:
+        _, _, launches = pq_search_checked(ivf, "IVFPQ LUT walk (byte cap 0) nprobe 10 k=100",
+                                           queries, flat_ids, tag, rounds=1, nprobes=10)
+        add(launches)
+    finally:
+        pq.DECODED_BYTES_MAX = saved
+    if profile:
+        profile_window(lambda: ivf.search_batch(queries, k=K, nprobes=10),
+                       "IVFPQ sparse nprobe 10")
+    del ivf
+    torch.cuda.empty_cache()
+
+    # OPQ: recall@10 at nprobe 10 with nrefine
+    opq = built(IVFPQIndex(DIM, DistanceKind.L2, nlist=NLIST, m=PQ_M, nbits=PQ_NBITS,
+                           store_originals=True, opq=True, device="cuda"),
+                f"IVFPQIndex opq nlist={NLIST} m={PQ_M} nbits={PQ_NBITS}")
+    _, _, launches = pq_search_checked(opq, "IVFPQ OPQ sparse route nprobe 10 nrefine 64 k=10",
+                                       queries, flat_ids, tag, recall_k=10,
+                                       twin=snapped_twin(opq), nprobes=10, nrefine=64)
+    add(launches)
+    del opq
+    torch.cuda.empty_cache()
+    print(f"kernel launches of the PQ / IVFPQ paths: {total}")
+    for key in ("topk_cl", "fused_dist_select", "fused_dist_select_nprobe", "sparse_scan"):
+        if total.get(key, 0) <= 0:
+            raise AssertionError(f"a kernel of the PQ / IVFPQ paths never launched: {total}")
+    return {"launches": total}
+
+
 class plain_versions:
     """Inside, every wrapper of the package takes its plain version, also
     for CUDA tensors: searches run the plain beam on the same card tensors.
@@ -867,6 +1181,8 @@ class uncounted:
         fused_scan.LAUNCHES = s["fused_dist_select"]
         fused_scan.NPROBE_LAUNCHES = s["fused_dist_select_nprobe"]
         fused_scan.BF16_LAUNCHES = s["fused_dist_select_bf16"]
+        fused_scan.F16_LAUNCHES = s["fused_dist_select_f16"]
+        fused_scan.INT8_LAUNCHES = s["fused_dist_select_int8"]
         ivf_sparse.LAUNCHES, ivf_sparse.BF16_LAUNCHES = s["sparse_scan"], s["sparse_scan_bf16"]
         beam_kernel.LAUNCHES = s["beam_merge"]
         beam_kernel.FUSED_LAUNCHES = s["beam_merge_fused"]
@@ -1452,8 +1768,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace two steady flat, IVF and HNSW batches and one insertion "
-                         "round with torch.profiler")
+                    help="trace two steady flat, IVF and HNSW batches, one insertion "
+                         "round and one IVFPQ batch with torch.profiler")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after holding K1-K5 and the scoring kernel to their plain "
                          "versions at the main path's shapes and timing them")
@@ -1738,29 +2054,43 @@ def main():
     hnsw = hnsw_phase(corpus, queries, extra, c_corpus, c_queries, got_ids, dev, tag, time_ms,
                       args.profile)
 
+    # -- 8. flat float16 / int8 storage ---------------------------------------------------
+    fl8 = flat_lossy_phase(corpus, queries, got_ids, got_scores, dev, tag, time_ms)
+
+    # -- 9. PQ and IVFPQ ----------------------------------------------------------------------
+    pql = pq_phase(corpus, queries, got_ids, tag, args.profile)["launches"]
+
     def entry(name, source, replaces, key, n_launches):
         r = (report.get(key) or fb["report"].get(key) or ivf["report"].get(key)
-             or hnsw["report"][key])
+             or fl8["report"].get(key) or hnsw["report"][key])
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launches, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
 
-    il, hl, fl = ivf["launches"], hnsw["launches"], fb["launches"]
+    il, hl, fl, l8 = ivf["launches"], hnsw["launches"], fb["launches"], fl8["launches"]
     kernels = [
         entry("topk_cl", "comet_tpu_torch/csrc/topk.cu", "comet_tpu/ops/sortnet.py:142",
-              "topk_cl", launches["topk_cl"] + fl["topk_cl"] + il["topk_cl"] + hl["topk_cl"]),
+              "topk_cl", launches["topk_cl"] + fl["topk_cl"] + il["topk_cl"] + hl["topk_cl"]
+              + l8["topk_cl"] + pql["topk_cl"]),
         entry("fused_dist_select", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:63", "fused_dist_select",
-              launches["fused_dist_select"] + hl["fused_dist_select"]),
+              launches["fused_dist_select"] + hl["fused_dist_select"] + pql["fused_dist_select"]),
         entry("fused_dist_select_nprobe", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:100", "fused_dist_select_nprobe",
-              il["fused_dist_select_nprobe"]),
+              il["fused_dist_select_nprobe"] + pql["fused_dist_select_nprobe"]),
         entry("fused_dist_select_bf16", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:82", "fused_dist_select_bf16",
               fl["fused_dist_select_bf16"]),
+        entry("fused_dist_select_f16", "comet_tpu_torch/csrc/fused_scan.cu",
+              "comet_tpu/ops/topk.py:155", "fused_dist_select_f16",
+              l8["fused_dist_select_f16"]),
+        entry("fused_dist_select_int8", "comet_tpu_torch/csrc/fused_scan.cu",
+              "comet_tpu/ops/topk.py:155", "fused_dist_select_int8",
+              l8["fused_dist_select_int8"]),
         entry("sparse_scan", "comet_tpu_torch/csrc/ivf_sparse.cu",
-              "comet_tpu/ops/ivf_sparse.py:215", "sparse_scan", il["sparse_scan"]),
+              "comet_tpu/ops/ivf_sparse.py:215", "sparse_scan",
+              il["sparse_scan"] + pql["sparse_scan"]),
         entry("sparse_scan_bf16", "comet_tpu_torch/csrc/ivf_sparse.cu",
               "comet_tpu/ops/ivf_sparse.py:237", "sparse_scan_bf16", hl["sparse_scan_bf16"]),
         entry("beam_merge", "comet_tpu_torch/csrc/beam_merge.cu",

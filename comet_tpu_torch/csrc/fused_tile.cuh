@@ -26,9 +26,18 @@
 //   32 consecutive rows of one 16-byte column, so the transposing stores
 //   into shared memory are conflict-free. Rows that are not 16-byte aligned
 //   (d not a multiple of 4 floats or 8 bf16) take scalar loads instead.
-// - bf16 operands (T = bf16_t) are widened to float32 as they are staged
-//   (`ft_unpack`), so the product is the same FMA chain either way. K3
+// - bf16 and float16 operands (T = bf16_t, half_t; 8 values a 16-byte
+//   load) and an int8 corpus (T = i8_t) are widened to float32 as they are
+//   staged (`ft_unpack`), exactly, so the product is the same FMA chain
+//   whatever the operand. A thread stages 8 values of a slice, so int8
+//   rows take 8-byte loads (8 values) in place of 16-byte ones. The query
+//   and corpus types may differ (int8 rows meet bf16 queries). K3
 //   (ivf_sparse.cu) stages its chunk rows with the same loads.
+// - An int8 corpus is abs-max quantised: the wrapper passes its `scale`,
+//   and the inner product of the integer rows is multiplied by it before
+//   the epilogue, as the reference multiplies its int8 product
+//   (comet_tpu/ops/distance.py:84-88); the mask then holds squared norms
+//   of the dequantised rows.
 //
 // Sum order: every inner product starts at 0 and takes the depth in
 // ascending order, one `dot_fma` a step (scan_tile.cuh), the order of K3's
@@ -41,6 +50,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "scan_tile.cuh"
 
 #define FT_BM 128        // queries per tile
@@ -51,7 +62,16 @@
 // Operands one thread stages per slice: FT_BM x FT_BK / FT_THREADS values.
 #define FT_PER_THREAD 8
 
-// The float32 values of 16 loaded bytes: 4 float32 or 8 bf16 at v[0 ..).
+// Bytes one load of an operand of type T moves: 16, but 8 for int8,
+// whose 16 bytes would hold twice the 8 values a thread stages a slice.
+template <typename T>
+struct ft_width {
+    static constexpr int BYTES = sizeof(T) == 1 ? 8 : 16;
+    static constexpr int VW = BYTES / (int)sizeof(T);   // values a load
+};
+
+// The float32 values of one load: 4 float32, 8 bf16 or 8 float16 from 16
+// bytes (w), or 8 int8 from the first 8 bytes (w.x, w.y), at v[0 ..).
 template <typename T>
 __device__ __forceinline__ void ft_unpack(uint4 w, float* v)
 {
@@ -60,6 +80,22 @@ __device__ __forceinline__ void ft_unpack(uint4 w, float* v)
         v[1] = __uint_as_float(w.y);
         v[2] = __uint_as_float(w.z);
         v[3] = __uint_as_float(w.w);
+    } else if constexpr (sizeof(T) == 1) {
+        // little-endian: element i is byte i % 4 of word i / 4
+        const unsigned lo = w.x, hi = w.y;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            v[e] = (float)(signed char)(lo >> (8 * e));
+            v[4 + e] = (float)(signed char)(hi >> (8 * e));
+        }
+    } else if constexpr (std::is_same<T, half_t>::value) {
+        const unsigned words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&words[i]));
+            v[2 * i] = f.x;
+            v[2 * i + 1] = f.y;
+        }
     } else {
         // little-endian: element 2i is the low half of word i
         v[0] = __uint_as_float(w.x << 16);
@@ -75,13 +111,14 @@ __device__ __forceinline__ void ft_unpack(uint4 w, float* v)
 
 // Loads this thread's share of the depth slice [k0, k0 + FT_BK) of `rows`
 // rows (row stride d) starting at `base`, widened to float32; rows past
-// `valid` and depths past d give 0. VEC: 16-byte loads (base 16-byte
-// aligned and d a multiple of the elements in 16 bytes).
+// `valid` and depths past d give 0. VEC: vector loads of
+// ft_width<T>::BYTES (base aligned to them and d a multiple of the values
+// a load holds).
 template <typename T, bool VEC>
 __device__ __forceinline__ void ft_load(
     const T* __restrict__ base, int valid, int d, int k0, float (&v)[FT_PER_THREAD])
 {
-    constexpr int VW = 16 / sizeof(T);
+    constexpr int VW = ft_width<T>::VW;
     constexpr int UNITS = FT_PER_THREAD / VW;
 #pragma unroll
     for (int u = 0; u < UNITS; ++u) {
@@ -91,7 +128,15 @@ __device__ __forceinline__ void ft_load(
         const T* p = base + (long long)row * d + gk;
         if (VEC) {
             uint4 w = make_uint4(0u, 0u, 0u, 0u);
-            if (row < valid && gk < d) w = __ldg(reinterpret_cast<const uint4*>(p));
+            if (row < valid && gk < d) {
+                if constexpr (ft_width<T>::BYTES == 16) {
+                    w = __ldg(reinterpret_cast<const uint4*>(p));
+                } else {
+                    const uint2 h = __ldg(reinterpret_cast<const uint2*>(p));
+                    w.x = h.x;
+                    w.y = h.y;
+                }
+            }
             ft_unpack<T>(w, v + u * VW);
         } else {
 #pragma unroll
@@ -104,7 +149,7 @@ __device__ __forceinline__ void ft_load(
 // Stores what ft_load loaded into the k-major slice S[FT_BK][FT_BM].
 template <typename T>
 __device__ __forceinline__ void ft_store(float (*S)[FT_BM], const float (&v)[FT_PER_THREAD]) {
-    constexpr int VW = 16 / sizeof(T);
+    constexpr int VW = ft_width<T>::VW;
     constexpr int UNITS = FT_PER_THREAD / VW;
 #pragma unroll
     for (int u = 0; u < UNITS; ++u) {
@@ -132,12 +177,14 @@ __device__ __forceinline__ int ft_pos(int t, int i) { return t * 4 + (i < 4 ? i 
 // row 0) of the tile, row stride dist_stride; gmin: the group minimum of
 // query 0, row stride gmin_stride. MODE SCAN_ALL or SCAN_ROW_BITS, with
 // assign (the tile's first row's cluster) and words (query 0's probe
-// bitmask, n_words words per query; see scan_tile.cuh).
-template <int MODE, typename T, bool VEC>
+// bitmask, n_words words per query; see scan_tile.cuh). TQ and TX are the
+// query and corpus operand types; an int8 corpus's inner products are
+// multiplied by `scale` before the epilogue.
+template <int MODE, typename TQ, typename TX, bool VEC>
 __device__ __forceinline__ void fused_tile(
-    const T* __restrict__ q, const float* __restrict__ qn, int q_valid,
-    const T* __restrict__ x, const float* __restrict__ mask, int d,
-    float thr, int cosine,
+    const TQ* __restrict__ q, const float* __restrict__ qn, int q_valid,
+    const TX* __restrict__ x, const float* __restrict__ mask, int d,
+    float thr, int cosine, float scale,
     const int* __restrict__ assign, const unsigned* __restrict__ words, int n_words,
     float* __restrict__ dist, long long dist_stride,
     float* __restrict__ gmin, long long gmin_stride)
@@ -156,10 +203,10 @@ __device__ __forceinline__ void fused_tile(
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
     float ra[FT_PER_THREAD], rb[FT_PER_THREAD];
-    ft_load<T, VEC>(q, q_valid, d, 0, ra);
-    ft_load<T, VEC>(x, FT_BN, d, 0, rb);
-    ft_store<T>(As[0], ra);
-    ft_store<T>(Bs[0], rb);
+    ft_load<TQ, VEC>(q, q_valid, d, 0, ra);
+    ft_load<TX, VEC>(x, FT_BN, d, 0, rb);
+    ft_store<TQ>(As[0], ra);
+    ft_store<TX>(Bs[0], rb);
     __syncthreads();
 
     const int n_slices = (d + FT_BK - 1) / FT_BK;
@@ -167,8 +214,8 @@ __device__ __forceinline__ void fused_tile(
         const int cur = s & 1;
         const bool more = s + 1 < n_slices;
         if (more) {
-            ft_load<T, VEC>(q, q_valid, d, (s + 1) * FT_BK, ra);
-            ft_load<T, VEC>(x, FT_BN, d, (s + 1) * FT_BK, rb);
+            ft_load<TQ, VEC>(q, q_valid, d, (s + 1) * FT_BK, ra);
+            ft_load<TX, VEC>(x, FT_BN, d, (s + 1) * FT_BK, rb);
         }
 #pragma unroll
         for (int kk = 0; kk < FT_BK; ++kk) {
@@ -185,8 +232,8 @@ __device__ __forceinline__ void fused_tile(
                     acc[i][j] = dot_fma(a[i], b[j], acc[i][j]);
         }
         if (more) {
-            ft_store<T>(As[cur ^ 1], ra);
-            ft_store<T>(Bs[cur ^ 1], rb);
+            ft_store<TQ>(As[cur ^ 1], ra);
+            ft_store<TX>(Bs[cur ^ 1], rb);
         }
         __syncthreads();
     }
@@ -208,7 +255,8 @@ __device__ __forceinline__ void fused_tile(
         float m = CUDART_INF_F;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-            float dd = scan_distance(acc[i][j], qni, m_row[j], thr, cosine);
+            const float ip = sizeof(TX) == 1 ? acc[i][j] * scale : acc[i][j];
+            float dd = scan_distance(ip, qni, m_row[j], thr, cosine);
             if (MODE == SCAN_ROW_BITS) {
                 const bool in = qok && probe_in(words + (long long)lq * n_words, n_words, a_row[j]);
                 dd = in ? dd : CUDART_INF_F;

@@ -13,9 +13,10 @@
 // K3 needs no per-row mask: its tile belongs to one cluster, so it computes
 // only the rows of the queries that probe it and writes +inf for the rest.
 //
-// The operands are float32 (T = float) or bfloat16 (T = bf16_t): bf16
-// values are widened to float32 as they are staged, so the product is the
-// same FMA chain either way. `dot_fma` is the one product step of every
+// The operands are float32 (T = float), bfloat16 (T = bf16_t), float16
+// (T = half_t) or int8 (T = i8_t, K2's corpus only): narrow values are
+// widened to float32 as they are staged, exactly, so the product is the
+// same FMA chain whatever the operand. `dot_fma` is the one product step of every
 // inner product in the package's kernels: an inner product starts at 0 and
 // takes the depth in ascending order, one `dot_fma` per element. K3's bf16
 // mode and the beam's in-loop scoring (gather_score.cu) both do so, and a
@@ -25,6 +26,7 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -32,9 +34,13 @@ enum { SCAN_ALL = 0, SCAN_ROW_BITS = 1 };
 
 // a bfloat16 value as its raw 16 bits (the top half of a float32)
 typedef unsigned short bf16_t;
+typedef __half half_t;
+typedef signed char i8_t;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16_t x) { return __uint_as_float((unsigned)x << 16); }
+__device__ __forceinline__ float to_f32(half_t x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(i8_t x) { return (float)x; }
 
 __device__ __forceinline__ float dot_fma(float a, float b, float acc) { return fmaf(a, b, acc); }
 

@@ -67,17 +67,17 @@ def _additive_mask(ok, sqnorms, cosine: bool):
     return torch.where(ok, base, torch.full_like(base, float("inf")))
 
 
-def _mask_from_words(words32, ids, valid, sqnorms, cosine: bool):
-    """Additive +inf mask with the doc-ID filter expanded from packed 32-bit
-    words (bit i of word w = doc 32w + i). Ids beyond the words' span are
-    excluded. `words32` and `ids` are int64 tensors of the unsigned values."""
+def _words_ok(words32, ids, valid):
+    """Validity and the doc-ID filter expanded from packed 32-bit words (bit
+    i of word w = doc 32w + i), as [cap] bool. Ids beyond the words' span
+    are excluded. `words32` and `ids` are int64 tensors of the unsigned
+    values."""
     n_words = words32.shape[0]
     widx = ids >> 5
     in_range = widx < n_words
     w = words32[widx.clamp(max=n_words - 1)]
     fbit = (w >> (ids & 31)) & 1
-    ok = valid & in_range & (fbit == 1)
-    return _additive_mask(ok, sqnorms, cosine)
+    return valid & in_range & (fbit == 1)
 
 
 class SlotStore:
@@ -174,8 +174,9 @@ class SlotStore:
         self.version += 1
         self._sync_rows(np.array([slot]))
 
-    def flush(self) -> None:
-        """Hard-delete: compact live slots to the front (flat_index.go:266-299)."""
+    def flush(self) -> np.ndarray:
+        """Hard-delete: compact live slots to the front (flat_index.go:266-299).
+        Returns the old slots of the kept rows, in their new order."""
         keep = np.flatnonzero(self.valid[: self.n])
         m = len(keep)
         self.vectors[:m] = self.vectors[keep]
@@ -188,6 +189,7 @@ class SlotStore:
         self.deleted = 0
         self.id_to_slot = {int(i): s for s, i in enumerate(self.ids[:m].tolist())}
         self.version += 1
+        return keep
 
     # -- queries -----------------------------------------------------------
 
@@ -249,6 +251,7 @@ class VectorSearchBuilder:
         # per-index knobs, validated by the index that reads them
         self._nprobes: int | None = None      # IVF
         self._ef_search: int | None = None    # HNSW
+        self._nrefine: int | None = None      # IVFPQ
         # batch-API control: False skips copying the scores to the host
         self._wire_scores = True
 
@@ -304,6 +307,13 @@ class VectorSearchBuilder:
     def with_ef_search(self, ef_search: int) -> "VectorSearchBuilder":
         """Per-query beam width override (HNSW; 0 = the index default)."""
         self._ef_search = int(ef_search)
+        return self
+
+    def with_nrefine(self, nrefine: int) -> "VectorSearchBuilder":
+        """Exact re-ranking of the top `nrefine` ADC candidates (IVFPQ with
+        store_originals=True). The Go reference's README promises this knob
+        but its code never implements it (README.md:1779)."""
+        self._nrefine = int(nrefine)
         return self
 
     def execute(self) -> list[VectorResult]:
@@ -375,6 +385,7 @@ class BaseVectorIndex:
         document_ids: Iterable[int] | Bitset | None = None,
         nprobes: int | None = None,
         ef_search: int | None = None,
+        nrefine: int | None = None,
         aggregation=None,
         cutoff: int = -1,
         group_size: int = 1,
@@ -389,13 +400,13 @@ class BaseVectorIndex:
         output row; `group_size` > 1 aggregates each consecutive group of
         rows into one output row with `aggregation` (Sum by default).
         `wire_scores=False` leaves the scores on the device and returns zeros.
-        `nprobes` is the IVF probe count and `ef_search` the HNSW beam width
-        (other indexes ignore them).
+        `nprobes` is the IVF probe count, `ef_search` the HNSW beam width
+        and `nrefine` the IVFPQ re-rank depth (other indexes ignore them).
         """
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         self._check_dim(queries)
         builder = self._make_batch_builder(k, threshold, document_ids, nprobes, ef_search,
-                                           cutoff, group_size, wire_scores)
+                                           nrefine, cutoff, group_size, wire_scores)
         with self._lock:
             ids, scores = self._search_collect(self._search_launch(queries, builder))
         return _finish_rows(ids, scores, k, aggregation, cutoff, group_size)
@@ -409,6 +420,7 @@ class BaseVectorIndex:
         document_ids: Iterable[int] | Bitset | None = None,
         nprobes: int | None = None,
         ef_search: int | None = None,
+        nrefine: int | None = None,
         depth: int = 2,
         aggregation=None,
         cutoff: int = -1,
@@ -424,7 +436,7 @@ class BaseVectorIndex:
         """
         # validate eagerly: bad knob combinations raise at the call site
         builder = self._make_batch_builder(k, threshold, document_ids, nprobes, ef_search,
-                                           cutoff, group_size, wire_scores)
+                                           nrefine, cutoff, group_size, wire_scores)
         return self._search_stream_iter(
             batches, builder, k, depth, aggregation, cutoff, group_size
         )
@@ -449,7 +461,8 @@ class BaseVectorIndex:
             yield collect()
 
     def _make_batch_builder(
-        self, k, threshold, document_ids, nprobes, ef_search, cutoff, group_size, wire_scores
+        self, k, threshold, document_ids, nprobes, ef_search, nrefine, cutoff, group_size,
+        wire_scores,
     ) -> VectorSearchBuilder:
         if not wire_scores and (cutoff != -1 or group_size > 1):
             raise InvalidConfigError(
@@ -466,6 +479,7 @@ class BaseVectorIndex:
             builder._document_ids = [int(i) for i in document_ids]
         builder._nprobes = nprobes
         builder._ef_search = ef_search
+        builder._nrefine = nrefine
         return builder
 
     # -- helpers -------------------------------------------------------------
@@ -492,17 +506,24 @@ class BaseVectorIndex:
         words = doc_filter.word_mask(n_words).view(np.uint32).astype(np.int64)
         return torch.from_numpy(words).to(self._device)
 
-    def _slot_mask(self, builder: "VectorSearchBuilder") -> torch.Tensor:
-        """The kernels' additive mask over the slots: validity and the
+    def _slot_ok(self, builder: "VectorSearchBuilder") -> torch.Tensor:
+        """[cap] bool: the slots a search may return, validity and the
         doc-ID filter, which travels as packed words and is expanded
         against the slot ids on the device."""
-        _, sqnorms, valid = self._store.device_state()
-        cosine = self._distance_kind == DistanceKind.COSINE
+        valid = self._store.device_state()[2]
         doc_filter = DocumentFilter(builder._document_ids)
         if doc_filter.enabled:
-            return _mask_from_words(self._filter_words(doc_filter), self._device_ids(),
-                                    valid, sqnorms, cosine)
-        return _additive_mask(valid, sqnorms, cosine)
+            return _words_ok(self._filter_words(doc_filter), self._device_ids(), valid)
+        return valid
+
+    def _slot_mask(self, builder: "VectorSearchBuilder", sqnorms=None) -> torch.Tensor:
+        """The kernels' additive mask over the slots (`_slot_ok`). `sqnorms`
+        replaces the store's squared norms (an int8 copy's dequantised
+        ones)."""
+        if sqnorms is None:
+            sqnorms = self._store.device_state()[1]
+        return _additive_mask(self._slot_ok(builder), sqnorms,
+                              self._distance_kind == DistanceKind.COSINE)
 
     def _lookup_node_vectors(self, node_ids: Sequence[int]) -> list[np.ndarray]:
         """WithNode resolution (flat_index_search.go:171-196)."""

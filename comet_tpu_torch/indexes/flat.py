@@ -1,7 +1,7 @@
 """Flat (brute-force exact) vector index.
 
-Counterpart of comet_tpu/indexes/flat.py with float32 and bfloat16
-storage: exact kNN with soft delete + flush compaction, threshold, doc-ID
+Counterpart of comet_tpu/indexes/flat.py with float32, bfloat16, float16
+and int8 storage: exact kNN with soft delete + flush compaction, threshold, doc-ID
 pre-filter, multi-query aggregation, autocut, reranker, and the CFLT v2
 binary format (byte-compatible with the reference package).
 
@@ -11,9 +11,17 @@ select kernel, on a CPU index through their plain PyTorch versions. The
 doc-ID filter travels as packed 32-bit words and is expanded against the
 slot ids on the device.
 
-`storage="bfloat16"` scans a bf16 copy of the corpus, cast from the float32
-mirror once per store version, with K2's bf16 operand (queries rounded to
-bf16 for the product, float32 query norms and corpus squared norms);
+The lossy storages scan a copy of the corpus made on the device from the
+float32 mirror once per store version, with K2's operand of that type:
+- `storage="bfloat16"` and `"float16"`: a cast (queries rounded to the
+  same type for the product, float32 query norms and corpus squared
+  norms);
+- `storage="int8"`: symmetric abs-max quantisation (quantizer.go:180-247
+  of the Go reference), rows round(v / scale) clipped to [-127, 127] with
+  scale = abs-max / 127, fixed by `train(sample)` or, untrained, fitted
+  to the live rows of each store version; the queries are rounded to
+  bf16, the integer product is multiplied by the scale, and the mask
+  holds the squared norms of the dequantised rows.
 `rerank=True` over-fetches rerank_factor * k candidates and re-scores
 them exactly in float32 on the host. The host copy stays float32, so
 serialization and flush are lossless.
@@ -49,9 +57,8 @@ class FlatIndex(BaseVectorIndex):
     """Exact brute-force kNN index (reference: flat_index.go:65-94).
 
     `device` is "cuda" (the default) or "cpu". `storage` is "float32"
-    (exact, the reference's tie order) or "bfloat16" (module docstring);
-    "float16" and "int8" are not ported yet and raise. `rerank=True` needs
-    lossy storage.
+    (exact, the reference's tie order), "bfloat16", "float16" or "int8"
+    (module docstring). `rerank=True` needs lossy storage.
     """
 
     def __init__(
@@ -68,10 +75,6 @@ class FlatIndex(BaseVectorIndex):
             raise InvalidConfigError(
                 f"unsupported flat storage dtype: {storage!r} "
                 "(use float32, bfloat16, float16, or int8)")
-        if storage in ("float16", "int8"):
-            raise InvalidConfigError(
-                f"flat storage {storage!r} is not ported to comet_tpu_torch yet "
-                "(ROADMAP.md, Queue 1: f16/int8 flat storage)")
         if rerank and storage == "float32":
             raise InvalidConfigError(
                 "rerank=True needs lossy storage (the float32 scan is exact)")
@@ -79,7 +82,10 @@ class FlatIndex(BaseVectorIndex):
         self._storage = storage
         self._rerank = bool(rerank)
         self._rerank_factor = max(int(rerank_factor), 2)
-        self._dev_cast = None          # the bf16 corpus, for one store version
+        self._int8_scale = None        # trained int8 scale (None: fit per version)
+        self._dev_cast = None          # the lossy corpus copy, for one store version
+        self._dev_cast_sqn = None      # its dequantised squared norms (int8)
+        self._dev_scale = None         # its scale (int8)
         self._dev_cast_version = -1
 
     @classmethod
@@ -109,7 +115,18 @@ class FlatIndex(BaseVectorIndex):
         return VectorIndexKind.FLAT
 
     def train(self, vectors=None) -> None:
-        """Flat index requires no training (parity: flat Train is a no-op)."""
+        """Flat index requires no training (parity: flat Train is a no-op),
+        except int8 storage, where a sample fixes the abs-max scale
+        (Int8Quantizer.Train); untrained int8 fits the scale to the live
+        rows of each store version instead."""
+        if self._storage == "int8" and vectors is not None:
+            sample = np.atleast_2d(np.asarray(vectors, dtype=np.float32))
+            self._check_dim(sample)
+            prepped = preprocess(sample, self._distance_kind)
+            amax = float(np.abs(prepped).max()) if prepped.size else 0.0
+            with self._lock:
+                self._int8_scale = np.float32(max(amax, 1e-30) / 127.0)
+                self._dev_cast_version = -1    # requantise at the next search
         return None
 
     # -- mutation --------------------------------------------------------------
@@ -150,17 +167,37 @@ class FlatIndex(BaseVectorIndex):
 
     # -- search ---------------------------------------------------------------
 
-    def _device_corpus(self) -> torch.Tensor:
-        """The corpus the scan reads: the float32 mirror, or its bf16 copy
-        cast once per store version."""
-        vecs = self._store.device_state()[0]
+    def _device_corpus(self):
+        """What the scan reads: (corpus, squared norms for the mask or None
+        for the store's, int8 scale or None). The float32 mirror, or its
+        lossy copy made once per store version."""
+        vecs, _, valid = self._store.device_state()
         if self._storage == "float32":
-            return vecs
+            return vecs, None, None
         if self._dev_cast_version != self._store.version:
-            self._dev_cast = None      # free the old copy before the new one
-            self._dev_cast = vecs.to(torch.bfloat16)
+            self._dev_cast = self._dev_cast_sqn = None   # free the old copy first
+            if self._storage == "int8":
+                self._quantize_int8(vecs, valid)
+            else:
+                dtype = torch.bfloat16 if self._storage == "bfloat16" else torch.float16
+                self._dev_cast = vecs.to(dtype)
             self._dev_cast_version = self._store.version
-        return self._dev_cast
+        return self._dev_cast, self._dev_cast_sqn, self._dev_scale
+
+    def _quantize_int8(self, vecs, valid) -> None:
+        """The int8 copy of the float32 mirror, the squared norms of its
+        dequantised rows and its scale, as the reference quantises its host
+        copy (comet_tpu/indexes/flat.py:222-246)."""
+        scale = self._int8_scale
+        if scale is None:
+            live = vecs[valid]
+            amax = float(live.abs().max()) if live.numel() else 0.0
+            scale = np.float32(max(amax, 1e-30) / 127.0)
+        s = torch.tensor(scale, dtype=torch.float32, device=vecs.device)
+        self._dev_cast = torch.clamp(torch.round(vecs / s), -127, 127).to(torch.int8)
+        deq = self._dev_cast.to(torch.float32) * s
+        self._dev_cast_sqn = (deq * deq).sum(dim=1)
+        self._dev_scale = float(scale)
 
     def _search_launch(self, queries: np.ndarray, builder: VectorSearchBuilder):
         """Enqueue the search; the handle holds device tensors."""
@@ -178,9 +215,10 @@ class FlatIndex(BaseVectorIndex):
 
         qprep = preprocess(queries, kind)
         q = torch.as_tensor(qprep, device=self._device)
+        corpus, sqnorms, scale = self._device_corpus()
         s, i = flat_topk_pipeline(
-            q, self._device_corpus(), self._slot_mask(builder), thr_k, k_want,
-            cosine=cosine, sqrt_out=kind == DistanceKind.L2,
+            q, corpus, self._slot_mask(builder, sqnorms), thr_k, k_want,
+            cosine=cosine, sqrt_out=kind == DistanceKind.L2, scale=scale,
         )
         if self._rerank:
             return ("rerank", i, store.ids, qprep, k_eff, builder._threshold)
@@ -261,7 +299,7 @@ class FlatIndex(BaseVectorIndex):
             raise serial.SerializationError("corrupt flat index payload")
         with self._lock:
             self._store = type(self._store)(dim, capacity=max(n, 1), device=self._device)
-            # the new store restarts its version at 0: drop the old bf16 copy
+            # the new store restarts its version at 0: drop the old lossy copy
             self._dev_cast, self._dev_cast_version = None, -1
             if n:
                 self._store.add_batch(ids.astype(np.uint32), vectors.astype(np.float32))

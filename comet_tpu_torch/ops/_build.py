@@ -48,9 +48,9 @@ SIGNATURES = {
     # vout, iout, out_row, out_col, stream
     "comet_topk_rows_global": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P,
                                _P, _P, _LL, _LL, _P],
-    # q, qn, x, mask, thr, Q, N, d, cosine, bf16, assign, words, n_words,
+    # q, qn, x, mask, thr, Q, N, d, cosine, operand, scale, assign, words, n_words,
     # dist, gmin, stream
-    "comet_fused_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
+    "comet_fused_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, ctypes.c_float,
                          _P, _P, _I, _P, _P, _P],
     # q, qn, x, mask, probes, P, chunk_ids, cluster_ids, order, thr, G, S, d,
     # cosine, bf16, dist, gmin, stream

@@ -68,6 +68,12 @@ def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+# float16 x float16 products are exact in float32 too (11 + 11 significand
+# bits), so K2's float16 operand sums them the same way and is bit-equal to
+# this plain version.
+f16_dot = bf16_dot
+
+
 def pairwise_scores(
     queries: torch.Tensor, corpus: torch.Tensor, kind: DistanceKind
 ) -> torch.Tensor:

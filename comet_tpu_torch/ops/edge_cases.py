@@ -73,10 +73,15 @@ def check_k1(dev: torch.device, k: int, width: int, seed: int = 0) -> None:
                                  f"({layout})")
 
 
+K2_INT8_SCALES = (1.0, 0.0371, 3.5)   # abs-max scales of the int8 corpus cases
+
+
 def k2_cases(q_n: int, d: int, n: int, dev: torch.device, seed: int = 0):
-    """K2's three modes at one shape: (name, queries, corpus, mask, kwargs,
-    cosine, exact). Integer data make float32 L2 exact; the bf16 operand is
-    bit-equal to its plain version on any data."""
+    """K2's modes at one shape: (name, queries, corpus, mask, kwargs,
+    cosine, exact). Integer data make float32 L2 exact; the bf16, float16
+    and int8 operands are bit-equal to their plain versions on any data
+    (float16 values past +-2048, where float16 rounds integers, and int8
+    rows at several scales with bf16-rounded Gaussian queries)."""
     g = np.random.default_rng((seed, q_n, d, n))
     inf = torch.tensor(float("inf"), device=dev)
     valid = torch.from_numpy(g.random(n) > 0.1).to(dev)
@@ -89,6 +94,13 @@ def k2_cases(q_n: int, d: int, n: int, dev: torch.device, seed: int = 0):
     xc = torch.from_numpy(preprocess(g.normal(size=(n, d)).astype(np.float32),
                                      DistanceKind.COSINE)).to(dev)
     zero = torch.zeros((), device=dev)
+    xh = (1000.0 * xg).to(torch.float16)      # |values| past 2048 round in float16
+    x8 = torch.from_numpy(g.integers(-127, 128, size=(n, d)).astype(np.int8)).to(dev)
+
+    def sqn8(sc):
+        deq = x8.to(torch.float32) * torch.tensor(sc, dtype=torch.float32, device=dev)
+        return (deq * deq).sum(1)
+
     probe = dict(assign=torch.from_numpy(g.integers(-1, 70, size=n).astype(np.int32)).to(dev),
                  probes=torch.from_numpy(g.integers(0, 70, size=(q_n, 8)).astype(np.int32)).to(dev),
                  nlist=70)
@@ -99,11 +111,19 @@ def k2_cases(q_n: int, d: int, n: int, dev: torch.device, seed: int = 0):
         ("bf16 L2", qg, xg.to(torch.bfloat16), torch.where(valid, (xg * xg).sum(1), inf), {},
          False, True),
         ("bf16 cosine", qc, xc.to(torch.bfloat16), torch.where(valid, zero, inf), {}, True, True),
+        ("float16 L2", 1000.0 * qg, xh, torch.where(valid, (xh.float() * xh.float()).sum(1), inf),
+         {}, False, True),
+        ("float16 cosine", qc, xc.to(torch.float16), torch.where(valid, zero, inf), {}, True, True),
+    ) + tuple(
+        (f"int8 L2 scale {sc}", qg, x8, torch.where(valid, sqn8(sc), inf), {"scale": sc}, False,
+         True) for sc in K2_INT8_SCALES
+    ) + (
+        ("int8 cosine", qc, x8, torch.where(valid, zero, inf), {"scale": 1.0 / 127}, True, True),
     )
 
 
 def check_k2(dev: torch.device, q_n: int, d: int, n: int, seed: int = 0) -> float:
-    """K2's three modes against their plain versions at one shape, without
+    """K2's modes and operands against their plain versions at one shape, without
     and with a threshold (the median finite distance): array-equal where
     `exact`, float32 cosine allclose(1e-5, 1e-6) with flips only at the
     threshold. Returns the largest absolute error of a finite entry."""

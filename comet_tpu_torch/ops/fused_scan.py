@@ -9,8 +9,9 @@ bfloat16 corpus) and the nprobe (IVF) mode of `fused_dist_select`,
 exact top-kb 128-row groups of every query, ranked by (group minimum,
 group id). On a CUDA tensor the distances and group minima come from the
 kernel of `csrc/fused_scan.cu` (see the note there), counted in `LAUNCHES`
-(flat mode), `NPROBE_LAUNCHES` (nprobe mode) or `BF16_LAUNCHES` (the
-flat mode's bf16 operand), and the group choice from
+(flat mode), `NPROBE_LAUNCHES` (nprobe mode), `BF16_LAUNCHES`,
+`F16_LAUNCHES` or `INT8_LAUNCHES` (the flat mode's bf16, float16 and int8
+corpus operands), and the group choice from
 K1 (ops/sortnet.py). On a CPU tensor both stages run their plain PyTorch
 versions; the device alone decides.
 
@@ -26,6 +27,22 @@ the queries are rounded to bf16 for the product, which accumulates the
 exact bf16 products in float32 from 0 in ascending depth (`bf16_dot`, the
 kernel's FMA chain); `qn` stays the norm of the float32 queries
 (pallas_scan.py:187) and the mask the float32 squared norms.
+
+A float16 or int8 corpus (flat `storage="float16"|"int8"`) is the scan
+the reference runs in XLA (`block_topk` through
+`pairwise_scores_from_norms`, comet_tpu/ops/distance.py:60-96): float16
+rounds the queries to float16 (`f16_dot`); int8 rounds them to bf16,
+widens the rows exactly, and multiplies the float32 sum by the corpus's
+abs-max `scale` before the epilogue, whose mask holds the squared norms of
+the dequantised rows. Where the reference takes the square root inside
+its scan and thresholds the root, these pipelines select on the squared
+distance with the threshold squared and take `sqrt_f32` at the end, as
+the flat float32 and bf16 scans do.
+
+`kb_cap` (0 = off) keeps fewer selection groups than the exactness bound,
+for callers that want an approximate shortlist (the nrefine candidates
+of IVFPQ, pallas_scan.py:309-313): the best kb_cap rows stay exact, and
+ranks past it come from the kept groups.
 
 The mask vector carries the validity of each row: for L2 it holds the
 squared norms with +inf on invalid rows, for cosine 0 with +inf on invalid
@@ -50,6 +67,7 @@ import torch
 from comet_tpu_torch.ops import _build
 from comet_tpu_torch.ops.distance import (
     bf16_dot,
+    f16_dot,
     f32_matmul,
     pairwise_scores_from_norms,
     sqrt_f32,
@@ -62,10 +80,17 @@ GROUP = 128   # rows per selection group
 TQ = 256      # queries per pipeline chunk: bounds dist at TQ * N floats
 
 # Kernel launches made by `_fused_scan_cuda`: flat mode, nprobe mode, the
-# flat mode's bf16 operand.
+# flat mode's bf16, float16 and int8 corpus operands.
 LAUNCHES = 0
 NPROBE_LAUNCHES = 0
 BF16_LAUNCHES = 0
+F16_LAUNCHES = 0
+INT8_LAUNCHES = 0
+
+# The kernel's operand codes (csrc/fused_scan.cu) by corpus dtype, and the
+# dtype the queries are rounded to for the product.
+OPERANDS = {torch.float32: (0, torch.float32), torch.bfloat16: (1, torch.bfloat16),
+            torch.float16: (2, torch.float16), torch.int8: (3, torch.bfloat16)}
 
 
 def _probe_words(probes: torch.Tensor, nlist: int) -> torch.Tensor:
@@ -90,12 +115,19 @@ def _probe_member(probes: torch.Tensor, assign: torch.Tensor, nlist: int) -> tor
 
 
 def _fused_dist_select_plain(queries, corpus, mask_vec, thr: float, cosine: bool,
-                             assign=None, probes=None, nlist: int = 0):
+                             assign=None, probes=None, nlist: int = 0, scale=None):
     """Plain PyTorch distances and group minima, in the kernel's order of
-    operations; nprobe mode when `assign` is given, the bf16 operand for a
-    bfloat16 corpus. Returns (dist [Q, N], gmin [Q, N // GROUP])."""
-    if corpus.dtype == torch.bfloat16:
-        ip = bf16_dot(queries.to(torch.bfloat16)[:, None, :], corpus[None, :, :])
+    operations; nprobe mode when `assign` is given, the bf16, float16 or
+    int8 operand for a corpus of that dtype (int8 with its `scale`).
+    Returns (dist [Q, N], gmin [Q, N // GROUP])."""
+    if corpus.dtype != torch.float32:
+        qr = queries.to(OPERANDS[corpus.dtype][1])[:, None, :]
+        if corpus.dtype == torch.float16:
+            ip = f16_dot(qr, corpus[None, :, :])
+        else:
+            ip = bf16_dot(qr, corpus[None, :, :])
+        if corpus.dtype == torch.int8:
+            ip = ip * torch.tensor(scale, dtype=torch.float32, device=ip.device)
         if cosine:
             dist = (1.0 - torch.clamp(ip, -1.0, 1.0)) + mask_vec[None, :]
         else:
@@ -119,17 +151,18 @@ def _fused_dist_select_plain(queries, corpus, mask_vec, thr: float, cosine: bool
 
 
 def _fused_scan_cuda(queries, corpus, mask_vec, thr: float, cosine: bool,
-                     assign=None, probes=None, nlist: int = 0):
-    """Launch K2 (nprobe mode when `assign` is given, the bf16 operand for a
-    bfloat16 corpus). Returns (dist [Q, N], gmin [Q, N // GROUP])."""
-    global LAUNCHES, NPROBE_LAUNCHES, BF16_LAUNCHES
+                     assign=None, probes=None, nlist: int = 0, scale=None):
+    """Launch K2 (nprobe mode when `assign` is given, the bf16, float16 or
+    int8 operand for a corpus of that dtype, int8 with its `scale`).
+    Returns (dist [Q, N], gmin [Q, N // GROUP])."""
+    global LAUNCHES, NPROBE_LAUNCHES, BF16_LAUNCHES, F16_LAUNCHES, INT8_LAUNCHES
     lib = _build.library()
     q_n, d = queries.shape
     n = corpus.shape[0]
     dev = queries.device
     qn = (queries * queries).sum(dim=1)
-    bf16 = corpus.dtype == torch.bfloat16
-    q = queries.to(torch.bfloat16).contiguous() if bf16 else queries
+    operand, q_dtype = OPERANDS[corpus.dtype]
+    q = queries.to(q_dtype).contiguous()
     words, n_words = None, 0
     if assign is not None:
         words = _probe_words(probes, nlist)
@@ -138,14 +171,19 @@ def _fused_scan_cuda(queries, corpus, mask_vec, thr: float, cosine: bool,
     gmin = torch.empty((q_n, n // GROUP), dtype=torch.float32, device=dev)
     code = lib.comet_fused_scan(
         q.data_ptr(), qn.data_ptr(), corpus.data_ptr(),
-        mask_vec.data_ptr(), thr, q_n, n, d, int(cosine), int(bf16),
+        mask_vec.data_ptr(), thr, q_n, n, d, int(cosine), operand,
+        float(scale) if scale is not None else 1.0,
         assign.data_ptr() if assign is not None else None,
         words.data_ptr() if words is not None else None, n_words,
         dist.data_ptr(), gmin.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if bf16:
+    if corpus.dtype == torch.bfloat16:
         BF16_LAUNCHES += 1
+    elif corpus.dtype == torch.float16:
+        F16_LAUNCHES += 1
+    elif corpus.dtype == torch.int8:
+        INT8_LAUNCHES += 1
     elif assign is None:
         LAUNCHES += 1
     else:
@@ -156,7 +194,7 @@ def _fused_scan_cuda(queries, corpus, mask_vec, thr: float, cosine: bool,
 
 def fused_dist_select(
     queries: torch.Tensor,    # [Q, d] float32
-    corpus: torch.Tensor,     # [N, d] float32 or bfloat16, N % GROUP == 0
+    corpus: torch.Tensor,     # [N, d] float32, bfloat16, float16 or int8, N % GROUP == 0
     mask_vec: torch.Tensor,   # [N] float32 additive mask (+inf = invalid)
     threshold: float,         # +inf disables
     kb: int,                  # groups to keep per query
@@ -164,6 +202,7 @@ def fused_dist_select(
     assign: torch.Tensor | None = None,   # [N] int32 cluster per row (nprobe mode)
     probes: torch.Tensor | None = None,   # [Q, P] int32 probed clusters
     nlist: int = 0,                       # clusters: ids lie in [0, nlist)
+    scale: float | None = None,           # an int8 corpus's abs-max scale
 ):
     """Returns (dist [Q, N] float32 with +inf on masked, over-threshold or
     (nprobe mode) unprobed entries, gsel [Q, kb] int32: the top-kb group
@@ -176,7 +215,7 @@ def fused_dist_select(
     if mask_vec.shape != (n,):
         raise ValueError(f"mask_vec must be [{n}], got {tuple(mask_vec.shape)}")
     for name, t in (("queries", queries), ("corpus", corpus), ("mask_vec", mask_vec)):
-        if t.dtype != torch.float32 and not (name == "corpus" and t.dtype == torch.bfloat16):
+        if t.dtype != torch.float32 and not (name == "corpus" and t.dtype in OPERANDS):
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if t.device != queries.device:
             raise ValueError(f"{name} is on {t.device}, queries on {queries.device}")
@@ -186,6 +225,10 @@ def fused_dist_select(
         raise ValueError("nprobe mode needs both assign and probes")
     if assign is not None and corpus.dtype != torch.float32:
         raise ValueError("nprobe mode needs a float32 corpus")
+    if (scale is None) != (corpus.dtype != torch.int8):
+        raise ValueError("an int8 corpus needs its scale, and only an int8 corpus takes one")
+    if scale is not None:
+        scale = float(np.float32(scale))
     if assign is not None:
         if assign.shape != (n,) or assign.dtype != torch.int32:
             raise ValueError(f"assign must be int32 [{n}], got {assign.dtype} {tuple(assign.shape)}")
@@ -200,26 +243,26 @@ def fused_dist_select(
     thr = float(np.float32(threshold))
     if use_plain(queries):
         dist, gmin = _fused_dist_select_plain(queries, corpus, mask_vec, thr, cosine,
-                                              assign, probes, nlist)
+                                              assign, probes, nlist, scale)
     else:
         dist, gmin = _fused_scan_cuda(
             queries.contiguous(), corpus.contiguous(), mask_vec.contiguous(),
             thr, cosine,
             assign.contiguous() if assign is not None else None,
-            probes.contiguous() if probes is not None else None, nlist,
+            probes.contiguous() if probes is not None else None, nlist, scale,
         )
     _, gsel = topk_rows(gmin, None, kb)
     return dist, gsel[:, :kb]
 
 
 def _chunk_topk(qc, corpus, mask_vec, thr, k, kb, cosine, sqrt_out,
-                assign=None, probes=None, nlist=0):
+                assign=None, probes=None, nlist=0, scale=None):
     """One chunk of queries: distances + group select -> gather -> exact
     top-k of the kept groups' rows. Returns ([T, k] scores, [T, k] slots)."""
     t = qc.shape[0]
     n_groups = corpus.shape[0] // GROUP
     dist, gsel = fused_dist_select(qc, corpus, mask_vec, thr, kb, cosine,
-                                   assign, probes, nlist)
+                                   assign, probes, nlist, scale)
     cand = torch.gather(
         dist.view(t, n_groups, GROUP), 1,
         gsel.long()[:, :, None].expand(t, kb, GROUP),
@@ -236,28 +279,34 @@ def _chunk_topk(qc, corpus, mask_vec, thr, k, kb, cosine, sqrt_out,
 
 def flat_topk_pipeline(
     queries: torch.Tensor,    # [Q, d] float32
-    corpus: torch.Tensor,     # [N, d] float32 or bfloat16
+    corpus: torch.Tensor,     # [N, d] float32, bfloat16, float16 or int8
     mask_vec: torch.Tensor,   # [N] float32 additive mask
     threshold: float,         # on the SQUARED distance for L2; +inf disables
     k: int,
     cosine: bool = False,
     sqrt_out: bool = False,
+    kb_cap: int = 0,
+    scale: float | None = None,
 ):
-    """Exact masked k-NN of every query. Returns (scores [Q, k] float32,
-    slots [Q, k] int32); empty slots carry (+inf, IDX_SENTINEL)."""
-    return _pipeline(queries, corpus, mask_vec, threshold, k, cosine, sqrt_out)
+    """Exact masked k-NN of every query (approximate past rank kb_cap when
+    kb_cap > 0; an int8 corpus takes its `scale`). Returns (scores [Q, k]
+    float32, slots [Q, k] int32); empty slots carry (+inf, IDX_SENTINEL)."""
+    return _pipeline(queries, corpus, mask_vec, threshold, k, cosine, sqrt_out,
+                     kb_cap=kb_cap, scale=scale)
 
 
 def _pipeline(queries, corpus, mask_vec, threshold, k, cosine, sqrt_out,
-              assign=None, probes=None, nlist=0):
+              assign=None, probes=None, nlist=0, kb_cap=0, scale=None):
     n_groups = corpus.shape[0] // GROUP
     if not 1 <= k <= n_groups * GROUP:
         raise ValueError(f"k={k} outside [1, {n_groups * GROUP}]")
     kb = min(max(1 << max(k - 1, 1).bit_length(), 8), n_groups)
+    if kb_cap:
+        kb = min(kb, max(1 << max(kb_cap - 1, 1).bit_length(), 8))
     outs = [
         _chunk_topk(queries[q0:q0 + TQ], corpus, mask_vec, threshold, k, kb,
                     cosine, sqrt_out, assign,
-                    probes[q0:q0 + TQ] if probes is not None else None, nlist)
+                    probes[q0:q0 + TQ] if probes is not None else None, nlist, scale)
         for q0 in range(0, queries.shape[0], TQ)
     ]
     if not outs:
@@ -301,15 +350,17 @@ def ivf_topk_pipeline(
     coarse_cosine: bool = False,
     cosine: bool = False,
     sqrt_out: bool = False,
+    kb_cap: int = 0,
 ):
     """IVF search as a dense masked scan (pallas_scan.ivf_topk_pipeline):
     the coarse stage picks each query's nprobe clusters, then the flat
-    pipeline scans the corpus in nprobe mode. Returns (scores [Q, k]
-    float32, slots [Q, k] int32); empty slots carry (+inf, IDX_SENTINEL)."""
+    pipeline scans the corpus in nprobe mode (`kb_cap` as in
+    `flat_topk_pipeline`). Returns (scores [Q, k] float32, slots [Q, k]
+    int32); empty slots carry (+inf, IDX_SENTINEL)."""
     nlist = centroids.shape[0]
     width = probe_pad(nprobe)
     if nlist >= 8:
         width = min(width, nlist)
     probes = coarse_probes(queries, centroids, nprobe, coarse_cosine, width)
     return _pipeline(queries, corpus, mask_vec, threshold, k, cosine, sqrt_out,
-                     assign, probes, nlist)
+                     assign, probes, nlist, kb_cap)

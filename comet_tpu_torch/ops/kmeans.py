@@ -1,8 +1,10 @@
 """K-means clustering in plain PyTorch.
 
 Counterpart of comet_tpu/ops/kmeans.py (`init_centroids`, `kmeans`,
-`find_nearest_centroid`), which is XLA and no Pallas kernel, with the
-reference trainer's rules (clustering.go:119-243 of the Go reference):
+`find_nearest_centroid`, the per-subspace trainer `kmeans_subspace` of PQ
+codebooks and `kmeans_ivfpq_train`), which is XLA and no Pallas kernel,
+with the reference trainer's rules (clustering.go:119-243 of the Go
+reference), in every subspace alike:
 
 - deterministic init by uniform stride: centroid j = vectors[j * (n // k)];
 - assignment by argmin, ties to the lowest centroid index;
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from comet_tpu_torch.ops.adc import pq_encode
 from comet_tpu_torch.ops.distance import pairwise_scores
 from comet_tpu_torch.types import DistanceKind
 
@@ -90,3 +93,84 @@ def find_nearest_centroid(
     [n] int64 on the vectors' device, ties to the lowest index."""
     vectors = torch.atleast_2d(vectors).to(torch.float32)
     return _nearest(vectors, centroids.to(vectors.device, torch.float32), kind)
+
+
+def _subspace_step(vectors: torch.Tensor, prev_assign: torch.Tensor, codebooks: torch.Tensor):
+    """One Lloyd step of all M subspaces at once (kmeans.py:165-209):
+    returns (assign [n, M], per-codeword sums [M, k, dsub], counts [M, k],
+    whether any assignment changed)."""
+    n, m, dsub = vectors.shape
+    k = codebooks.shape[1]
+    assign = pq_encode(vectors, codebooks)   # ties to the lowest codeword
+    # fold the subspace into the segment id: one index_add for all of them
+    seg = (assign + torch.arange(m, device=vectors.device)[None, :] * k).reshape(-1)
+    sums = torch.zeros((m * k, dsub), dtype=torch.float32, device=vectors.device)
+    sums.index_add_(0, seg, vectors.reshape(-1, dsub))
+    counts = torch.zeros(m * k, dtype=torch.float32, device=vectors.device)
+    counts.index_add_(0, seg, torch.ones(n * m, dtype=torch.float32, device=vectors.device))
+    changed = bool((assign != prev_assign).any())
+    return assign, sums.view(m, k, dsub), counts.view(m, k), changed
+
+
+def _subspace_loop(vectors: torch.Tensor, codebooks: torch.Tensor, max_iter: int):
+    """Lloyd iterations of all M subspaces in lockstep (kmeans.py:299-325),
+    with `kmeans`'s rules: convergence checked before the update, empty
+    codewords kept. Returns (codebooks [M, k, dsub], assign [n, M])."""
+    assign = torch.full(vectors.shape[:2], -1, dtype=torch.int64, device=vectors.device)
+    for _ in range(int(max_iter)):
+        assign, sums, counts, changed = _subspace_step(vectors, assign, codebooks)
+        if not changed:
+            break
+        col = counts[:, :, None]
+        codebooks = torch.where(col > 0, sums / torch.clamp_min(col, 1.0), codebooks)
+    return codebooks, assign
+
+
+def kmeans_subspace(vectors: torch.Tensor, k: int, max_iter: int = DEFAULT_MAX_ITER):
+    """Per-subspace k-means of PQ codebooks (clustering.go:112-115: L2^2),
+    all M subspaces of `vectors` [n, M, dsub] in lockstep, each with the
+    stride init of `init_centroids`. k is clamped to n. Returns (codebooks
+    [M, k, dsub] float32, assignments [n, M] int64)."""
+    vectors = vectors.to(torch.float32)
+    n, m, dsub = vectors.shape
+    dev = vectors.device
+    if n == 0 or k <= 0:
+        return (torch.zeros((m, 0, dsub), dtype=torch.float32, device=dev),
+                torch.zeros((n, m), dtype=torch.int64, device=dev))
+    k = min(k, n)
+    if max_iter <= 0:
+        max_iter = DEFAULT_MAX_ITER
+    init = init_centroids(vectors, k).transpose(0, 1).contiguous()   # [M, k, dsub]
+    return _subspace_loop(vectors, init, max_iter)
+
+
+def _residual_init(vectors: torch.Tensor, centroids: torch.Tensor, assign: torch.Tensor,
+                   m: int, k: int):
+    """Residuals of `vectors` [n, d] to their assigned centroids, as
+    [n, m, d / m], and the stride init of k codewords in every subspace
+    (kmeans.py:252-264)."""
+    resid = (vectors - centroids[assign]).view(vectors.shape[0], m, -1)
+    return resid, init_centroids(resid, k).transpose(0, 1).contiguous()
+
+
+def kmeans_ivfpq_train(
+    prepped: torch.Tensor,
+    nlist: int,
+    kind: DistanceKind,
+    m: int,
+    ksub: int,
+    max_iter: int = DEFAULT_MAX_ITER,
+):
+    """IVFPQ training (kmeans.py:266-297; ivfpq_index.go:164-259 of the Go
+    reference): coarse k-means of `prepped` [n, d] with `kind`, then
+    per-subspace codebooks of the residuals to the assigned centroids.
+    Returns (centroids [min(nlist, n), d], codebooks [m, min(ksub, n),
+    d / m]), float32 on the input's device."""
+    prepped = prepped.to(torch.float32)
+    n = prepped.shape[0]
+    if max_iter <= 0:
+        max_iter = DEFAULT_MAX_ITER
+    centroids, assign = kmeans(prepped, nlist, kind, max_iter)
+    resid, init = _residual_init(prepped, centroids, assign, m, min(ksub, n))
+    codebooks, _ = _subspace_loop(resid, init, max_iter)
+    return centroids, codebooks

@@ -672,3 +672,108 @@ def test_hnsw_insert_packed_fused_cuda_matches_plain_and_cpu(dev, switch, monkey
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, cpu)
     np.testing.assert_array_equal(res[0], again[0])
+
+
+# -- float16 / int8 flat storage, PQ and IVFPQ ----------------------------------------
+
+
+@pytest.mark.parametrize("rerank", [False, True], ids=["scan", "rerank"])
+@pytest.mark.parametrize("storage", ["float16", "int8"])
+def test_flat_f16_int8_index_cuda_matches_cpu(dev, storage, rerank):
+    """K2's float16 and int8 operands in the flat index against the CPU
+    index (plain versions): integer rows, and an int8 scale of 2 (trained
+    on a sample whose abs-max is 254), make every distance exact."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 256, size=(9000, 32)).astype(np.float32)
+    q = rng.integers(0, 256, size=(70, 32)).astype(np.float32)
+    out = []
+    for device in ("cuda", "cpu"):
+        idx = FlatIndex(32, DistanceKind.L2, storage=storage, rerank=rerank, device=device)
+        if storage == "int8":
+            idx.train(np.full((1, 32), 254.0, np.float32))
+        idx.add_batch(x, ids=range(10, 9010))
+        idx.remove(12)
+        before = (fused_scan.F16_LAUNCHES, fused_scan.INT8_LAUNCHES)
+        out.append(idx.search_batch(q, k=20) + idx.search_batch(q, k=20, threshold=300.0))
+        if device == "cuda":
+            after = (fused_scan.F16_LAUNCHES, fused_scan.INT8_LAUNCHES)
+            assert after[storage == "int8"] > before[storage == "int8"]
+    for got, want in zip(*out):
+        np.testing.assert_array_equal(got, want)
+
+
+def _int_pq_state(rng, n, d, m, nbits):
+    books = rng.integers(-3, 4, size=(m, 1 << nbits, d // m)).astype(np.float32)
+    codes = rng.integers(0, 1 << nbits, size=(n, m)).astype(np.int32)
+    valid = rng.random(n) > 0.05
+    return np.arange(1, n + 1, dtype=np.uint32), codes, valid, books
+
+
+@pytest.mark.parametrize("route", ["dense", "adc"])
+def test_pq_index_cuda_matches_plain_and_cpu(dev, route, monkeypatch):
+    """PQ on the card (K2 and K1, or ADC with K1's selects) against the
+    same index with every wrapper on its plain version and against the CPU
+    index: integer codebooks make every distance exact."""
+    from comet_tpu_torch import PQIndex
+    from comet_tpu_torch.indexes import pq
+
+    if route == "adc":
+        monkeypatch.setattr(pq, "DECODED_BYTES_MAX", 0)
+    rng = np.random.default_rng(12)
+    ids, codes, valid, books = _int_pq_state(rng, 20000, 32, 8, 8)
+    rot = np.eye(32, dtype=np.float32)[rng.permutation(32)]
+    q = rng.integers(-6, 7, size=(300, 32)).astype(np.float32)
+    out = []
+    for device in ("cuda", "cpu"):
+        idx = PQIndex.load_reference_state(ids, codes, valid, len(ids), books, rot,
+                                           device=device)
+        before = sortnet.LAUNCHES
+        out.append(idx.search_batch(q, k=40) + idx.search_batch(q, k=40, threshold=9.5))
+        if device == "cuda":
+            assert sortnet.LAUNCHES > before
+            with _plain_versions():
+                plain = idx.search_batch(q, k=40) + idx.search_batch(q, k=40, threshold=9.5)
+            for got, want in zip(out[0], plain):
+                np.testing.assert_array_equal(got, want)
+    for got, want in zip(*out):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["sparse", "dense", "walk"])
+def test_ivfpq_index_cuda_matches_plain_and_cpu(dev, route, monkeypatch):
+    """IVFPQ on each route on the card (K3, K2's nprobe mode, the walk; K1
+    in every select and the device re-rank) against the plain versions on
+    the card and the CPU index: integer state, so every distance is exact
+    (the sparse route breaks ties at the k-th score by scan order on both
+    devices alike)."""
+    from comet_tpu_torch import IVFPQIndex
+    from comet_tpu_torch.indexes import pq
+
+    monkeypatch.setenv("COMET_IVFPQ_SPARSE", "1" if route == "sparse" else "0")
+    if route == "walk":
+        monkeypatch.setattr(pq, "DECODED_BYTES_MAX", 0)
+    rng = np.random.default_rng(13)
+    ids, codes, valid, books = _int_pq_state(rng, 20000, 32, 8, 8)
+    cents = rng.integers(-20, 21, size=(64, 32)).astype(np.float32)
+    assign = rng.integers(0, 64, size=20000).astype(np.int32)
+    vectors = (cents[assign] + rng.integers(-4, 5, size=(20000, 32))).astype(np.float32)
+    q = vectors[rng.integers(0, 20000, size=300)] + 1.0
+    out = []
+    for device in ("cuda", "cpu"):
+        idx = IVFPQIndex.load_reference_state(ids, codes, assign, valid, len(ids), cents, books,
+                                              vectors=vectors, device=device)
+        before = sortnet.LAUNCHES
+        res = (idx.search_batch(q, k=40, nprobes=6)
+               + idx.search_batch(q, k=10, nprobes=6, nrefine=64)
+               + idx.search_batch(q, k=40, nprobes=6, threshold=30.5))
+        out.append(res)
+        if device == "cuda":
+            assert sortnet.LAUNCHES > before
+            with _plain_versions():
+                plain = (idx.search_batch(q, k=40, nprobes=6)
+                         + idx.search_batch(q, k=10, nprobes=6, nrefine=64)
+                         + idx.search_batch(q, k=40, nprobes=6, threshold=30.5))
+            for got, want in zip(res, plain):
+                np.testing.assert_array_equal(got, want)
+    for got, want in zip(*out):
+        np.testing.assert_array_equal(got, want)

@@ -191,11 +191,21 @@ def test_exactness_vs_oracle(kind, rng):
 
 @pytest.mark.parametrize("storage", ["float16", "int8", "int4"])
 def test_non_f32_storage_raises(storage):
-    """float16 and int8 are not ported yet (they name ROADMAP); int4 is no
-    storage of the reference either; rerank needs lossy storage."""
-    match = "unsupported" if storage == "int4" else "ROADMAP"
-    with pytest.raises(InvalidConfigError, match=match):
-        FlatIndex(8, DistanceKind.L2, storage=storage, device="cpu")
+    """The reference's validation: float16 and int8 are storages of both
+    packages now (their index builds, with rerank too); int4 is no storage
+    of the reference and raises; rerank needs lossy storage."""
+    if storage == "int4":
+        with pytest.raises(InvalidConfigError, match="unsupported"):
+            FlatIndex(8, DistanceKind.L2, storage=storage, device="cpu")
+        with pytest.raises(comet_tpu.InvalidConfigError, match="unsupported"):
+            comet_tpu.FlatIndex(8, comet_tpu.DistanceKind.L2, storage=storage)
+    else:
+        for rerank in (False, True):
+            port = FlatIndex(8, DistanceKind.L2, storage=storage, rerank=rerank, device="cpu")
+            ref = comet_tpu.FlatIndex(8, comet_tpu.DistanceKind.L2, storage=storage,
+                                      rerank=rerank)
+            assert port._storage == ref._storage == storage
+            assert port._rerank == ref._rerank == rerank
     with pytest.raises(InvalidConfigError, match="lossy"):
         FlatIndex(8, DistanceKind.L2, rerank=True, device="cpu")
 
@@ -326,3 +336,80 @@ def test_small_index_behaviour_matches_reference():
     ]
     for build in cases:
         assert run(port, build) == run(ref, build)
+
+
+# -- float16 and int8 storage ------------------------------------------------------
+#
+# The same data as the bf16 cases. float16 holds them exactly and every
+# float16 product and partial sum is exact in float32, so the scan's scores
+# are array-equal to the reference's. int8 quantises SIFT-range rows with
+# the abs-max scale 255 / 127, which rounds the scaled sums and the
+# dequantised norms (summed in another order): ids equal, scores
+# allclose(1e-4, 1e-4). The rerank re-scores in float32 on the host in both.
+
+
+@pytest.mark.parametrize("rerank", [False, True], ids=["scan", "rerank"])
+@pytest.mark.parametrize("scenario", ["batch", "filter-threshold", "remove"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("storage", ["float16", "int8"])
+def test_f16_int8_storage_matches_reference(storage, kind, scenario, rerank):
+    x, q = _bf16_data(kind)
+    ref = comet_tpu.FlatIndex(D, comet_tpu.DistanceKind(kind), storage=storage, rerank=rerank)
+    port = FlatIndex(D, DistanceKind(kind), storage=storage, rerank=rerank, device="cpu")
+    knobs = {}
+    for index in (ref, port):
+        index.add_batch(x, ids=IDS)
+        if scenario == "remove":
+            index.search_batch(q[:1], k=K)    # the lossy copy of the first version
+            for i in IDS[::5]:
+                index.remove(i)
+    if scenario == "filter-threshold":
+        knobs = dict(threshold=BF16_THRESHOLD[kind], document_ids=FILTER)
+    want = ref.search_batch(q, k=K, **knobs)
+    got = port.search_batch(q, k=K, **knobs)
+    if storage == "float16" or rerank:
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    else:
+        _assert_same(want, got)
+    hits = got[0][got[0] != 0xFFFFFFFF]
+    assert len(hits)
+    if scenario == "filter-threshold":
+        assert len(hits) < got[0].size and (hits % 3 == 0).all()
+    if scenario == "remove":
+        assert not np.isin(hits, IDS[::5]).any()
+
+
+def test_int8_scale_trained_or_fitted_per_version():
+    """`train(sample)` fixes the abs-max scale (the reference's value, kept
+    across adds); untrained, the scale follows the live rows of each store
+    version. The int8 copy is made once a version; CFLT bytes are the
+    float32 index's."""
+    x, q = _bf16_data("l2", seed=9)
+    ref = comet_tpu.FlatIndex(D, comet_tpu.DistanceKind.L2, storage="int8", rerank=True)
+    port = FlatIndex(D, DistanceKind.L2, storage="int8", rerank=True, device="cpu")
+    for index in (ref, port):
+        index.train(x[:50] * 0.5)
+        index.add_batch(x, ids=IDS)
+    assert port._int8_scale == ref._int8_scale == np.float32(np.abs(x[:50] * 0.5).max() / 127)
+    _assert_same(ref.search_batch(q, k=K), port.search_batch(q, k=K))
+    assert port._dev_scale == float(port._int8_scale)
+    assert np.abs(port._dev_cast.numpy()).max() == 127    # rows past the sample clip
+    copy = port._dev_cast
+    port.search_batch(q, k=K)
+    assert port._dev_cast is copy and copy.dtype == torch.int8
+
+    fit = FlatIndex(D, DistanceKind.L2, storage="int8", device="cpu")
+    fit.add_batch(x[:100] * 0.5, ids=IDS[:100])
+    fit.search_batch(q, k=K)
+    first = fit._dev_scale
+    assert first == float(np.float32(np.abs(x[:100] * 0.5).max() / 127))
+    fit.add_batch(x[100:], ids=IDS[100:])
+    fit.search_batch(q, k=K)
+    assert fit._dev_scale == float(np.float32(np.abs(x).max() / 127)) != first
+    f32 = FlatIndex(D, DistanceKind.L2, device="cpu")
+    f32.add_batch(x, ids=IDS)
+    assert _write(port) == _write(f32)
+    back = FlatIndex(D, DistanceKind.L2, storage="int8", device="cpu")
+    back.read_from(io.BytesIO(_write(fit)))
+    np.testing.assert_array_equal(back.search_batch(q, k=K)[0], fit.search_batch(q, k=K)[0])

@@ -471,3 +471,126 @@ def test_ivf_topk_pipeline_probes_and_few_lists():
     order = np.lexsort((np.broadcast_to(np.arange(1024), d2.shape), d2), axis=1)[:, :10]
     np.testing.assert_array_equal(i.numpy(), order)
     np.testing.assert_array_equal(s.numpy(), np.take_along_axis(d2, order, axis=1))
+
+
+# -- float16 and int8 corpus operands (flat storage) ---------------------------------
+#
+# The reference scans both in XLA: `pairwise_scores_from_norms` (float16:
+# queries rounded to float16; int8: queries rounded to bf16, the sum times
+# the scale) inside `block_topk`. Small integer queries and rows, and int8
+# scales that are powers of two, make every product, sum and scaled sum
+# exact, so distances are array-equal; another scale rounds the scaled
+# sums, and the bar is ids equal and scores allclose(1e-4, 1e-4).
+
+from comet_tpu.ops.distance import pairwise_scores_from_norms as ref_pairwise  # noqa: E402
+
+
+def _lossy_data(operand, cosine, scale, seed=21):
+    rng = np.random.default_rng(seed)
+    if cosine:
+        q = _signs(rng, 256)
+        x = _signs(rng, 2048) * (64.0 if operand == "int8" else 1.0)
+    else:
+        q = rng.integers(0, 16, size=(256, D)).astype(np.float32)
+        x = rng.integers(-15 if operand == "int8" else 0, 16, size=(2048, D)).astype(np.float32)
+    valid = np.ones(2048, dtype=bool)
+    valid[::7] = False
+    if operand == "int8":
+        xs = x.astype(np.int8)
+        deq = xs.astype(np.float32) * np.float32(scale)
+        sqn = np.einsum("nd,nd->n", deq, deq).astype(np.float32)
+    else:
+        xs = x.astype(np.float16)
+        sqn = (x * x).sum(axis=1)
+    mask = np.where(valid, 0.0 if cosine else sqn, np.inf).astype(np.float32)
+    return q, xs, sqn, valid, mask
+
+
+def _lossy_torch(xs):
+    return torch.from_numpy(xs)
+
+
+@pytest.mark.parametrize("operand,scale", [("float16", None), ("int8", 0.5), ("int8", 1.0)])
+@pytest.mark.parametrize("cosine", [False, True], ids=["l2", "cosine"])
+def test_fused_dist_select_f16_int8_match_reference(operand, scale, cosine):
+    """K2's float16 and int8 operands (their plain versions here) against
+    the reference's `pairwise_scores_from_norms` with the same mask and
+    threshold: dist array-equal, groups in (min, id) order."""
+    if cosine and operand == "int8":
+        scale = 1.0 / 64
+    q, xs, sqn, valid, mask = _lossy_data(operand, cosine, scale)
+    thr = FDS_THR[cosine]
+    kind = RefKind.COSINE if cosine else RefKind.L2_SQUARED
+    rd = np.asarray(ref_pairwise(jnp.asarray(q), jnp.asarray(xs), jnp.asarray(sqn), kind,
+                                 scale=jnp.float32(scale) if scale else None))
+    rd = np.where(valid[None, :] & (rd <= thr), rd, np.inf)
+    dist, gsel = fused_scan.fused_dist_select(torch.from_numpy(q), _lossy_torch(xs),
+                                              torch.from_numpy(mask), thr, KB, cosine,
+                                              scale=scale)
+    np.testing.assert_array_equal(dist.numpy(), rd)
+    assert np.isinf(rd[:, ::7]).all() and np.isfinite(rd).any() and np.isinf(rd[:, 1::7]).any()
+    gmin = rd.reshape(256, -1, fused_scan.GROUP).min(axis=2)
+    order = np.lexsort((np.broadcast_to(np.arange(gmin.shape[1]), gmin.shape), gmin), axis=1)
+    np.testing.assert_array_equal(gsel.numpy(), order[:, :KB])
+
+
+def test_f16_int8_operands_check_their_inputs():
+    q, xs, sqn, valid, mask = _lossy_data("int8", False, 0.5)
+    args = (torch.from_numpy(q), _lossy_torch(xs), torch.from_numpy(mask), np.inf, KB)
+    with pytest.raises(ValueError, match="scale"):
+        fused_scan.fused_dist_select(*args)
+    with pytest.raises(ValueError, match="scale"):
+        fused_scan.fused_dist_select(args[0], args[1].float(), *args[2:], scale=0.5)
+    with pytest.raises(ValueError, match="nprobe"):
+        fused_scan.fused_dist_select(*args, scale=0.5, assign=torch.zeros(2048, dtype=torch.int32),
+                                     probes=torch.zeros((256, 8), dtype=torch.int32), nlist=4)
+
+
+@pytest.mark.parametrize("operand,scale", [("float16", None), ("int8", 0.5), ("int8", 0.37)])
+@pytest.mark.parametrize("k,thr", [(10, 20.5), (100, np.inf)])
+def test_pipeline_f16_int8_matches_reference_block_topk(operand, scale, k, thr):
+    """flat_topk_pipeline over a float16 or int8 corpus (the squared
+    distance selected, the threshold squared, the root at the end) against
+    the reference's `block_topk` (the root inside, the threshold on it)."""
+    q, xs, sqn, valid, mask = _lossy_data(operand, False, scale, seed=22)
+    if operand == "float16" and thr != np.inf:
+        thr = 12.5      # rows of 0..15 lie nearer than the int8 cases' -15..15
+    rs, ri = ref_topk.block_topk(
+        jnp.asarray(q), jnp.asarray(xs), jnp.asarray(sqn), jnp.asarray(valid),
+        jnp.asarray(np.float32(thr)), k, RefKind.L2,
+        scale=jnp.float32(scale) if scale else None)
+    t2 = float(np.float32(thr) * np.float32(thr))
+    s, i = fused_scan.flat_topk_pipeline(torch.from_numpy(q), _lossy_torch(xs),
+                                         torch.from_numpy(mask), t2, k, sqrt_out=True,
+                                         scale=scale)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    if scale in (None, 0.5):
+        np.testing.assert_array_equal(s.numpy(), np.asarray(rs))
+    else:
+        fin = np.isfinite(np.asarray(rs))
+        np.testing.assert_allclose(s.numpy()[fin], np.asarray(rs)[fin], rtol=1e-4, atol=1e-4)
+    if thr != np.inf:
+        assert (i.numpy() == fused_scan.IDX_SENTINEL).any()
+
+
+@lru_cache(maxsize=None)
+def _ref_pipe_kb_cap():
+    q, x, mask = _data(256, 2048, False, seed=10)
+    s, i = ref.flat_topk_pipeline(*_jax_args(q, x, mask, np.inf), 100, sqrt_out=True,
+                                  kb_cap=8, interpret=True)
+    return np.asarray(s), np.asarray(i)
+
+
+def test_pipeline_kb_cap_matches_reference():
+    """kb_cap = 8 keeps 8 of the 16 groups where k = 100 wants all: the
+    reference's approximate shortlist, rank for rank (the best 8 exact,
+    the rest from the kept groups)."""
+    q, x, mask = _data(256, 2048, False, seed=10)
+    rs, ri = _ref_pipe_kb_cap()
+    s, i = fused_scan.flat_topk_pipeline(*_torch_args(q, x, mask), np.inf, 100, sqrt_out=True,
+                                         kb_cap=8)
+    np.testing.assert_array_equal(i.numpy(), ri)
+    np.testing.assert_array_equal(s.numpy(), rs)
+    exact = fused_scan.flat_topk_pipeline(*_torch_args(q, x, mask), np.inf, 100, sqrt_out=True)
+    np.testing.assert_array_equal(s.numpy()[:, :8], exact[0].numpy()[:, :8])
+    assert not np.array_equal(i.numpy(), exact[1].numpy())

@@ -14,7 +14,7 @@ from comet_tpu.ops import ivf_sparse as ref_sp
 from comet_tpu.ops import kmeans as ref
 from comet_tpu.types import DistanceKind as RefKind
 from comet_tpu_torch.ops import ivf_sparse as sp
-from comet_tpu_torch.ops import kmeans
+from comet_tpu_torch.ops import adc, kmeans
 from comet_tpu_torch.types import DistanceKind
 
 
@@ -128,3 +128,46 @@ def test_cluster_order_key_matches_reference(nlist):
     got = sp.cluster_order_key(cents, device="cpu")
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
+
+
+# -- PQ codebooks and IVFPQ training -------------------------------------------------
+
+
+@pytest.mark.parametrize("n,m,dsub,k,max_iter", [
+    (400, 4, 4, 16, 20), (300, 2, 3, 300, 5), (257, 8, 2, 256, 3),
+])
+def test_kmeans_subspace_matches_reference_on_integers(n, m, dsub, k, max_iter):
+    """All M subspaces in lockstep, with the stride init, ties to the
+    lowest codeword and the convergence rule: codebooks and assignments
+    array-equal to the reference's (k = n clamps)."""
+    x = _ints(np.random.default_rng(n * m), n, m * dsub).reshape(n, m, dsub)
+    rc, ra = ref.kmeans_subspace(x, k, max_iter)
+    pc, pa = kmeans.kmeans_subspace(torch.from_numpy(x), k, max_iter)
+    np.testing.assert_array_equal(pc.numpy(), rc)
+    np.testing.assert_array_equal(pa.numpy(), ra)
+
+
+def test_kmeans_subspace_tiles_and_empty():
+    x = _ints(np.random.default_rng(3), 700, 8).reshape(700, 4, 2)
+    rc, _ = ref.kmeans_subspace(x, 32, 6)
+    tile = adc.ENCODE_CHUNK
+    try:
+        adc.ENCODE_CHUNK = 64
+        pc, _ = kmeans.kmeans_subspace(torch.from_numpy(x), 32, 6)
+    finally:
+        adc.ENCODE_CHUNK = tile
+    np.testing.assert_array_equal(pc.numpy(), rc)
+    pc, pa = kmeans.kmeans_subspace(torch.zeros((0, 4, 2)), 8)
+    assert tuple(pc.shape) == (4, 0, 2) and tuple(pa.shape) == (0, 4)
+
+
+@pytest.mark.parametrize("kind", ["l2", "l2_squared"])
+def test_kmeans_ivfpq_train_matches_reference_on_integers(kind):
+    """Coarse k-means, residuals to the assigned centroids and the
+    lockstep subspace loop: centroids and codebooks array-equal."""
+    x = _ints(np.random.default_rng(7), 600, 8, hi=32)
+    rc, rb = ref.kmeans_ivfpq_train(x, 6, RefKind(kind), 4, 16, 20)
+    pc, pb = kmeans.kmeans_ivfpq_train(torch.from_numpy(x), 6, DistanceKind(kind), 4, 16, 20)
+    np.testing.assert_array_equal(pc.numpy(), rc)
+    np.testing.assert_array_equal(pb.numpy(), rb)
+    assert pb.shape == (4, 16, 2)
