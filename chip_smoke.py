@@ -40,8 +40,11 @@
    sets out of slot order), the scoring kernel (both layouts, both modes)
    and K5 (stop = ef and ef / 4, also against the split pair) at W 1-32,
    d 3-128, expand 1-23, Q 1-2048, ndig 2-3, packed rows off 16-byte
-   boundaries, -1 nodes and empty entries are held to their plain
-   versions at edge shapes (ops/edge_cases.py).
+   boundaries, -1 nodes and empty entries, and the BM25 scorer (empty
+   queries, a term without postings or covering every document, repeated
+   terms, every document deleted or filtered out, k above the matches,
+   the padding edge, ragged chunks, k = 1 and 1024) are held to their
+   plain versions at edge shapes (ops/edge_cases.py).
 3. Drives the flat path through the public API at the users' size: a
    FlatIndex of 1,048,576 x 128 SIFT-range integer vectors (L2), searched
    with 2048 queries at k = 100. On integer data every float32 distance is
@@ -122,6 +125,34 @@
    for OPQ) against the flat path's exact ids, train, add and search
    times, queries/s and each route's launches.
    `--profile` adds a breakdown of one IVFPQ nprobe-10 batch.
+10. BM25 at the reference benchmark's scale (bench.py:419-462): 2^20
+   documents of 60 words drawn Zipf(1.3) over a 50,000-word letter-only
+   vocabulary from the seed, ingested by `BM25SearchIndex.add_batch` with
+   the default segmentation (every UAX#29 segment a term, so every
+   multi-word query also scores the whitespace term of every document),
+   docs/s; the postings built on the card. The scorer
+   (csrc/bm25_score.cu) on a 256-query chunk of 1-, 2- and 10-term
+   queries: its dense rows bit-equal to the plain version, timed beside
+   it, beside `index_put_(accumulate=True)` of the same contributions
+   (2-term) and beside its bound; K1 on those [256, 2^20] rows at k = 10
+   and 100 beside `torch.topk`. Then `search_batch` of 2048 queries of
+   the bench's mid-frequency terms (ranks 100-5000), 1-, 2- and 10-term,
+   at k = 10 and 100: queries/s, launches; each batch's first 256 rows
+   array-equal to the plain scorer on the card, 8 queries of each
+   against a float64 host oracle (ids equal but at ties within 1e-6,
+   scores allclose(1e-5)). `--profile` adds two 2-term batches.
+11. Hybrid search (bench.py:465-530's shape at the full corpus): a
+   FlatIndex of the 1M corpus, the BM25 index of section 10 (ids
+   1..2^20, the vectors' ids) and a RoaringMetadataIndex filled by
+   `add_columns` (cat in a-d by i mod 4, num = i mod 1000), searched by
+   `HybridSearchIndex.search_batch` with 2048 vector + 2-term text
+   queries under eq("cat", "a"), reciprocal-rank and weighted fusion,
+   k = 10: queries/s, launches, and the host time of each of its four
+   steps called one by one (metadata filter, vector launch, BM25, collect
+   and fusion; equal to search_batch); 64 reciprocal-rank and 16 weighted
+   queries equal to the fluent execute() one by one, the vector leg equal
+   to the plain pipeline (ops/topk.block_topk) under the candidate mask,
+   the text leg to the plain scorer. `--profile` adds two batches.
 
 Any mismatch raises, so the run exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it names the kernels with
@@ -195,7 +226,7 @@ def sparse_signs(rng, n, dim):
     return (support * signs).astype(np.float32)
 
 
-def plain_search(queries, corpus, valid, thr, kind, chunk=256):
+def plain_search(queries, corpus, valid, thr, kind, chunk=256, k=K):
     """The plain pipeline, ops/topk.block_topk, over chunks of queries (a
     chunk's [chunk, N] distances fit the card). For L2_SQUARED the scores
     come back as their square roots, as FlatIndex returns L2 scores."""
@@ -205,7 +236,7 @@ def plain_search(queries, corpus, valid, thr, kind, chunk=256):
 
     sqn = (corpus * corpus).sum(dim=1)
     outs = [
-        topk.block_topk(queries[q0:q0 + chunk], corpus, sqn, valid, thr, K, kind)
+        topk.block_topk(queries[q0:q0 + chunk], corpus, sqn, valid, thr, k, kind)
         for q0 in range(0, queries.shape[0], chunk)
     ]
     scores = torch.cat([s for s, _ in outs])
@@ -270,8 +301,9 @@ def plain_ivf_search(queries, corpus, valid, assign, centroids, nprobe, thr, kin
 
 def reset_launches():
     """Every kernel's launch count to 0."""
-    from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
+    from comet_tpu_torch.ops import beam_kernel, bm25, fused_scan, ivf_sparse, sortnet
 
+    bm25.LAUNCHES = 0
     sortnet.LAUNCHES = fused_scan.LAUNCHES = fused_scan.NPROBE_LAUNCHES = 0
     fused_scan.BF16_LAUNCHES = fused_scan.F16_LAUNCHES = fused_scan.INT8_LAUNCHES = 0
     ivf_sparse.LAUNCHES = ivf_sparse.BF16_LAUNCHES = 0
@@ -280,9 +312,10 @@ def reset_launches():
 
 
 def read_launches():
-    from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
+    from comet_tpu_torch.ops import beam_kernel, bm25, fused_scan, ivf_sparse, sortnet
 
-    return {"topk_cl": sortnet.LAUNCHES, "fused_dist_select": fused_scan.LAUNCHES,
+    return {"bm25_score": bm25.LAUNCHES,
+            "topk_cl": sortnet.LAUNCHES, "fused_dist_select": fused_scan.LAUNCHES,
             "fused_dist_select_nprobe": fused_scan.NPROBE_LAUNCHES,
             "fused_dist_select_bf16": fused_scan.BF16_LAUNCHES,
             "fused_dist_select_f16": fused_scan.F16_LAUNCHES,
@@ -350,9 +383,12 @@ def kernel_rows(prof):
 
 def profile_window(fn, label=""):
     """torch.profiler over `fn`: prints the kernels by device time and the
-    device's busy and idle share of the window's wall time."""
+    device's busy and idle share of the window's wall time, and the
+    launches the package's wrappers counted in the window (a trace that
+    lost events shows fewer rows of a kernel than launches)."""
     from torch.profiler import ProfilerActivity, profile
 
+    before = read_launches()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -365,6 +401,9 @@ def profile_window(fn, label=""):
           f"{wall_us / 1e3:.3f} ms of wall time, idle share {1 - busy / wall_us:.3f}")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {100 * dev_us / busy:6.2f} %  {count:5d} x {dev_us / count:10.3f} us  {key[:90]}")
+    after = read_launches()
+    print("  launches counted by the wrappers in the window: " + ", ".join(
+        f"{key} {after[key] - before[key]}" for key in after if after[key] != before[key]))
 
 
 def build_ivf(corpus, tag):
@@ -1099,9 +1138,9 @@ class plain_versions:
     Plain versions count no launches."""
 
     def __enter__(self):
-        from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
+        from comet_tpu_torch.ops import beam_kernel, bm25, fused_scan, ivf_sparse, sortnet
 
-        self.mods = (sortnet, fused_scan, ivf_sparse, beam_kernel)
+        self.mods = (sortnet, fused_scan, ivf_sparse, beam_kernel, bm25)
         self.saved = [m.use_plain for m in self.mods]
         for m in self.mods:
             m.use_plain = lambda t: True
@@ -1174,9 +1213,10 @@ class uncounted:
         return self
 
     def __exit__(self, *exc):
-        from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
+        from comet_tpu_torch.ops import beam_kernel, bm25, fused_scan, ivf_sparse, sortnet
 
         s = self.saved
+        bm25.LAUNCHES = s["bm25_score"]
         sortnet.LAUNCHES = s["topk_cl"]
         fused_scan.LAUNCHES = s["fused_dist_select"]
         fused_scan.NPROBE_LAUNCHES = s["fused_dist_select_nprobe"]
@@ -1725,10 +1765,347 @@ def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, 
     return {"report": report, "launches": launches}
 
 
+BM25_N = N         # documents of the BM25 and hybrid phases, one a corpus row
+BM25_WORDS = 60    # words a document (bench.py:419-462)
+BM25_VOCAB = 50_000
+BM25_TERMS = (1, 2, 10)
+BM25_KS = (10, 100)
+BM25_CHUNK = 256   # queries a scorer chunk holds at 2^20 documents
+HYBRID_K = 10
+
+
+def bm25_corpus(seed):
+    """bench.py:419-452's text corpus at BM25_N documents: BM25_WORDS words
+    a document, drawn Zipf(1.3) over a BM25_VOCAB-word letter-only
+    vocabulary, and the query terms, the vocabulary's ranks 100-5000."""
+    rng = np.random.default_rng((seed, 25))
+    vocab = ["".join(chr(97 + (i // 26 ** j) % 26) for j in range(4)) + "x"
+             for i in range(BM25_VOCAB)]
+    texts = [" ".join([vocab[t] for t in row])
+             for row in (rng.zipf(1.3, size=(BM25_N, BM25_WORDS)) % BM25_VOCAB).tolist()]
+    return texts, [vocab[100 + (i * 37) % 4900] for i in range(4000)]
+
+
+def bm25_queries(qterms, n_terms, count=None):
+    """`count` (BATCH) queries of `n_terms` terms each (bench.py:453-460)."""
+    return [" ".join(qterms[(i * n_terms + j) % len(qterms)] for j in range(n_terms))
+            for i in range(count or BATCH)]
+
+
+def bm25_oracle(index, host, query, k):
+    """Float64 BM25 on the host over the index's postings (the formula of
+    bm25_index_search.go:299-327 in double): the ids of the k best by
+    (score desc, id asc) and every slot's score (slot s holds id s + 1
+    here)."""
+    import math
+
+    from comet_tpu_torch.ops.bm25 import B, K1
+
+    slot_docs, ps, pt, dl, df, start = host
+    n = float(index._num_docs)
+    avgdl = index._total_tokens / n
+    s = np.zeros(len(slot_docs))
+    for t in index._tokenize(query):
+        tid = index._vocab.get(t)
+        if tid is None or df[tid] == 0:
+            continue
+        run = slice(start[tid], start[tid] + df[tid])
+        sl, tf = ps[run], pt[run].astype(np.float64)
+        idf = math.log((n - df[tid] + 0.5) / (df[tid] + 0.5) + 1.0)
+        s[sl] += idf * (tf * (K1 + 1.0)) / (tf + K1 * (1.0 - B + B * (dl[sl] / avgdl)))
+    hit = np.flatnonzero(s > 0)
+    return slot_docs[hit[np.lexsort((hit, -s[hit]))][:k]], s
+
+
+def bm25_chunk_inputs(index, queries, dev):
+    """The scorer's arguments for `queries` (one chunk), as `search_batch`
+    builds them, every document allowed."""
+    slot_docs, post_slot, post_tf, doc_len, df, term_start = index._postings()
+    t_start, t_len, t_idf, q_off = index._query_terms(queries, df, term_start)
+    return dict(post_slot=post_slot, post_tf=post_tf,
+                t_start=torch.from_numpy(t_start).to(dev), t_len=torch.from_numpy(t_len).to(dev),
+                t_idf=torch.from_numpy(t_idf).to(dev), q_off=q_off, doc_len=doc_len,
+                allowed=torch.ones(len(slot_docs), dtype=torch.bool, device=dev),
+                avgdl=float(np.float32(index._total_tokens / index._num_docs)))
+
+
+def bm25_section(index, queries, n_terms, dev, tag, time_ms, library=False):
+    """The scorer on one 256-query chunk of `queries`: its dense rows held
+    bit-equal to the plain rows and timed beside them (and, with
+    `library`, beside the one PyTorch call that makes the same sums in
+    another order: `index_put_(accumulate=True)` of every contribution);
+    then K1 on those rows at k = 10 and 100. Returns the report entries."""
+    from comet_tpu_torch.ops import bm25, sortnet
+
+    a = bm25_chunk_inputs(index, queries[:BM25_CHUNK], dev)
+    q_off = a["q_off"]
+    q_off_dev = torch.from_numpy(q_off.astype(np.int32)).to(dev)
+    args = {key: v for key, v in a.items() if key != "q_off"}
+    dense = bm25._bm25_dense_cuda(**args, q_off_dev=q_off_dev)
+    plain = bm25._bm25_dense_plain(**args, q_off=q_off)
+    torch.cuda.synchronize()
+    if not torch.equal(dense.view(torch.int32), plain.view(torch.int32)):
+        raise AssertionError(f"the BM25 scorer differs from its plain version ({n_terms}-term)")
+    del plain
+    ms = time_ms(lambda: bm25._bm25_dense_cuda(**args, q_off_dev=q_off_dev))
+    pms = time_ms(lambda: bm25._bm25_dense_plain(**args, q_off=q_off), reps=1)
+    n = a["doc_len"].shape[0]
+    lens = a["t_len"].long()
+    postings = int(lens.sum())
+    # the least traffic: each input once (the distinct terms' postings, the
+    # lengths and the mask), each output once (the rows); its arithmetic,
+    # 9 float32 operations a posting
+    runs = {(int(s), int(c)) for s, c in zip(a["t_start"].tolist(), a["t_len"].tolist())}
+    distinct = sum(c for _, c in runs)
+    b = bound(8 * distinct + 5 * n + 4 * BM25_CHUNK * n, 9 * postings)
+    # this design's traffic: a posting's 8 bytes, its length gathered (4),
+    # its score read and written (8); a row zeroed (4), masked (4 + 4 + 1)
+    design = 20 * postings + 13 * BM25_CHUNK * n
+    lms, lib_err = None, None
+    if library:
+        counts = torch.from_numpy(np.diff(q_off)).to(dev)
+        rows = torch.repeat_interleave(torch.repeat_interleave(
+            torch.arange(BM25_CHUNK, device=dev), counts), lens)
+        first = torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
+        pidx = (torch.repeat_interleave(a["t_start"], lens)
+                + torch.arange(postings, device=dev) - first)
+        slots = a["post_slot"][pidx].long()
+        c = bm25.contribution(a["post_tf"][pidx], a["doc_len"][slots],
+                              torch.repeat_interleave(a["t_idf"], lens),
+                              torch.tensor(a["avgdl"], dtype=torch.float32, device=dev))
+        del pidx, first
+
+        def lib():
+            return torch.zeros((BM25_CHUNK, n), device=dev).index_put_((rows, slots), c,
+                                                                          accumulate=True)
+        lib_err = float((torch.where(a["allowed"], -lib(), 0.0) - dense).abs().max())
+        lms = time_ms(lib)
+        del rows, slots, c
+    print(f"BM25 scorer, 256 {n_terms}-term queries over {n} documents ({postings} postings): "
+          f"dense rows bit-equal to the plain version; kernel {ms:.3f} ms, plain {pms:.3f} ms"
+          + (f", index_put_(accumulate=True) {lms:.3f} ms (max abs difference {lib_err:.3g}, "
+             f"its sums in another order)" if library else "")
+          + f"; bound {b[0]:.4f} ms ({b[1]}), this design's traffic {design / 1e9:.2f} GB = "
+          f"{design / PEAK_BYTES * 1e3:.3f} ms {tag}")
+    out = {"bm25_score": dict(err=0.0, ms=ms, plain_ms=pms, library_ms=lms, bound=b)}
+    for k in BM25_KS:
+        gv, gi = sortnet.topk_rows(dense, None, k)
+        pv, pi = sortnet._topk_rows_plain(dense, None, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(gi, pi) and torch.equal(gv, pv)):
+            raise AssertionError(f"K1 differs from its plain version on the BM25 rows (k={k})")
+        k1 = time_ms(lambda: sortnet.topk_rows(dense, None, k))
+        pk1 = time_ms(lambda: sortnet._topk_rows_plain(dense, None, k), reps=1)
+        lk1 = time_ms(lambda: torch.topk(dense, k, dim=1, largest=False))
+        kb = bound(4 * BM25_CHUNK * n + 8 * BM25_CHUNK * sortnet.k_pow2(k), 0)
+        print(f"K1 topk_rows on those rows {[BM25_CHUNK, n]} k={k}, idx=None: equal to plain; "
+              f"kernel {k1:.4f} ms, plain {pk1:.3f} ms, torch.topk(dim=1, largest=False) "
+              f"{lk1:.4f} ms; bound {kb[0]:.4f} ms ({kb[1]}) {tag}")
+        out[f"topk_bm25_k{k}"] = dict(err=0.0, ms=k1, plain_ms=pk1, library_ms=lk1, bound=kb)
+    del dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def bm25_phase(seed, dev, tag, time_ms, profile):
+    """Section 10 of the module docstring. Returns {"report": the scorer's
+    numbers, "launches": the BM25 path's counts, "index", "qterms"}."""
+    from comet_tpu_torch import BM25SearchIndex
+    from comet_tpu_torch.ops import bm25
+
+    t0 = time.perf_counter()
+    texts, qterms = bm25_corpus(seed)
+    print(f"BM25 corpus: {BM25_N} documents x {BM25_WORDS} words, Zipf(1.3) over "
+          f"{BM25_VOCAB} words ({time.perf_counter() - t0:.1f} s on the host)")
+    index = BM25SearchIndex(device="cuda")
+    t0 = time.perf_counter()
+    index.add_batch(range(1, BM25_N + 1), texts)
+    t_ingest = time.perf_counter() - t0
+    del texts
+    t0 = time.perf_counter()
+    host = index._postings()
+    torch.cuda.synchronize()
+    t_post = time.perf_counter() - t0
+    n_post = host[1].shape[0]
+    print(f"BM25 ingest (default segmentation, every segment a term): {t_ingest:.1f} s = "
+          f"{BM25_N / t_ingest:.1f} docs/s on the host; {n_post} postings of "
+          f"{int(np.count_nonzero(host[4]))} terms built on the card in {t_post:.3f} s {tag}")
+    report = {}
+    for n_terms in BM25_TERMS:   # the kernels line takes the 2-term chunk, the hybrid shape
+        sec = bm25_section(index, bm25_queries(qterms, n_terms), n_terms, dev, tag, time_ms,
+                           library=n_terms == 2)
+        if n_terms == 2:
+            report = sec
+
+    reset_launches()
+    results = {}
+    for n_terms in BM25_TERMS:
+        queries = bm25_queries(qterms, n_terms)
+        for k in BM25_KS:
+            t0 = time.perf_counter()
+            got = index.search_batch(queries, k=k)
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = index.search_batch(queries, k=k)
+            qps = BATCH / (time.perf_counter() - t0)
+            if not (np.array_equal(again[0], got[0]) and np.array_equal(again[1], got[1])):
+                raise AssertionError(f"repeated BM25 searches differ ({n_terms}-term, k={k})")
+            results[n_terms, k] = got
+            report[f"qps_{n_terms}term_k{k}"] = qps
+            print(f"BM25 search_batch {BATCH} {n_terms}-term queries k={k}: {qps:.1f} "
+                  f"queries/s steady, first batch {first:.3f} s {tag}")
+    launches = read_launches()
+    print(f"kernel launches of the {2 * len(BM25_TERMS) * len(BM25_KS)} BM25 search_batch "
+          f"calls: {launches}")
+    if min(launches["bm25_score"], launches["topk_cl"]) <= 0:
+        raise AssertionError(f"a kernel of the BM25 path never launched: {launches}")
+    if profile:
+        q2 = bm25_queries(qterms, 2)
+        profile_window(lambda: [index.search_batch(q2, k=10) for _ in range(2)],
+                       "BM25 2-term, k = 10")
+
+    t0 = time.perf_counter()
+    h = (host[0], host[1].cpu().numpy(), host[2].cpu().numpy(), host[3].cpu().numpy().astype(
+        np.float64), host[4], host[5])
+    n_ties = 0
+    for (n_terms, k), (ids, scores) in results.items():
+        queries = bm25_queries(qterms, n_terms)
+        with uncounted(), plain_versions():
+            p_ids, p_scores = index.search_batch(queries[:BM25_CHUNK], k=k)
+        if not (np.array_equal(p_ids, ids[:BM25_CHUNK])
+                and np.array_equal(p_scores, scores[:BM25_CHUNK])):
+            raise AssertionError(f"BM25 {n_terms}-term k={k} differs from the plain scorer")
+        for qi in range(0, BATCH, BATCH // 8):
+            want, s = bm25_oracle(index, h, queries[qi], k)
+            got = ids[qi][ids[qi] != 0xFFFFFFFF].astype(np.int64)
+            if len(got) != len(want):
+                raise AssertionError(f"BM25 {n_terms}-term query {qi}: {len(got)} hits, "
+                                     f"the oracle {len(want)}")
+            np.testing.assert_allclose(scores[qi][:len(got)], s[got - 1], rtol=1e-5)
+            diff = got != want
+            if (np.abs(s[got[diff] - 1] - s[want[diff] - 1])
+                    > 1e-6 * np.abs(s[want[diff] - 1])).any():
+                raise AssertionError(f"BM25 {n_terms}-term query {qi}: ids differ from the "
+                                     f"float64 oracle beyond ties")
+            n_ties += int(diff.sum())
+    print(f"BM25 results: ids and scores array-equal to the plain scorer on the card "
+          f"({BM25_CHUNK} queries of each batch), ids equal to a float64 host oracle on 8 "
+          f"queries of each ({n_ties} positions at ties within 1e-6 differ), scores "
+          f"allclose(1e-5) ({time.perf_counter() - t0:.1f} s) {tag}")
+    del h
+    return {"report": report, "launches": launches, "index": index, "qterms": qterms}
+
+
+def hybrid_phase(corpus, queries, text_index, qterms, dev, tag, time_ms, profile):
+    """Section 11 of the module docstring. Returns {"launches": the hybrid
+    path's counts}."""
+    from comet_tpu_torch import (DistanceKind, FlatIndex, FusionKind, RoaringMetadataIndex,
+                                 eq, fuse_batch_rows, new_fusion, new_hybrid_search_index)
+
+    ids = np.arange(1, N + 1, dtype=np.uint32)
+    flat = FlatIndex(DIM, DistanceKind.L2, device="cuda")
+    flat.add_batch(corpus, ids=ids)
+    meta = RoaringMetadataIndex()
+    t0 = time.perf_counter()
+    meta.add_columns(ids, {"cat": np.array(list("abcd"))[np.arange(N) % 4],
+                           "num": np.arange(N) % 1000})
+    print(f"metadata add_columns {N} docs (cat in a-d, num = i mod 1000): "
+          f"{time.perf_counter() - t0:.3f} s on the host")
+    hybrid = new_hybrid_search_index(flat, text_index, meta)
+    texts = bm25_queries(qterms, 2)
+    filt = [eq("cat", "a")]
+    kinds = (FusionKind.RECIPROCAL_RANK, FusionKind.WEIGHTED_SUM)
+    reset_launches()
+    batches = {}
+    for kind in kinds:
+        t0 = time.perf_counter()
+        batches[kind] = hybrid.search_batch(queries, texts, k=HYBRID_K, metadata_filters=filt,
+                                            fusion_kind=kind)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(ROUNDS):
+            again = hybrid.search_batch(queries, texts, k=HYBRID_K, metadata_filters=filt,
+                                        fusion_kind=kind)
+        qps = ROUNDS * BATCH / (time.perf_counter() - t0)
+        if again != batches[kind]:
+            raise AssertionError(f"repeated hybrid searches differ ({kind.value})")
+        print(f"hybrid search_batch {BATCH} queries (vector + 2-term text), filter cat = a, "
+              f"{kind.value}, k={HYBRID_K}: {qps:.1f} queries/s steady, first batch "
+              f"{first:.3f} s {tag}")
+    launches = read_launches()
+    print(f"kernel launches of the {2 * (1 + ROUNDS)} hybrid search_batch calls: {launches}")
+    if min(launches["bm25_score"], launches["topk_cl"], launches["fused_dist_select"]) <= 0:
+        raise AssertionError(f"a kernel of the hybrid path never launched: {launches}")
+
+    with uncounted():
+        # the four steps of search_batch, called one by one in its order
+        rrf = new_fusion(FusionKind.RECIPROCAL_RANK)
+        steps = []
+        for _ in range(3):
+            t = [time.perf_counter()]
+            cand = meta.filter_bitset(filt)
+            t.append(time.perf_counter())
+            handle = flat._search_launch(queries, flat._make_batch_builder(
+                HYBRID_K, 0.0, cand, None, None, None, -1, 1, True))
+            t.append(time.perf_counter())
+            t_ids, t_sc = text_index.search_batch(texts, k=HYBRID_K, document_ids=cand)
+            t.append(time.perf_counter())
+            v_ids, v_sc = flat._search_collect(handle)
+            v_ids, v_sc = v_ids[:, :HYBRID_K], v_sc[:, :HYBRID_K]
+            fused = fuse_batch_rows(v_ids, v_sc, t_ids, t_sc, cand, rrf, BATCH, HYBRID_K)
+            t.append(time.perf_counter())
+            steps.append(np.diff(t) * 1e3)
+        if fused != batches[FusionKind.RECIPROCAL_RANK]:
+            raise AssertionError("the hybrid steps called one by one differ from search_batch")
+        m = np.median(steps, axis=0)
+        print(f"hybrid steps, host ms (median of 3, reciprocal rank): metadata filter "
+              f"{m[0]:.3f}, vector launch {m[1]:.3f}, BM25 on the card {m[2]:.3f} (it waits "
+              f"for the vector leg queued before it on the stream), collect and fusion "
+              f"{m[3]:.3f} {tag}")
+
+        t0 = time.perf_counter()
+        for kind, count in zip(kinds, (64, 16)):
+            for qi in range(count):
+                one = (hybrid.new_search().with_vector(queries[qi]).with_text(texts[qi])
+                       .with_metadata(*filt).with_fusion_kind(kind).with_k(HYBRID_K).execute())
+                if [(r.id, r.score) for r in one] != [(r.id, r.score)
+                                                      for r in batches[kind][qi]]:
+                    raise AssertionError(f"hybrid query {qi} ({kind.value}): execute() "
+                                         f"differs from search_batch")
+        allowed = torch.from_numpy(np.arange(N) % 4 == 0).to(dev)
+        x_dev = torch.from_numpy(corpus).to(dev)
+        ps, pi = plain_search(torch.from_numpy(queries).to(dev), x_dev, allowed, float("inf"),
+                              DistanceKind.L2_SQUARED, k=HYBRID_K)
+        if not (np.array_equal(v_ids, ids_of(pi)) and np.array_equal(v_sc, ps)):
+            raise AssertionError("the hybrid vector leg differs from the plain pipeline "
+                                 "under the candidate mask")
+        with plain_versions():
+            p_ids, p_sc = text_index.search_batch(texts[:BM25_CHUNK], k=HYBRID_K,
+                                                  document_ids=cand)
+        if not (np.array_equal(p_ids, t_ids[:BM25_CHUNK])
+                and np.array_equal(p_sc, t_sc[:BM25_CHUNK])):
+            raise AssertionError("the hybrid text leg differs from the plain scorer")
+        if (v_ids % 4 != 1).any() or (t_ids[t_ids != 0xFFFFFFFF] % 4 != 1).any():
+            raise AssertionError("a hybrid leg returned a document outside the filter")
+        print(f"hybrid: 64 reciprocal-rank and 16 weighted queries equal to execute() one by "
+              f"one; the vector leg equal to the plain pipeline (ops/topk.block_topk) under the "
+              f"candidate mask ({BATCH} queries), the text leg to the plain scorer "
+              f"({BM25_CHUNK} queries) ({time.perf_counter() - t0:.1f} s)")
+        del x_dev, allowed
+    if profile:
+        profile_window(lambda: [hybrid.search_batch(queries, texts, k=HYBRID_K,
+                                                    metadata_filters=filt,
+                                                    fusion_kind=FusionKind.RECIPROCAL_RANK)
+                                for _ in range(2)], "hybrid, reciprocal rank")
+    del hybrid, flat
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def edge_checks(dev, seed, tag):
-    """K1, K2's three modes, K3's two modes, K4's two, the scoring kernel
-    and K5 against their plain versions at edge shapes (ops/edge_cases.py,
-    the cases of the card tests)."""
+    """K1, K2's three modes, K3's two modes, K4's two, the scoring kernel,
+    K5 and the BM25 scorer against their plain versions at edge shapes
+    (ops/edge_cases.py, the cases of the card tests)."""
     from comet_tpu_torch.ops import edge_cases, sortnet
 
     t0 = time.perf_counter()
@@ -1741,6 +2118,8 @@ def edge_checks(dev, seed, tag):
     for case in edge_cases.SCORE_CASES:
         edge_cases.check_scoring(dev, *case, seed=seed)
         edge_cases.check_k5(dev, *case, seed=seed)
+    for case in edge_cases.BM25_CASES:
+        edge_cases.check_bm25(dev, *case, seed=seed)
     torch.cuda.synchronize()
     print(f"edge shapes: K1 equal to its plain version in {3 * len(edge_cases.K1_CASES)} selects "
           f"(k {edge_cases.K1_KS}, widths 1-65539, both layouts and idx=None, one launch each "
@@ -1754,8 +2133,11 @@ def edge_checks(dev, seed, tag):
           f"beams and result sets out of slot order); the scoring kernel (nd, ns, adm; both "
           f"layouts, both modes) and K5 (stop = ef and ef / 4; also against the split pair) in "
           f"{len(edge_cases.SCORE_CASES)} shapes (W 1-64, d 3-1536, expand 1-23, Q 1-2048, ndig "
-          f"2-3, 152-byte and shifted packed rows, -1 nodes and empty entries) "
-          f"({time.perf_counter() - t0:.1f} s) {tag}")
+          f"2-3, 152-byte and shifted packed rows, -1 nodes and empty entries); the BM25 "
+          f"scorer bit-equal in {len(edge_cases.BM25_CASES)} cases (empty queries, a term "
+          f"without postings or covering every document, repeated terms, every document "
+          f"deleted or filtered out, k above the matches, the padding edge, ragged chunks, "
+          f"k = 1 and 1024) ({time.perf_counter() - t0:.1f} s) {tag}")
 
 
 def sortnet_rows_plain(gmin, kb):
@@ -1769,7 +2151,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace two steady flat, IVF and HNSW batches, one insertion "
-                         "round and one IVFPQ batch with torch.profiler")
+                         "round, one IVFPQ batch and two BM25 and hybrid batches with "
+                         "torch.profiler")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after holding K1-K5 and the scoring kernel to their plain "
                          "versions at the main path's shapes and timing them")
@@ -2060,9 +2443,18 @@ def main():
     # -- 9. PQ and IVFPQ ----------------------------------------------------------------------
     pql = pq_phase(corpus, queries, got_ids, tag, args.profile)["launches"]
 
+    # -- 10. BM25 ----------------------------------------------------------------------------
+    bm = bm25_phase(args.seed, dev, tag, time_ms, args.profile)
+
+    # -- 11. hybrid search --------------------------------------------------------------------
+    hyl = hybrid_phase(corpus, queries, bm["index"], bm["qterms"], dev, tag, time_ms,
+                       args.profile)["launches"]
+    bml, bm_report = bm["launches"], bm["report"]
+    del bm
+
     def entry(name, source, replaces, key, n_launches):
         r = (report.get(key) or fb["report"].get(key) or ivf["report"].get(key)
-             or fl8["report"].get(key) or hnsw["report"][key])
+             or fl8["report"].get(key) or bm_report.get(key) or hnsw["report"][key])
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launches, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -2072,10 +2464,11 @@ def main():
     kernels = [
         entry("topk_cl", "comet_tpu_torch/csrc/topk.cu", "comet_tpu/ops/sortnet.py:142",
               "topk_cl", launches["topk_cl"] + fl["topk_cl"] + il["topk_cl"] + hl["topk_cl"]
-              + l8["topk_cl"] + pql["topk_cl"]),
+              + l8["topk_cl"] + pql["topk_cl"] + bml["topk_cl"] + hyl["topk_cl"]),
         entry("fused_dist_select", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:63", "fused_dist_select",
-              launches["fused_dist_select"] + hl["fused_dist_select"] + pql["fused_dist_select"]),
+              launches["fused_dist_select"] + hl["fused_dist_select"] + pql["fused_dist_select"]
+              + hyl["fused_dist_select"]),
         entry("fused_dist_select_nprobe", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:100", "fused_dist_select_nprobe",
               il["fused_dist_select_nprobe"] + pql["fused_dist_select_nprobe"]),
@@ -2104,6 +2497,9 @@ def main():
               hl["gather_score_packed"]),
         entry("fused_expand", "comet_tpu_torch/csrc/fused_expand.cu",
               "comet_tpu/ops/beam_kernel.py:582", "fused_expand", hl["fused_expand"]),
+        entry("bm25_score", "comet_tpu_torch/csrc/bm25_score.cu",
+              "comet_tpu/indexes/bm25.py:602", "bm25_score",
+              bml["bm25_score"] + hyl["bm25_score"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

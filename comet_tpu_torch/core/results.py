@@ -1,8 +1,9 @@
 """Search results and the reranker extension hook.
 
 Counterpart of comet_tpu/core/results.py: VectorResult scores are
-distances (lower is better); Reranker is the post-limit hook applied by
-every search (index_search.go:50-60 of the Go reference).
+distances (lower is better); TextResult scores are BM25 relevance (higher
+is better); Reranker is the post-limit hook applied by every search
+(index_search.go:50-60 of the Go reference).
 """
 
 from __future__ import annotations
@@ -22,6 +23,20 @@ class VectorResult:
 
     def get_id(self) -> int:
         return self.node.id
+
+    def get_score(self) -> float:
+        return self.score
+
+
+@dataclass
+class TextResult:
+    """A text search hit; score is BM25 relevance — higher is better."""
+
+    id: int
+    score: float
+
+    def get_id(self) -> int:
+        return self.id
 
     def get_score(self) -> float:
         return self.score

@@ -1,7 +1,7 @@
 """Edge cases that hold K1 (top-k select), K2 (fused distance scan), K3
-(block-sparse IVF scan), K4 (HNSW beam merge), the in-loop scoring kernel
-and K5 (fused expand) to their plain versions on the card, shared by the
-card tests (tests/test_torch_cuda.py) and chip_smoke.py.
+(block-sparse IVF scan), K4 (HNSW beam merge), the in-loop scoring kernel,
+K5 (fused expand) and the BM25 scorer to their plain versions on the card,
+shared by the card tests (tests/test_torch_cuda.py) and chip_smoke.py.
 
 Each `check_*` runs a kernel's wrapper and its plain version on the same
 CUDA tensors and raises AssertionError where they differ. The inputs are
@@ -15,7 +15,7 @@ import itertools
 import numpy as np
 import torch
 
-from comet_tpu_torch.ops import beam_kernel, fused_scan, ivf_sparse, sortnet
+from comet_tpu_torch.ops import beam_kernel, bm25, fused_scan, ivf_sparse, sortnet
 from comet_tpu_torch.ops.distance import bf16_round, preprocess
 from comet_tpu_torch.types import DistanceKind
 
@@ -479,3 +479,104 @@ def check_k5(dev: torch.device, q_n: int, e: int, w: int, d: int, cap: int,
             split = beam_kernel.beam_merge_step(bds, bs, be, nd, ns, ef=ef, ew=ew, expand=e,
                                                 fused=False, stop=stop)
             equal(what + " against the split pair", got, split[:4])
+
+
+# BM25 scorer cases: (name, n_pad, Q, k, chunk rows or None for the default)
+BM25_CASES = (
+    ("empty queries", 1000, 7, 10, None),
+    ("a term without postings", 1000, 9, 10, None),
+    ("a term covering every document", 4099, 33, 100, None),
+    ("repeated terms", 2048, 17, 10, None),
+    ("every document deleted", 1000, 5, 10, None),
+    ("every document filtered out", 777, 6, 10, None),
+    ("k above the matches", 300, 6, 1024, None),
+    ("documents at the padding edge", 513, 9, 10, None),
+    ("Q not a multiple of the block or the chunk", 2000, 37, 10, 8),
+    ("k = 1", 5000, 12, 1, None),
+    ("k = 1024", 20000, 12, 1024, None),
+)
+
+
+def bm25_case(name: str, n_pad: int, q_n: int, seed: int = 0) -> dict:
+    """A scorer input (numpy, the argument names of `bm25.bm25_topk`): 40
+    terms over n_pad documents (postings by ascending slot, tf 1..5, term 0
+    covering every document, term 1 none), Q queries of 0-6 terms, float32
+    idf from the float64 formula at N = n_pad, allowed 90 %."""
+    g = np.random.default_rng((seed, n_pad, q_n, len(name)))
+    n_terms = 40
+    dfs = g.integers(0, n_pad + 1, size=n_terms)
+    dfs[0], dfs[1] = n_pad, 0
+    runs = []
+    for t, df in enumerate(dfs.tolist()):
+        docs = np.sort(g.choice(n_pad, size=df, replace=False))
+        if name == "documents at the padding edge" and 0 < df < n_pad:
+            docs = np.unique(np.concatenate([docs[:-2], [0, n_pad - 1]]))
+            dfs[t] = len(docs)
+        runs.append(docs)
+    post_slot = np.concatenate(runs).astype(np.int32)
+    post_tf = g.integers(1, 6, size=len(post_slot)).astype(np.float32)
+    starts = np.cumsum(dfs) - dfs
+    counts = g.integers(0, 7, size=q_n)
+    if name == "empty queries":
+        counts[::2] = 0
+    terms = [g.integers(0, n_terms, size=c) for c in counts]
+    if name == "repeated terms":
+        terms = [np.repeat(t[:3], 2) for t in terms]
+    if name == "a term without postings":
+        terms = [np.append(t, 1) for t in terms]
+    if name == "a term covering every document":
+        terms = [np.append(t, [0, 0]) for t in terms]
+    tids = np.concatenate(terms + [np.zeros(0, np.int64)]).astype(np.int64)
+    n = float(n_pad)
+    idf = [np.float32(np.log((n - d + 0.5) / (d + 0.5) + 1.0)) for d in dfs[tids].tolist()]
+    allowed = g.random(n_pad) < 0.9
+    if name in ("every document deleted", "every document filtered out"):
+        allowed[:] = False
+    doc_len = g.integers(1, 120, size=n_pad).astype(np.float32)
+    return {
+        "post_slot": post_slot, "post_tf": post_tf, "t_start": starts[tids].astype(np.int64),
+        "t_len": dfs[tids].astype(np.int32), "t_idf": np.asarray(idf, np.float32),
+        "q_off": np.concatenate([[0], np.cumsum([len(t) for t in terms])]).astype(np.int64),
+        "doc_len": doc_len, "allowed": allowed, "avgdl": np.float32(doc_len.mean()),
+    }
+
+
+def bm25_tensors(case: dict, dev: torch.device) -> dict:
+    """`bm25_case`'s arrays as tensors on `dev` (q_off and avgdl stay on
+    the host)."""
+    return {key: (torch.from_numpy(v).to(dev) if key not in ("q_off", "avgdl") else v)
+            for key, v in case.items()}
+
+
+def check_bm25(dev: torch.device, name: str, n_pad: int, q_n: int, k: int, chunk,
+               seed: int = 0) -> float:
+    """The BM25 scorer (`bm25.bm25_topk`) bit-equal to `_bm25_score_plain`
+    on `bm25_case`'s input, and its dense rows to the plain rows, one
+    launch a chunk. Returns the largest score difference (0)."""
+    args = bm25_tensors(bm25_case(name, n_pad, q_n, seed), dev)
+    saved = bm25.SCORE_BYTES_MAX
+    if chunk is not None:
+        bm25.SCORE_BYTES_MAX = 12 * n_pad * chunk
+    try:
+        before = bm25.LAUNCHES
+        got = bm25.bm25_topk(**args, k=k)
+        launches = bm25.LAUNCHES - before
+        want = bm25._bm25_score_plain(**args, k=k)
+    finally:
+        bm25.SCORE_BYTES_MAX = saved
+    what = f"BM25 scorer ({name}, n_pad {n_pad}, Q {q_n}, k {k})"
+    chunks = -(-q_n // (chunk or bm25.chunk_rows(n_pad)))
+    if launches != chunks:
+        raise AssertionError(f"{what}: {launches} launches for {chunks} chunks")
+    equal(what, (got[0].view(torch.int32), got[1]), (want[0].view(torch.int32), want[1]),
+          ("negated scores", "slots"))
+    q_off = args["q_off"]
+    rows = min(q_n, 64)
+    q_off_dev = torch.from_numpy(q_off[:rows + 1].astype(np.int32)).to(dev)
+    plain_args = {key: v for key, v in args.items() if key not in ("q_off", "avgdl")}
+    dense = bm25._bm25_dense_cuda(**plain_args, q_off_dev=q_off_dev, avgdl=float(args["avgdl"]))
+    pdense = bm25._bm25_dense_plain(**plain_args, q_off=q_off[:rows + 1],
+                                    avgdl=float(args["avgdl"]))
+    equal(what + ", dense rows", (dense.view(torch.int32),), (pdense.view(torch.int32),))
+    fin = torch.isfinite(want[0])
+    return float((got[0][fin] - want[0][fin]).abs().max()) if fin.any() else 0.0

@@ -42,6 +42,15 @@ class ScoreAggregationKind(str, enum.Enum):
     MEAN = "mean"
 
 
+class FusionKind(str, enum.Enum):
+    """Hybrid score fusion strategies (reference: fusion.go:8-24)."""
+
+    WEIGHTED_SUM = "weighted_sum"
+    RECIPROCAL_RANK = "reciprocal_rank"
+    MAX = "max"
+    MIN = "min"
+
+
 class CometError(Exception):
     """Base error for comet_tpu_torch."""
 

@@ -777,3 +777,79 @@ def test_ivfpq_index_cuda_matches_plain_and_cpu(dev, route, monkeypatch):
                 np.testing.assert_array_equal(got, want)
     for got, want in zip(*out):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name,n_pad,q_n,k,chunk", edge_cases.BM25_CASES)
+def test_bm25_scorer_edges_match_plain(dev, name, n_pad, q_n, k, chunk):
+    """The BM25 scorer bit-equal to `_bm25_score_plain` (ids and scores)
+    and its dense rows to the plain rows: empty queries, a term with no
+    postings, one covering every document, repeated terms, every document
+    deleted or filtered out, k above the matches, documents at the padding
+    edge, Q not a multiple of the block or the chunk, k = 1 and 1024."""
+    assert edge_cases.check_bm25(dev, name, n_pad, q_n, k, chunk) == 0.0
+
+
+def _bm25_docs(rng, n_docs, n_vocab=300):
+    vocab = [f"w{i}x" for i in range(n_vocab)]
+    ranks = rng.zipf(1.3, size=(n_docs, 12)) % n_vocab
+    return vocab, [" ".join(vocab[t] for t in row[: 2 + i % 10]) for i, row in enumerate(ranks)]
+
+
+def test_bm25_index_cuda_matches_cpu(dev):
+    """The same documents on the card and on the CPU: search_batch (with a
+    soft delete and a filter, k = 10 and 1000) and execute (k = 10, every
+    match) give the same ids and scores, bit for bit, the card launching
+    the scorer."""
+    from comet_tpu_torch import BM25SearchIndex
+    from comet_tpu_torch.ops import bm25
+
+    rng = np.random.default_rng(21)
+    vocab, texts = _bm25_docs(rng, 3000)
+    queries = [" ".join(vocab[t] for t in rng.integers(0, 300, size=n)) for n in (1, 2, 10) * 40]
+    out = []
+    for device in ("cuda", "cpu"):
+        idx = BM25SearchIndex(device=device)
+        idx.add_batch(range(1, 3001), texts)
+        idx.remove(17)
+        before = bm25.LAUNCHES
+        res = [idx.search_batch(queries, k=10), idx.search_batch(queries, k=1000),
+               idx.search_batch(queries, k=10, document_ids=range(1, 3001, 4))]
+        execs = [idx.new_search().with_query(queries[i]).with_k(k).execute()
+                 for i in (0, 1, 2) for k in (10, 0)]
+        res.append([np.array([[r.id, r.score] for r in e]) for e in execs])
+        if device == "cuda":
+            assert bm25.LAUNCHES > before
+        out.append(res)
+    for got, want in zip(out[0][:3], out[1][:3]):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    for got, want in zip(out[0][3], out[1][3]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_hybrid_cuda_matches_cpu(dev):
+    """A hybrid index of a FlatIndex, a BM25SearchIndex and a metadata
+    index on the card against the same on the CPU: search_batch for every
+    fusion kind under a filter, and execute, equal."""
+    from comet_tpu_torch import (BM25SearchIndex, FusionKind, RoaringMetadataIndex, eq,
+                                 new_hybrid_search_index)
+
+    rng = np.random.default_rng(22)
+    vocab, texts = _bm25_docs(rng, 2000)
+    vecs = rng.integers(0, 16, size=(2000, 24)).astype(np.float32)
+    q = rng.integers(0, 16, size=(50, 24)).astype(np.float32)
+    qt = [" ".join(vocab[t] for t in rng.integers(0, 300, size=2)) for _ in range(50)]
+    out = []
+    for device in ("cuda", "cpu"):
+        h = new_hybrid_search_index(FlatIndex(24, DistanceKind.L2, device=device),
+                                    BM25SearchIndex(device=device), RoaringMetadataIndex())
+        h.vector_index().add_batch(vecs, ids=range(1, 2001))
+        h.text_index().add_batch(range(1, 2001), texts)
+        h.metadata_index().add_columns(np.arange(1, 2001), {"cat": np.array(list("abcd") * 500)})
+        res = [[(r.id, r.score) for row in h.search_batch(q, qt, k=10, fusion_kind=kind,
+                                                          metadata_filters=[eq("cat", "a")])
+                for r in row] for kind in FusionKind]
+        res.append([(r.id, r.score) for r in h.new_search().with_vector(q[0]).with_text(qt[0])
+                    .with_metadata(eq("cat", "b")).with_k(10).execute()])
+        out.append(res)
+    assert out[0] == out[1]

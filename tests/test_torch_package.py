@@ -12,7 +12,14 @@ import pytest
 import torch
 
 import comet_tpu_torch
-from comet_tpu_torch import DistanceKind, FlatIndex, HNSWIndex, InvalidConfigError, IVFIndex
+from comet_tpu_torch import (
+    BM25SearchIndex,
+    DistanceKind,
+    FlatIndex,
+    HNSWIndex,
+    InvalidConfigError,
+    IVFIndex,
+)
 from comet_tpu_torch.ops import _build
 
 PKG = os.path.dirname(comet_tpu_torch.__file__)
@@ -24,14 +31,17 @@ def test_import_loads_no_jax():
         "import sys, comet_tpu_torch\n"
         "from comet_tpu_torch import FlatIndex, HNSWIndex, IVFIndex\n"
         "import comet_tpu_torch.ops.beam_kernel, comet_tpu_torch.ops.graph_build\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'comet_tpu')]\n"
+        "from comet_tpu_torch import BM25SearchIndex, HybridSearchIndex, RoaringMetadataIndex\n"
+        "import comet_tpu_torch.ops.bm25, comet_tpu_torch.indexes.contracts\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'comet_tpu', 'regex')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
 def test_sources_import_neither_jax_nor_reference():
-    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|comet_tpu)\b", re.M)
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|comet_tpu|regex)\b", re.M)
     for dirpath, _, files in os.walk(PKG):
         for name in files:
             if name.endswith(".py"):
@@ -45,6 +55,7 @@ def test_sources_import_neither_jax_nor_reference():
     ("ivf_sparse.cu", "comet_tpu/ops/ivf_sparse.py:_sparse_kernel"),
     ("beam_merge.cu", "comet_tpu/ops/beam_kernel.py:_merge_kernel"),
     ("gather_score.cu", "comet_tpu/ops/beam_kernel.py:_gather_score"),
+    ("bm25_score.cu", "comet_tpu/indexes/bm25.py:_bm25_device_kernel"),
 ])
 def test_kernel_sources_exist_with_their_note(source, replaces):
     path = os.path.join(_build.CSRC_DIR, source)
@@ -88,13 +99,14 @@ def test_cuda_index_without_card_raises():
         FlatIndex(4, DistanceKind.L2, device="cuda")
 
 
-@pytest.mark.parametrize("cls", [FlatIndex, IVFIndex, HNSWIndex])
+@pytest.mark.parametrize("cls", [FlatIndex, IVFIndex, HNSWIndex, BM25SearchIndex])
 @pytest.mark.parametrize("device", [None, "mps", "meta"])
 def test_index_device_is_explicit(device, cls):
     """An omitted device means the card: without one the index raises, as
     it does for a device other than "cpu" or "cuda"; nothing falls back to
     the CPU."""
-    args = (4, 2, DistanceKind.L2) if cls is IVFIndex else (4, DistanceKind.L2)
+    args = ((4, 2, DistanceKind.L2) if cls is IVFIndex
+            else () if cls is BM25SearchIndex else (4, DistanceKind.L2))
     if device is None and torch.cuda.is_available():
         assert cls(*args)._device.type == "cuda"
         return
@@ -129,3 +141,7 @@ def test_cpu_index_reports_its_memory():
 
 def test_cuda_marker_is_registered(request):
     assert any(m.startswith("cuda:") for m in request.config.getini("markers"))
+
+
+def test_contracts_hold_for_every_index():
+    comet_tpu_torch.check_contracts(device="cpu")
