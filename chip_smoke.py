@@ -153,6 +153,25 @@
    queries equal to the fluent execute() one by one, the vector leg equal
    to the plain pipeline (ops/topk.block_topk) under the candidate mask,
    the text leg to the plain scorer. `--profile` adds two batches.
+12. The persistent hybrid store (comet_tpu_torch.storage) with the
+   reference's knobs (100 MiB memtables, 200 MiB flush threshold,
+   compaction of 5 segments every 300 s, WAL on, fsync off) over card
+   factories (FlatIndex float32, BM25SearchIndex, RoaringMetadataIndex):
+   2^19 documents, row i of the corpus with document i of section 10's
+   texts and section 11's metadata, ingested by add_batch in batches of
+   16,384 (docs/s, rotations, background flushes); flush(); 4,096 flushed
+   documents removed, then maybe_compact(); 256 vector-only, 256 2-term
+   text and 256 hybrid searches (cat = a, reciprocal rank) at k = 10
+   through new_search()...execute() over every memtable and segment (p50,
+   p99, queries/s); 16,384 more documents left in the WAL by a simulated
+   crash, the reopen (WAL replay) and its first search (segments loaded
+   onto the card) timed; close(). Vector-only results equal one FlatIndex
+   on the card over the live rows before and after compaction and after
+   the reopen (ids but at ties at the k-th score); 16 text and 16 hybrid
+   searches equal their recomputation on every wrapper's plain version; no
+   removed id comes back; after the crash every acknowledged document is
+   live and found by has_document. `--profile` adds a window of 64 hybrid
+   store searches.
 
 Any mismatch raises, so the run exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it names the kernels with
@@ -1909,7 +1928,8 @@ def bm25_section(index, queries, n_terms, dev, tag, time_ms, library=False):
 
 def bm25_phase(seed, dev, tag, time_ms, profile):
     """Section 10 of the module docstring. Returns {"report": the scorer's
-    numbers, "launches": the BM25 path's counts, "index", "qterms"}."""
+    numbers, "launches": the BM25 path's counts, "index", "texts",
+    "qterms"}."""
     from comet_tpu_torch import BM25SearchIndex
     from comet_tpu_torch.ops import bm25
 
@@ -1921,7 +1941,6 @@ def bm25_phase(seed, dev, tag, time_ms, profile):
     t0 = time.perf_counter()
     index.add_batch(range(1, BM25_N + 1), texts)
     t_ingest = time.perf_counter() - t0
-    del texts
     t0 = time.perf_counter()
     host = index._postings()
     torch.cuda.synchronize()
@@ -1993,7 +2012,8 @@ def bm25_phase(seed, dev, tag, time_ms, profile):
           f"queries of each ({n_ties} positions at ties within 1e-6 differ), scores "
           f"allclose(1e-5) ({time.perf_counter() - t0:.1f} s) {tag}")
     del h
-    return {"report": report, "launches": launches, "index": index, "qterms": qterms}
+    return {"report": report, "launches": launches, "index": index, "texts": texts,
+            "qterms": qterms}
 
 
 def hybrid_phase(corpus, queries, text_index, qterms, dev, tag, time_ms, profile):
@@ -2102,6 +2122,286 @@ def hybrid_phase(corpus, queries, text_index, qterms, dev, tag, time_ms, profile
     return {"launches": launches}
 
 
+STORE_N = 1 << 19      # documents of the persistent store: the first rows of the corpus
+STORE_BATCH = 16384    # documents an add_batch call
+STORE_REMOVE = 4096    # flushed documents removed before the compaction
+STORE_QUERIES = 256    # store searches of each kind
+STORE_CHECK = 16       # text and hybrid searches recomputed on the plain versions
+STORE_WAL_N = 16384    # documents added after the flush and left in the WAL by the crash
+STORE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_store")
+
+
+def store_vector_check(store, ref_flat, queries, what):
+    """Vector-only store searches (every memtable and segment, k = 10)
+    against one FlatIndex on the card over the same live rows: scores
+    array-equal, ids equal but at ties at the k-th score. Returns the
+    seconds of each search and the ids returned."""
+    secs, got_i, got_s = [], [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        res = store.new_search().with_vector(q).with_k(HYBRID_K).execute()
+        secs.append(time.perf_counter() - t0)
+        got_i.append([r.id for r in res])
+        got_s.append([r.score for r in res])
+    with uncounted():
+        want_i, want_s = ref_flat.search_batch(queries, k=HYBRID_K)
+    got_i = np.array(got_i, dtype=np.int64)
+    got_s = np.array(got_s, dtype=np.float64).astype(np.float32)
+    check_probed(f"store vector-only searches ({what})", got_i, got_s, want_i.astype(np.int64),
+                 want_s, ties_ok=True)
+    return secs, got_i
+
+
+def store_text_checks(store, texts, vectors, filt, kind):
+    """Text-only and hybrid store searches: their results, and the first
+    STORE_CHECK of each recomputed with every wrapper on its plain version
+    (the plain BM25 scorer and top-k in every source's text leg, the plain
+    scan in its vector leg), merged by the store's merge_results: equal."""
+    runs = {"text": lambda i, b: b.with_text(texts[i]),
+            "hybrid": lambda i, b: (b.with_vector(vectors[i]).with_text(texts[i])
+                                    .with_metadata(*filt).with_fusion_kind(kind))}
+    out = {}
+    for name, make in runs.items():
+        secs, res = [], []
+        for i in range(len(texts)):
+            t0 = time.perf_counter()
+            res.append([(r.id, r.score) for r in make(i, store.new_search()).with_k(HYBRID_K)
+                        .execute()])
+            secs.append(time.perf_counter() - t0)
+        with uncounted(), plain_versions():
+            for i in range(STORE_CHECK):
+                want = [(r.id, r.score)
+                        for r in make(i, store.new_search()).with_k(HYBRID_K).execute()]
+                if want != res[i]:
+                    raise AssertionError(f"store {name} search {i} differs from its plain "
+                                         f"recomputation")
+        out[name] = (secs, res)
+    return out
+
+
+def serial_deflate(store, tag):
+    """The level-9 deflate rate of one core on this host, on a 2 MiB
+    sample of each stream kind of the store's first segment, and the
+    seconds the streams the store has written so far would take on one
+    core, as the reference's serial gzip.open writes them."""
+    import gzip
+    import zlib
+
+    paths = store.segments.list()[0].paths
+    total = 0.0
+    rates = []
+    for kind, n in store.write_stats["bytes"].items():
+        with gzip.open(paths[kind], "rb") as f:
+            sample = f.read(2 << 20)
+        t0 = time.perf_counter()
+        zlib.compress(sample, 9)
+        rate = len(sample) / (time.perf_counter() - t0)
+        rates.append(f"{kind} {rate / 1e6:.2f} MB/s")
+        total += n / rate
+    print(f"serial level-9 deflate on one core of this host (2 MiB samples): {', '.join(rates)}; "
+          f"the {sum(store.write_stats['bytes'].values())} bytes written so far would take "
+          f"{total:.1f} s on one core, the pool took {store.write_stats['deflate_s']:.1f} s {tag}")
+
+
+def latency(secs):
+    ms = np.array(secs) * 1e3
+    return (f"p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms, "
+            f"{len(secs) / sum(secs):.1f} queries/s")
+
+
+def store_phase(corpus, queries, texts, qterms, dev, tag, profile):
+    """Section 12 of the module docstring. Returns {"launches": the phase's
+    counts, "seconds": its wall time}."""
+    import gc
+    import shutil
+
+    from comet_tpu_torch import (BM25SearchIndex, DistanceKind, FlatIndex, FusionKind,
+                                 RoaringMetadataIndex, eq, storage)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    cfg = storage.StorageConfig(
+        base_dir=STORE_DIR,
+        vector_index_factory=lambda: FlatIndex(DIM, DistanceKind.L2, device="cuda"),
+        text_index_factory=lambda: BM25SearchIndex(device="cuda"),
+        metadata_index_factory=RoaringMetadataIndex)
+    meta = [{"cat": "abcd"[i % 4], "num": i % 1000} for i in range(STORE_N + STORE_WAL_N)]
+    reset_launches()
+
+    # 1. ingest with the reference's knobs: rotations and background flushes
+    store = storage.open_persistent_hybrid_index(cfg)
+    print(f"store knobs: memtable {cfg.memtable_size_limit} B, flush threshold "
+          f"{cfg.flush_threshold} B, compaction every {cfg.compaction_interval} s at "
+          f"{cfg.compaction_threshold} segments, WAL {cfg.wal_enabled}, fsync {cfg.wal_fsync}")
+    ids = np.zeros(STORE_N + STORE_WAL_N, dtype=np.int64)
+    t0 = time.perf_counter()
+    for lo in range(0, STORE_N, STORE_BATCH):
+        hi = min(lo + STORE_BATCH, STORE_N)
+        ids[lo:hi] = store.add_batch([(corpus[i], texts[i], meta[i]) for i in range(lo, hi)])
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    n_bg = store.segments.count()
+    rotations = n_bg + store.memtables.count() - 1
+    print(f"store add_batch {STORE_N} documents (vector, text, metadata) in batches of "
+          f"{STORE_BATCH}: {t_ingest:.1f} s = {STORE_N / t_ingest:.1f} docs/s; {rotations} "
+          f"rotations, {n_bg} segments flushed in the background by then {tag}")
+
+    # 2. flush
+    t0 = time.perf_counter()
+    store.flush()
+    torch.cuda.synchronize()
+    t_flush = time.perf_counter() - t0
+    st = store.stats()
+    ws = store.write_stats
+    print(f"store flush(): {t_flush:.1f} s; {st['segments']} segments, {st['segment_bytes']} "
+          f"bytes on disk; writing segment files so far: serialize {ws['serialize_s']:.1f} s, "
+          f"deflate (level 9, {storage.segment.GZIP_WORKERS} threads) {ws['deflate_s']:.1f} s "
+          f"of {sum(ws['bytes'].values())} bytes {tag}")
+    serial_deflate(store, tag)
+
+    # 3. remove flushed documents, then compact
+    rng = np.random.default_rng(12)
+    gone_rows = np.sort(rng.choice(STORE_N, STORE_REMOVE, replace=False))
+    live = np.ones(STORE_N + STORE_WAL_N, dtype=bool)
+    live[STORE_N:] = False
+    t0 = time.perf_counter()
+    for r in gone_rows.tolist():
+        if not store.remove(int(ids[r])):
+            raise AssertionError(f"store remove({ids[r]}) found nothing")
+    t_remove = time.perf_counter() - t0
+    live[gone_rows] = False
+    gone = set(ids[gone_rows].tolist())
+
+    def flat_over_live():
+        flat = FlatIndex(DIM, DistanceKind.L2, device="cuda")
+        flat.add_batch(corpus[np.flatnonzero(live)], ids=ids[live].astype(np.uint32))
+        return flat
+
+    sq = queries[:STORE_QUERIES]
+    ref_flat = flat_over_live()
+    store_vector_check(store, ref_flat, sq, "before compaction")
+    before = store.segments.count()
+    w0 = (ws["serialize_s"], ws["deflate_s"], sum(ws["bytes"].values()))
+    t0 = time.perf_counter()
+    store.maybe_compact()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    print(f"store remove {STORE_REMOVE} flushed documents: {t_remove:.2f} s; maybe_compact(): "
+          f"{t_compact:.1f} s, segments {before} -> {store.segments.count()} (writing the merged "
+          f"segment: serialize {ws['serialize_s'] - w0[0]:.1f} s, deflate "
+          f"{ws['deflate_s'] - w0[1]:.1f} s of {sum(ws['bytes'].values()) - w0[2]} bytes) {tag}")
+
+    # 4. 256 searches of each kind over every memtable and segment
+    texts_q = bm25_queries(qterms, 2, count=STORE_QUERIES)
+    filt = [eq("cat", "a")]
+    n_src = store.memtables.count() + store.segments.count()
+    torch.cuda.synchronize()
+    v_secs, v_ids = store_vector_check(store, ref_flat, sq, "after compaction")
+    th = store_text_checks(store, texts_q, sq, filt, FusionKind.RECIPROCAL_RANK)
+    for name, secs in (("vector-only", v_secs), ("2-term text", th["text"][0]),
+                       ("hybrid (vector + 2-term text, cat = a, reciprocal rank)",
+                        th["hybrid"][0])):
+        print(f"store {name} searches, {STORE_QUERIES} at k={HYBRID_K} over {n_src} sources: "
+              f"{latency(secs)} {tag}")
+    returned = set(v_ids.ravel().tolist()) | {i for _, res in (th["text"], th["hybrid"])
+                                              for row in res for i, _ in row}
+    if returned & gone:
+        raise AssertionError(f"store searches returned removed ids: {sorted(returned & gone)[:8]}")
+    if any(i % 4 != 1 for _, res in [th["hybrid"]] for row in res for i, _ in row):
+        raise AssertionError("a hybrid store search returned a document outside the filter")
+    print(f"store searches: vector-only equal to one FlatIndex over the live rows before and "
+          f"after compaction ({STORE_QUERIES} queries each), {STORE_CHECK} text and "
+          f"{STORE_CHECK} hybrid searches equal to their plain recomputation, no removed id "
+          f"returned")
+    if profile:
+        profile_window(lambda: [store.new_search().with_vector(sq[i]).with_text(texts_q[i])
+                                .with_metadata(*filt)
+                                .with_fusion_kind(FusionKind.RECIPROCAL_RANK)
+                                .with_k(HYBRID_K).execute() for i in range(min(64, len(sq)))],
+                       "store, 64 hybrid searches")
+    del ref_flat
+
+    # 5. add without flushing, crash, reopen
+    t0 = time.perf_counter()
+    for lo in range(STORE_N, STORE_N + STORE_WAL_N, STORE_BATCH):
+        hi = min(lo + STORE_BATCH, STORE_N + STORE_WAL_N)
+        ids[lo:hi] = store.add_batch([(corpus[i], texts[i], meta[i]) for i in range(lo, hi)])
+    live[STORE_N:] = True
+    t_wal = time.perf_counter() - t0
+    if store.memtables.count() != 1 or store.memtables.mutable.num_docs != STORE_WAL_N:
+        raise AssertionError("the WAL-only documents did not stay in one memtable")
+    # a crash: the workers stop (the flush worker not woken, which would
+    # flush first), the WAL and a LOCK of a dead pid stay behind
+    n_seg = store.segments.count()
+    store._stop.set()
+    store._flush_thread.join(timeout=5)
+    store._compact_event.set()
+    store._compact_thread.join(timeout=5)
+    if store._flush_thread.is_alive() or store._compact_thread.is_alive():
+        raise AssertionError("a store worker did not stop")
+    with open(os.path.join(STORE_DIR, "LOCK"), "w") as f:
+        f.write("999999999")
+    wal_bytes = sum(os.path.getsize(p) for p in store.provider.list_wals())
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    store = storage.open_persistent_hybrid_index(cfg)
+    t_reopen = time.perf_counter() - t0
+    if store.segments.count() != n_seg or store.memtables.mutable.num_docs != STORE_WAL_N:
+        raise AssertionError(f"the reopen found {store.segments.count()} segments (the crash "
+                             f"left {n_seg}) and replayed {store.memtables.mutable.num_docs} of "
+                             f"{STORE_WAL_N} logged documents")
+    t0 = time.perf_counter()
+    store.new_search().with_vector(sq[0]).with_text(texts_q[0]).with_metadata(*filt) \
+        .with_fusion_kind(FusionKind.RECIPROCAL_RANK).with_k(HYBRID_K).execute()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    loads = sum(seg.load_seconds for seg in store.segments.list())
+    print(f"store add {STORE_WAL_N} documents without a flush: {t_wal:.1f} s; crash (WALs of "
+          f"{wal_bytes} bytes left); reopen (WAL replay of {STORE_WAL_N} documents): "
+          f"{t_reopen:.1f} s; first search (a hybrid "
+          f"one, loading {store.segments.count()} segments onto the card, {loads:.1f} s of "
+          f"loads summed over the pool's threads): {t_first:.1f} s {tag}")
+    ref_flat = flat_over_live()
+    store_vector_check(store, ref_flat, sq, "after the reopen")
+    del ref_flat
+    n_live = sum(mt.index.count() for mt in store.memtables.list_all())
+    for seg in store.segments.list():
+        index = seg.get_index()
+        n_live += index.count() - sum(index.has_document(d) for d in store._tombstones)
+    if n_live != STORE_N + STORE_WAL_N - STORE_REMOVE:
+        raise AssertionError(f"{n_live} live documents after the reopen, "
+                             f"{STORE_N + STORE_WAL_N - STORE_REMOVE} acknowledged")
+    n_sample = min(4096, int(live[:STORE_N].sum()))
+    sample = np.concatenate([ids[STORE_N:], rng.choice(ids[:STORE_N][live[:STORE_N]], n_sample,
+                                                       replace=False)])
+    if not all(store.has_document(int(d)) for d in sample):
+        raise AssertionError("an acknowledged document is missing after the reopen")
+    if any(store.has_document(int(d)) for d in list(gone)[:512]):
+        raise AssertionError("a removed document is back after the reopen")
+    print(f"store after the crash: {n_live} live documents = {STORE_N} + {STORE_WAL_N} added - "
+          f"{STORE_REMOVE} removed; has_document for the {STORE_WAL_N} WAL-only ids and "
+          f"{n_sample} others, not for {min(512, len(gone))} removed ones")
+
+    # 6. close
+    t0 = time.perf_counter()
+    store.close()
+    t_close = time.perf_counter() - t0
+    launches = read_launches()
+    seconds = time.perf_counter() - t_phase
+    print(f"store close() (final flush of {STORE_WAL_N} documents): {t_close:.1f} s; phase 12 "
+          f"took {seconds:.1f} s {tag}")
+    print(f"kernel launches of phase 12: {launches}")
+    if min(launches["topk_cl"], launches["fused_dist_select"], launches["bm25_score"]) <= 0:
+        raise AssertionError(f"a kernel of the store path never launched: {launches}")
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    return {"launches": launches, "seconds": seconds}
+
+
 def edge_checks(dev, seed, tag):
     """K1, K2's three modes, K3's two modes, K4's two, the scoring kernel,
     K5 and the BM25 scorer against their plain versions at edge shapes
@@ -2151,8 +2451,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace two steady flat, IVF and HNSW batches, one insertion "
-                         "round, one IVFPQ batch and two BM25 and hybrid batches with "
-                         "torch.profiler")
+                         "round, one IVFPQ batch, two BM25 and hybrid batches and 64 "
+                         "hybrid store searches with torch.profiler")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after holding K1-K5 and the scoring kernel to their plain "
                          "versions at the main path's shapes and timing them")
@@ -2450,7 +2750,12 @@ def main():
     hyl = hybrid_phase(corpus, queries, bm["index"], bm["qterms"], dev, tag, time_ms,
                        args.profile)["launches"]
     bml, bm_report = bm["launches"], bm["report"]
+    texts, qterms = bm["texts"], bm["qterms"]
     del bm
+
+    # -- 12. the persistent hybrid store ---------------------------------------------------
+    stl = store_phase(corpus, queries, texts, qterms, dev, tag, args.profile)["launches"]
+    del texts
 
     def entry(name, source, replaces, key, n_launches):
         r = (report.get(key) or fb["report"].get(key) or ivf["report"].get(key)
@@ -2464,11 +2769,12 @@ def main():
     kernels = [
         entry("topk_cl", "comet_tpu_torch/csrc/topk.cu", "comet_tpu/ops/sortnet.py:142",
               "topk_cl", launches["topk_cl"] + fl["topk_cl"] + il["topk_cl"] + hl["topk_cl"]
-              + l8["topk_cl"] + pql["topk_cl"] + bml["topk_cl"] + hyl["topk_cl"]),
+              + l8["topk_cl"] + pql["topk_cl"] + bml["topk_cl"] + hyl["topk_cl"]
+              + stl["topk_cl"]),
         entry("fused_dist_select", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:63", "fused_dist_select",
               launches["fused_dist_select"] + hl["fused_dist_select"] + pql["fused_dist_select"]
-              + hyl["fused_dist_select"]),
+              + hyl["fused_dist_select"] + stl["fused_dist_select"]),
         entry("fused_dist_select_nprobe", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:100", "fused_dist_select_nprobe",
               il["fused_dist_select_nprobe"] + pql["fused_dist_select_nprobe"]),
@@ -2499,7 +2805,7 @@ def main():
               "comet_tpu/ops/beam_kernel.py:582", "fused_expand", hl["fused_expand"]),
         entry("bm25_score", "comet_tpu_torch/csrc/bm25_score.cu",
               "comet_tpu/indexes/bm25.py:602", "bm25_score",
-              bml["bm25_score"] + hyl["bm25_score"]),
+              bml["bm25_score"] + hyl["bm25_score"] + stl["bm25_score"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

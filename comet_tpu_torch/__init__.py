@@ -8,8 +8,9 @@ OPQ, and the IVFPQ exact re-rank `nrefine`), the scalar quantizers
 (`new_quantizer`) and HNSW bulk build, incremental insertion and search
 (`HNSWIndex`: blocked or packed routing tables, a seeded or classic
 start), the hybrid layer (`BM25SearchIndex`, `RoaringMetadataIndex` and
-its filters, `Fusion`, `HybridSearchIndex`, the index contracts), with the
-host layer they need. Its CUDA kernels, written by hand
+its filters, `Fusion`, `HybridSearchIndex`, the index contracts) and the
+LSM store (`PersistentHybridIndex`, `StorageConfig`: WAL, memtables,
+segments, bloom sidecars, compaction), with the host layer they need. Its CUDA kernels, written by hand
 for sm_90a, replace every Pallas kernel of the reference (ops/sortnet.py:
 top-k select; ops/fused_scan.py: fused distance scan, flat mode over a
 float32, bf16, float16 or int8 corpus (the last two the reference's XLA
@@ -71,6 +72,12 @@ from comet_tpu_torch.indexes.contracts import (
     MetadataIndex,
     HybridIndex,
     check_contracts,
+)
+from comet_tpu_torch.storage import (
+    StorageConfig,
+    default_storage_config,
+    PersistentHybridIndex,
+    open_persistent_hybrid_index,
 )
 from comet_tpu_torch.ops.quantizer import (
     QuantizerType,

@@ -23,8 +23,10 @@ plain version on the CPU); the index runs on the card unless it is given
 from __future__ import annotations
 
 import math
+import struct
 import threading
 import unicodedata
+import zlib
 from typing import BinaryIO, Iterable
 
 import numpy as np
@@ -49,6 +51,8 @@ K1 = bm25_ops.K1
 B = bm25_ops.B
 
 ADD_BATCH_DOCS = 1 << 16  # documents whose tokens add_batch maps at once
+SERIAL_BLOCK_DOCS = 1 << 13    # documents write_to encodes at once
+SERIAL_BLOCK_BYTES = 1 << 24   # bytes read_from parses at once
 
 
 def normalize(text: str) -> str:
@@ -183,6 +187,15 @@ class BM25SearchIndex:
                 if len(doc_ids) == ADD_BATCH_DOCS:
                     store()
             store()
+
+    def doc_tokens(self, doc_id: int) -> list[str] | None:
+        """A stored document's tokens in order (soft-deleted documents
+        included until flush), or None."""
+        with self._lock:
+            terms = self._doc_terms.get(int(doc_id))
+            if terms is None:
+                return None
+            return list(map(self._vocab.terms.__getitem__, terms.tolist()))
 
     def remove(self, doc_id: int) -> None:
         """Soft delete: scoring skips the doc, but N/df/avgdl keep counting it
@@ -369,36 +382,108 @@ class BM25SearchIndex:
     def write_to(self, f: BinaryIO) -> None:
         """CB25 v3: explicit per-doc token lists (postings are rebuilt on
         load — tokens round-trip verbatim, including whitespace segments).
-        Flushes soft deletes first."""
+        Flushes soft deletes first. The bytes are the reference's, made a
+        block of documents at a time from the encoded vocabulary."""
         with self._lock:
             self.flush()
-            terms = self._vocab.terms
             w = serial.CrcWriter(f)
             serial.write_magic(w, MAGIC, VERSION)
             serial.write_u64(w, len(self._doc_terms))
-            for doc_id in sorted(self._doc_terms):
-                serial.write_u32(w, doc_id)
-                tids = self._doc_terms[doc_id]
-                serial.write_u32(w, len(tids))
-                for t in tids.tolist():
-                    serial.write_str(w, terms[t])
+            enc = [t.encode("utf-8") for t in self._vocab.terms]
+            pieces = b"".join(len(e).to_bytes(4, "little") + e for e in enc)
+            elen = np.fromiter((4 + len(e) for e in enc), np.int64, count=len(enc))
+            docs = sorted(self._doc_terms)
+            for lo in range(0, len(docs), SERIAL_BLOCK_DOCS):
+                w.write(_encode_docs(docs[lo:lo + SERIAL_BLOCK_DOCS], self._doc_terms,
+                                     pieces, elen))
             w.seal()
 
     def read_from(self, f: BinaryIO) -> None:
+        """Reads CB25 v2 or v3 (the stream is read in blocks; bytes past
+        the payload are given back with a seek)."""
         r = serial.CrcReader(f)
         version = serial.read_magic(r, MAGIC, VERSION)
         n = serial.read_u64(r)
-        docs = []
-        for _ in range(n):
-            doc_id = serial.read_u32(r)
-            ntok = serial.read_u32(r)
-            docs.append((doc_id, [serial.read_str(r) for _ in range(ntok)]))
+        vocab = _Vocab()
+        term_of: dict[bytes, int] = {}
+        docs: list[tuple[int, np.ndarray]] = []
+        buf, pos, crc = b"", 0, r._crc
+        unpack = _U32.unpack_from
+        while len(docs) < n:
+            more = f.read(SERIAL_BLOCK_BYTES)
+            if not more:
+                raise serial.SerializationError("unexpected EOF in CB25 documents")
+            buf = buf[pos:] + more
+            pos = 0
+            # parse every document that lies whole in the buffer
+            while len(docs) < n and pos + 8 <= len(buf):
+                doc_id, ntok = unpack(buf, pos)[0], unpack(buf, pos + 4)[0]
+                p, tids = pos + 8, []
+                for _ in range(ntok):
+                    if p + 4 > len(buf):
+                        break
+                    q = p + 4 + unpack(buf, p)[0]
+                    if q > len(buf):
+                        break
+                    raw = buf[p + 4:q]
+                    tid = term_of.get(raw)
+                    if tid is None:
+                        tid = term_of[raw] = vocab[raw.decode("utf-8")]
+                    tids.append(tid)
+                    p = q
+                else:
+                    crc = zlib.crc32(buf[pos:p], crc)
+                    docs.append((doc_id, np.array(tids, dtype=np.int32)))
+                    pos = p
+                    continue
+                break  # the document runs past the buffer: read more
+        rest = buf[pos:]
         if version >= 3:
-            r.verify()
+            if len(rest) < 4:
+                rest += f.read(4 - len(rest))
+            if len(rest) < 4:
+                raise serial.SerializationError("unexpected EOF: missing checksum trailer")
+            (want,) = _U32.unpack_from(rest, 0)
+            if want != crc:
+                raise serial.SerializationError(
+                    f"payload checksum mismatch: stored={want:#010x}, computed={crc:#010x}")
+            rest = rest[4:]
+        if rest:
+            f.seek(-len(rest), 1)
         with self._lock:
             self.__init__(wordlike_only=self._wordlike_only, device=self._device)
-            for doc_id, tokens in docs:
-                self._add_tokens(doc_id, tokens)
+            self._vocab = vocab
+            for doc_id, terms in docs:
+                self._add_terms(doc_id, terms)
+
+
+_U32 = struct.Struct("<I")
+
+
+def _encode_docs(docs: list[int], doc_terms: dict, pieces: bytes, elen: np.ndarray) -> bytes:
+    """The CB25 bytes of `docs`: for each, u32 id, u32 token count, then each
+    token as a u32 length and its UTF-8 bytes, gathered from `pieces` (each
+    term's encoding, `elen` bytes long, in term-id order)."""
+    arrays = [doc_terms[d] for d in docs]
+    counts = np.fromiter(map(len, arrays), np.int64, count=len(arrays))
+    tids = np.concatenate(arrays).astype(np.int64) if arrays else np.zeros(0, np.int64)
+    head = np.empty((len(docs), 2), np.uint32)
+    head[:, 0], head[:, 1] = docs, counts
+    src = np.frombuffer(pieces + head.tobytes(), np.uint8)
+    # pieces in output order: a document's header, then its tokens
+    n_pieces = len(docs) + len(tids)
+    at_head = np.arange(len(docs)) + np.cumsum(counts) - counts
+    is_tok = np.ones(n_pieces, bool)
+    is_tok[at_head] = False
+    start = np.empty(n_pieces, np.int64)
+    size = np.empty(n_pieces, np.int64)
+    start[at_head] = len(pieces) + 8 * np.arange(len(docs))
+    size[at_head] = 8
+    term_start = np.cumsum(elen) - elen
+    start[is_tok] = term_start[tids]
+    size[is_tok] = elen[tids]
+    shift = start - (np.cumsum(size) - size)
+    return src[np.repeat(shift, size) + np.arange(int(size.sum()))].tobytes()
 
 
 class BM25SearchBuilder:

@@ -465,6 +465,10 @@ class HNSWIndex(BaseVectorIndex):
             self._insert_preprocessed(id_arr, prepped)
         return id_arr.tolist()
 
+    def _vectors_of_slots(self, slots: np.ndarray) -> np.ndarray:
+        """The preprocessed vectors of `slots` (the store's merge reads them)."""
+        return self._store.vectors[slots]
+
     def _insert_preprocessed(self, id_arr: np.ndarray, prepped: np.ndarray) -> None:
         was_empty = self._store.n == 0 and self._entry_slot < 0
         slots = self._store.add_batch(id_arr, prepped)

@@ -75,6 +75,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# guards the wrappers' launch counters: searches launch from several threads
+# (the store's segment fan-out, its flush worker)
+COUNT_LOCK = threading.Lock()
 # Filled by the first build or load: nvcc path, library path, seconds spent,
 # whether it was compiled in this process, and the compiler's output.
 build_info: dict = {}

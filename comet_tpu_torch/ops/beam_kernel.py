@@ -252,10 +252,11 @@ def _gather_score_cuda(qb, qn, nbr_vecs, aux, nodes, allowed, thr: float, fused:
         nd.data_ptr(), ns.data_ptr(), adm.data_ptr() if fused else None,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if aux is None:
-        PACKED_SCORE_LAUNCHES += 1
-    else:
-        SCORE_LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        if aux is None:
+            PACKED_SCORE_LAUNCHES += 1
+        else:
+            SCORE_LAUNCHES += 1
     _build.check(code, "gather_score")
     return nd, ns, adm
 
@@ -368,10 +369,11 @@ def _merge_cuda(bd, bs, be, nd, ns, rd, rs, adm, ef, ew, expand, fused, kr, stop
         ptr(od), ptr(osl), ptr(oe), ptr(misc), ptr(ord_), ptr(ors),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if fused:
-        FUSED_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        if fused:
+            FUSED_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     _build.check(code, "beam_merge")
     return od, osl, oe, misc, ord_, ors
 
@@ -455,7 +457,8 @@ def _fused_expand_cuda(nodes, packed, qb, qn, bd, bs, be, ef, expand, stop):
         expand, stop, od.data_ptr(), osl.data_ptr(), oe.data_ptr(), misc.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    FUSE_LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        FUSE_LAUNCHES += 1
     _build.check(code, "fused_expand")
     return od, osl, oe, misc
 

@@ -134,7 +134,8 @@ def _bm25_dense_cuda(post_slot, post_tf, t_start, t_len, t_idf, q_off_dev, doc_l
         t_idf.data_ptr(), q_off_dev.data_ptr(), rows, doc_len.data_ptr(),
         allowed.data_ptr(), n_pad, avgdl, out.data_ptr(), stream,
     )
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     _build.check(code, "bm25_score")
     return out
 

@@ -178,16 +178,17 @@ def _fused_scan_cuda(queries, corpus, mask_vec, thr: float, cosine: bool,
         dist.data_ptr(), gmin.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if corpus.dtype == torch.bfloat16:
-        BF16_LAUNCHES += 1
-    elif corpus.dtype == torch.float16:
-        F16_LAUNCHES += 1
-    elif corpus.dtype == torch.int8:
-        INT8_LAUNCHES += 1
-    elif assign is None:
-        LAUNCHES += 1
-    else:
-        NPROBE_LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        if corpus.dtype == torch.bfloat16:
+            BF16_LAUNCHES += 1
+        elif corpus.dtype == torch.float16:
+            F16_LAUNCHES += 1
+        elif corpus.dtype == torch.int8:
+            INT8_LAUNCHES += 1
+        elif assign is None:
+            LAUNCHES += 1
+        else:
+            NPROBE_LAUNCHES += 1
     _build.check(code, "fused_scan")
     return dist, gmin
 

@@ -272,10 +272,11 @@ def _sparse_scan_cuda(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
         dist.data_ptr(), gmin.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if bf16:
-        BF16_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        if bf16:
+            BF16_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     _build.check(code, "sparse_scan")
     return dist, gmin
 

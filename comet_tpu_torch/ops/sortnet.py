@@ -113,7 +113,8 @@ def _topk_cuda(vals, idx, k, rows, width, in_row, in_col, rows_out):
             out_row, out_col, stream,
         )
         log_n = n_pad.bit_length() - 1
-        LAUNCHES += 2 + log_n * (log_n + 1) // 2   # pack, stages, unpack
+        with _build.COUNT_LOCK:
+            LAUNCHES += 2 + log_n * (log_n + 1) // 2   # pack, stages, unpack
         _build.check(code, "topk_rows_global")
         return vout, iout
     # rows wider than 2 kp take the radix select; past SMEM_KEYS their keys
@@ -126,7 +127,8 @@ def _topk_cuda(vals, idx, k, rows, width, in_row, in_col, rows_out):
         scratch.data_ptr() if scratch is not None else None,
         vout.data_ptr(), iout.data_ptr(), out_row, out_col, stream,
     )
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     _build.check(code, "topk_select")
     return vout, iout
 

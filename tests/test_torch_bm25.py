@@ -230,6 +230,32 @@ def test_cb25_bytes_equal_both_ways_and_v2_readable():
         assert idx.count() == 5
 
 
+@pytest.mark.parametrize("block_docs,block_bytes", [(1, 3), (2, 17), (1 << 13, 1 << 24)])
+def test_cb25_blocks_give_the_reference_bytes_and_leave_what_follows(monkeypatch, block_docs,
+                                                                     block_bytes):
+    """write_to encodes and read_from parses CB25 a block at a time: at any
+    block size the bytes are the reference's, and the bytes after the
+    payload are left in the stream for the next reader."""
+    monkeypatch.setattr(port_bm25, "SERIAL_BLOCK_DOCS", block_docs)
+    monkeypatch.setattr(port_bm25, "SERIAL_BLOCK_BYTES", block_bytes)
+    ref, port = _pair({**CORPUS, 9: "", 10: "é  ü\u00a0x"})
+    want, got = io.BytesIO(), io.BytesIO()
+    ref.write_to(want)
+    port.write_to(got)
+    assert got.getvalue() == want.getvalue()
+    stream = io.BytesIO(want.getvalue() + b"NEXT")
+    back = BM25SearchIndex(device="cpu")
+    back.read_from(stream)
+    assert stream.read() == b"NEXT"
+    again = io.BytesIO()
+    back.write_to(again)
+    assert again.getvalue() == want.getvalue()
+    bad = bytearray(want.getvalue())
+    bad[-5] ^= 1  # the last token byte: the checksum no longer holds
+    with pytest.raises(Exception, match="checksum"):
+        BM25SearchIndex(device="cpu").read_from(io.BytesIO(bytes(bad)))
+
+
 def test_load_reference_state_keeps_soft_deletes():
     ref, _ = _pair()
     ref.remove(3)

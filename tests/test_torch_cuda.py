@@ -853,3 +853,122 @@ def test_hybrid_cuda_matches_cpu(dev):
                     .with_metadata(eq("cat", "b")).with_k(10).execute()])
         out.append(res)
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf", "hnsw"])
+def test_store_cuda_matches_cpu(dev, kind, tmp_path, monkeypatch):
+    """A persistent store with tiny thresholds whose factories make card
+    indexes, rotated, flushed, with removals of flushed documents,
+    compacted and reopened, against the same operations with CPU
+    factories: vector, text and hybrid searches equal, the card launching
+    the kernels. The IVF template trains from one CPU-trained state on
+    both sides."""
+    import io
+
+    from comet_tpu_torch import (BM25SearchIndex, HNSWConfig, HNSWIndex, IVFIndex,
+                                 RoaringMetadataIndex, eq, storage)
+    from comet_tpu_torch.core import node
+    from comet_tpu_torch.ops import bm25
+
+    rng = np.random.default_rng(23)
+    vocab, texts = _bm25_docs(rng, 600)
+    vecs = rng.integers(0, 16, size=(600, 16)).astype(np.float32)
+    q = rng.integers(0, 16, size=(20, 16)).astype(np.float32)
+    qt = [" ".join(vocab[t] for t in rng.integers(0, 300, size=2)) for _ in range(20)]
+    if kind == "ivf":
+        template = IVFIndex(16, 8, DistanceKind.L2, device="cpu")
+        template.train(vecs)
+        buf = io.BytesIO()
+        template.write_to(buf)
+        monkeypatch.setattr(IVFIndex, "train", lambda self, v, max_iter=20: self.read_from(
+            io.BytesIO(buf.getvalue())))
+
+    def vector_factory(device):
+        if kind == "flat":
+            return lambda: FlatIndex(16, DistanceKind.L2, device=device)
+        if kind == "ivf":
+            return lambda: IVFIndex(16, 8, DistanceKind.L2, device=device)
+        return lambda: HNSWIndex(16, DistanceKind.L2, HNSWConfig(m=8, ef_construction=32,
+                                                                 ef_search=64), device=device)
+
+    def searches(store):
+        out = []
+        for i in range(20):
+            for b in (store.new_search().with_vector(q[i]),
+                      store.new_search().with_text(qt[i]),
+                      store.new_search().with_vector(q[i]).with_text(qt[i])
+                      .with_metadata(eq("cat", "a"))):
+                out.append([(r.id, r.score) for r in b.with_k(10).with_nprobes(4).execute()])
+        return out
+
+    out = []
+    for device in ("cuda", "cpu"):
+        node._reset_node_id_counter()
+        cfg = storage.StorageConfig(
+            base_dir=str(tmp_path / device), memtable_size_limit=64 << 10,
+            compaction_threshold=3, vector_index_factory=vector_factory(device),
+            text_index_factory=lambda: BM25SearchIndex(device=device),
+            metadata_index_factory=RoaringMetadataIndex)
+        before = (sortnet.LAUNCHES, bm25.LAUNCHES)
+        with storage.open_persistent_hybrid_index(cfg) as store:
+            if kind == "ivf":
+                store.train(vecs)
+            ids = store.add_batch([(vecs[i], texts[i], {"cat": "abcd"[i % 4], "num": i})
+                                   for i in range(600)])
+            rotated = store.memtables.count()
+            store.flush()
+            for doc_id in ids[::37]:
+                assert store.remove(doc_id)
+            n_seg = store.segments.count()
+            store.maybe_compact()
+            res = [rotated, n_seg, store.segments.count(), searches(store)]
+        with storage.open_persistent_hybrid_index(cfg) as store:
+            if kind == "ivf":
+                store.train(vecs)
+            res.append(searches(store))
+            res.append([store.has_document(d) for d in ids[::37] + ids[1::37]])
+        if device == "cuda":
+            assert sortnet.LAUNCHES > before[0] and bm25.LAUNCHES > before[1]
+            assert rotated > 3 and res[2] < n_seg
+        out.append(res)
+    assert out[0] == out[1]
+
+
+def test_launch_counters_exact_across_threads(dev):
+    """The wrappers' launch counters are exact when threads launch at once
+    (the store searches its segments in a thread pool): 16 threads x 50
+    selects with the interpreter switching every microsecond."""
+    import sys
+    import threading
+
+    vals = torch.rand((4, 300), device=dev)
+    before = sortnet.LAUNCHES
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [sortnet.topk_rows(vals, None, 5)
+                                                    for _ in range(50)]) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert sortnet.LAUNCHES - before == 16 * 50
+
+
+def test_profiling_timer_times_the_card(dev):
+    """utils/profiling's Timer on a CUDA device: the span waits for the
+    card's work and times it with CUDA events."""
+    from comet_tpu_torch.utils import profiling
+
+    a = torch.rand((2048, 2048), device=dev)
+    with profiling.Timer("mm", device=dev) as t:
+        b = t.sync(a @ a)
+    assert b.shape == (2048, 2048)
+    assert 0 < t.device_elapsed and t.device_elapsed <= t.elapsed * 1.01 + 1e-4
+    with profiling.timed("span", dev) as s:
+        a @ a
+    assert s.device_elapsed > 0

@@ -33,6 +33,10 @@ def test_import_loads_no_jax():
         "import comet_tpu_torch.ops.beam_kernel, comet_tpu_torch.ops.graph_build\n"
         "from comet_tpu_torch import BM25SearchIndex, HybridSearchIndex, RoaringMetadataIndex\n"
         "import comet_tpu_torch.ops.bm25, comet_tpu_torch.indexes.contracts\n"
+        "import comet_tpu_torch.storage, comet_tpu_torch.storage.bloom\n"
+        "import comet_tpu_torch.storage.wal, comet_tpu_torch.storage.merge\n"
+        "import comet_tpu_torch.io.siftgen, comet_tpu_torch.io.datasets\n"
+        "import comet_tpu_torch.utils.profiling\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'comet_tpu', 'regex')]\n"
         "assert not bad, bad\n"
@@ -42,11 +46,27 @@ def test_import_loads_no_jax():
 
 def test_sources_import_neither_jax_nor_reference():
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|comet_tpu|regex)\b", re.M)
+    seen = set()
     for dirpath, _, files in os.walk(PKG):
         for name in files:
             if name.endswith(".py"):
+                seen.add(os.path.relpath(os.path.join(dirpath, name), PKG))
                 with open(os.path.join(dirpath, name)) as f:
                     assert not pattern.search(f.read()), name
+    for module in ("storage/engine.py", "storage/wal.py", "storage/bloom.py",
+                   "storage/merge.py", "storage/memtable.py", "storage/provider.py",
+                   "storage/segment.py", "io/siftgen.py", "io/datasets.py",
+                   "utils/profiling.py"):
+        assert module in seen, module
+
+
+def test_storage_names_are_exported():
+    import comet_tpu_torch.storage as storage
+
+    for name in ("StorageConfig", "default_storage_config", "PersistentHybridIndex",
+                 "open_persistent_hybrid_index"):
+        assert name in comet_tpu_torch.__all__
+        assert getattr(comet_tpu_torch, name) is getattr(storage, name)
 
 
 @pytest.mark.parametrize("source,replaces", [
