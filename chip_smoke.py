@@ -43,8 +43,11 @@
    boundaries, -1 nodes and empty entries, and the BM25 scorer (empty
    queries, a term without postings or covering every document, repeated
    terms, every document deleted or filtered out, k above the matches,
-   the padding edge, ragged chunks, k = 1 and 1024) are held to their
-   plain versions at edge shapes (ops/edge_cases.py).
+   the padding edge, ragged chunks, k = 1 and 1024; its tiling: partial
+   tiles, runs across tiles and in the last one, one query over 70,000
+   and 330,000 documents, ragged query groups, shared and moved terms,
+   several windows of term positions, untouched allowed documents) are
+   held to their plain versions at edge shapes (ops/edge_cases.py).
 3. Drives the flat path through the public API at the users' size: a
    FlatIndex of 1,048,576 x 128 SIFT-range integer vectors (L2), searched
    with 2048 queries at k = 100. On integer data every float32 distance is
@@ -134,7 +137,8 @@
    (csrc/bm25_score.cu) on a 256-query chunk of 1-, 2- and 10-term
    queries: its dense rows bit-equal to the plain version, timed beside
    it, beside `index_put_(accumulate=True)` of the same contributions
-   (2-term) and beside its bound; K1 on those [256, 2^20] rows at k = 10
+   (2-term), beside its bound and the bytes its tiled design moves
+   (`bm25_design_bytes`); K1 on those [256, 2^20] rows at k = 10
    and 100 beside `torch.topk`. Then `search_batch` of 2048 queries of
    the bench's mid-frequency terms (ranks 100-5000), 1-, 2- and 10-term,
    at k = 10 and 100: queries/s, launches; each batch's first 256 rows
@@ -165,13 +169,15 @@
    through new_search()...execute() over every memtable and segment (p50,
    p99, queries/s); 16,384 more documents left in the WAL by a simulated
    crash, the reopen (WAL replay) and its first search (segments loaded
-   onto the card) timed; close(). Vector-only results equal one FlatIndex
-   on the card over the live rows before and after compaction and after
-   the reopen (ids but at ties at the k-th score); 16 text and 16 hybrid
-   searches equal their recomputation on every wrapper's plain version; no
-   removed id comes back; after the crash every acknowledged document is
-   live and found by has_document. `--profile` adds a window of 64 hybrid
-   store searches.
+   onto the card) timed; close(). After the searches, the BM25 scorer,
+   K1 on its row and K2's float32 flat mode are timed alone at one query
+   over the smallest and the largest segment, beside their bounds.
+   Vector-only results equal one FlatIndex on the card over the live rows
+   before and after compaction and after the reopen (ids but at ties at
+   the k-th score); 16 text and 16 hybrid searches equal their
+   recomputation on every wrapper's plain version; no removed id comes
+   back; after the crash every acknowledged document is live and found by
+   has_document. `--profile` adds a window of 64 hybrid store searches.
 
 Any mismatch raises, so the run exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it names the kernels with
@@ -624,10 +630,12 @@ def beam_section(x_dev, queries, seed, dev, tag, time_ms):
     torch.cuda.empty_cache()
 
 
-def device_us(fn, keys, reps=20):
+def device_us(fn, keys, reps=20, strict=True):
     """Mean device time a launch, in us, of each kernel whose name holds
     one of `keys` (in that order), over `reps` calls of `fn` traced by
-    torch.profiler: the kernel alone, without the host's launch."""
+    torch.profiler: the kernel alone, without the host's launch. A trace
+    that lost more than half the launches raises, or with `strict` False
+    gives None for that kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -644,7 +652,10 @@ def device_us(fn, keys, reps=20):
             if key in name:
                 tot, cnt = tot + us, cnt + count
         if cnt < reps // 2:
-            raise AssertionError(f"the profiler saw {cnt} launches of {key} in {reps} calls")
+            if strict:
+                raise AssertionError(f"the profiler saw {cnt} launches of {key} in {reps} calls")
+            out.append(None)
+            continue
         out.append(tot / cnt)
     return out
 
@@ -1848,6 +1859,45 @@ def bm25_chunk_inputs(index, queries, dev):
                 avgdl=float(np.float32(index._total_tokens / index._num_docs)))
 
 
+def bm25_design_bytes(a, rows, n):
+    """The bytes the scorer's design (csrc/bm25_score.cu) moves for `rows`
+    queries over n documents with the inputs `a` (`bm25_chunk_inputs`):
+    the rows written once; a block's tile of lengths and allowed bytes (5
+    bytes a document), its queries' bounds (8 bytes a query) and term
+    entries (start, length, idf: 16 bytes); each group's distinct
+    (position, term) sub-runs once (8 bytes a posting); 4 bytes a probe of
+    the two searches a distinct entry and tile, at most floor(log2(w)) + 1
+    for a search window of w postings ([x - (n - len), x] for slot x).
+    Returns (bytes, tile, group)."""
+    from comet_tpu_torch.ops import bm25
+
+    tile, group = bm25.tile_shape(rows, n, torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)
+    tiles, groups = -(-n // tile), -(-rows // group)
+    q_off = np.asarray(a["q_off"], np.int64)
+    t_start, t_len = a["t_start"].cpu().numpy(), a["t_len"].cpu().numpy().astype(np.int64)
+    t_idf = a["t_idf"].cpu().numpy().view(np.uint32)
+    lens = []
+    for g in range(groups):
+        bounds = q_off[g * group:min(rows, (g + 1) * group) + 1]
+        first, cnt = bounds[:-1], np.diff(bounds)
+        for j in range(int(cnt.max(initial=0))):
+            keys = {(t_start[t], t_len[t], t_idf[t]) for t in (first[cnt > j] + j).tolist()
+                    if t_len[t] > 0}
+            lens.extend(key[1] for key in keys)
+    length = np.asarray(lens, np.int64)[:, None]
+    edges = np.minimum(np.arange(tiles + 1, dtype=np.int64) * tile, n)
+    probes = 0
+    for x in (edges[:-1][None, :], edges[1:][None, :]):
+        top = np.minimum(length, x)
+        w = top - np.minimum(top, np.maximum(0, x - (n - length)))
+        probes += int(np.where(w > 0, np.floor(np.log2(np.maximum(w, 1))) + 1, 0).sum())
+    entries = int(q_off[rows] - q_off[0])
+    total = (4 * rows * n + 5 * n * groups + (16 * entries + 8 * rows) * tiles
+             + 8 * int(length.sum()) + 4 * probes)
+    return total, tile, group
+
+
 def bm25_section(index, queries, n_terms, dev, tag, time_ms, library=False):
     """The scorer on one 256-query chunk of `queries`: its dense rows held
     bit-equal to the plain rows and timed beside them (and, with
@@ -1877,9 +1927,7 @@ def bm25_section(index, queries, n_terms, dev, tag, time_ms, library=False):
     runs = {(int(s), int(c)) for s, c in zip(a["t_start"].tolist(), a["t_len"].tolist())}
     distinct = sum(c for _, c in runs)
     b = bound(8 * distinct + 5 * n + 4 * BM25_CHUNK * n, 9 * postings)
-    # this design's traffic: a posting's 8 bytes, its length gathered (4),
-    # its score read and written (8); a row zeroed (4), masked (4 + 4 + 1)
-    design = 20 * postings + 13 * BM25_CHUNK * n
+    design, tile, group = bm25_design_bytes(a, BM25_CHUNK, n)
     lms, lib_err = None, None
     if library:
         counts = torch.from_numpy(np.diff(q_off)).to(dev)
@@ -1904,7 +1952,8 @@ def bm25_section(index, queries, n_terms, dev, tag, time_ms, library=False):
           f"dense rows bit-equal to the plain version; kernel {ms:.3f} ms, plain {pms:.3f} ms"
           + (f", index_put_(accumulate=True) {lms:.3f} ms (max abs difference {lib_err:.3g}, "
              f"its sums in another order)" if library else "")
-          + f"; bound {b[0]:.4f} ms ({b[1]}), this design's traffic {design / 1e9:.2f} GB = "
+          + f"; bound {b[0]:.4f} ms ({b[1]}), this design's traffic (tiles of {tile} "
+          f"documents, {group} queries a block) {design / 1e9:.3f} GB = "
           f"{design / PEAK_BYTES * 1e3:.3f} ms {tag}")
     out = {"bm25_score": dict(err=0.0, ms=ms, plain_ms=pms, library_ms=lms, bound=b)}
     for k in BM25_KS:
@@ -2209,7 +2258,74 @@ def latency(secs):
             f"{len(secs) / sum(secs):.1f} queries/s")
 
 
-def store_phase(corpus, queries, texts, qterms, dev, tag, profile):
+def store_kernels_alone(store, text, vector, dev, tag, time_ms):
+    """The store's one-query kernel shapes, each timed alone over the
+    smallest and the largest segment: the BM25 scorer on `text`, K1 on its
+    negated row (k = HYBRID_K) and K2's float32 flat mode on `vector`,
+    each held to its plain version (uncounted), beside its bytes bound
+    (as section 10 counts the scorer's and K1's). CUDA-event ms include
+    the host's launch; the device time a launch is torch.profiler's, where
+    its trace kept the launches."""
+    from comet_tpu_torch.ops import bm25, fused_scan, sortnet
+
+    segs = sorted(store.segments.list(), key=lambda seg: seg.get_index().count())
+    inf = float("inf")
+    with uncounted():
+        for which, seg in (("smallest", segs[0]), ("largest", segs[-1])):
+            hybrid = seg.get_index()
+            a = bm25_chunk_inputs(hybrid.text_index(), [text], dev)
+            q_off = a["q_off"]
+            q_off_dev = torch.from_numpy(q_off.astype(np.int32)).to(dev)
+            args = {key: v for key, v in a.items() if key != "q_off"}
+            n = a["doc_len"].shape[0]
+
+            def score():
+                return bm25._bm25_dense_cuda(**args, q_off_dev=q_off_dev)
+            dense = score()
+            plain = bm25._bm25_dense_plain(**args, q_off=q_off)
+            if not torch.equal(dense.view(torch.int32), plain.view(torch.int32)):
+                raise AssertionError(f"the BM25 scorer differs from its plain version over the "
+                                     f"{which} segment")
+            runs = {(int(s), int(c)) for s, c in zip(a["t_start"].tolist(), a["t_len"].tolist())}
+            postings = int(a["t_len"].long().sum())
+            rows = {"BM25 scorer": (score, ("bm25_score",), bound(
+                8 * sum(c for _, c in runs) + 5 * n + 4 * n, 9 * postings))}
+            gv, gi = sortnet.topk_rows(dense, None, HYBRID_K)
+            pv, pi = sortnet._topk_rows_plain(dense, None, HYBRID_K)
+            if not (torch.equal(gi, pi) and torch.equal(gv, pv)):
+                raise AssertionError(f"K1 differs from its plain version over the {which} segment")
+            rows["K1 topk_rows"] = (lambda: sortnet.topk_rows(dense, None, HYBRID_K),
+                                    ("topk_select",),
+                                    bound(4 * n + 8 * sortnet.k_pow2(HYBRID_K), 0))
+            vecs, sqn, valid = hybrid.vector_index()._store.device_state()
+            mask = torch.where(valid, sqn, torch.tensor(inf, device=dev))
+            q1 = torch.from_numpy(np.ascontiguousarray(vector[None, :])).to(dev)
+            dist, gmin = fused_scan._fused_scan_cuda(q1, vecs, mask, inf, False)
+            pdist, pgmin = fused_scan._fused_dist_select_plain(q1, vecs, mask, inf, False)
+            if not (torch.equal(dist, pdist) and torch.equal(gmin, pgmin)):
+                raise AssertionError(f"K2 differs from its plain version over the {which} segment")
+            cap = vecs.shape[0]
+            rows["K2 flat float32"] = (
+                lambda: fused_scan._fused_scan_cuda(q1, vecs, mask, inf, False),
+                ("fused_scan",),
+                bound(4 * (DIM + cap * DIM + 2 * cap + cap // 128), 2 * cap * DIM))
+            parts = []
+            for name, (fn, keys, b) in rows.items():
+                ms = time_ms(fn, reps=21)
+                us = device_us(fn, keys, strict=False)[0]
+                device = "not measured (the trace lost the launches)" if us is None else (
+                    f"{us:.1f} us")
+                parts.append(f"{name} {ms:.4f} ms, device {device}, bound {b[0] * 1e3:.2f} us "
+                             f"({b[1]})")
+            tile, group = bm25.tile_shape(1, n, torch.cuda.get_device_properties(0)
+                                          .multi_processor_count)
+            print(f"store kernels alone, one query over the {which} segment ({n} documents, "
+                  f"{cap} vector slots, {postings} postings, tiles of {tile}; each equal to its "
+                  f"plain version): {'; '.join(parts)} {tag}")
+            del dense, plain, dist, pdist, gmin, pgmin
+
+
+def store_phase(corpus, queries, texts, qterms, dev, tag, time_ms, profile):
     """Section 12 of the module docstring. Returns {"launches": the phase's
     counts, "seconds": its wall time}."""
     import gc
@@ -2313,6 +2429,7 @@ def store_phase(corpus, queries, texts, qterms, dev, tag, profile):
           f"after compaction ({STORE_QUERIES} queries each), {STORE_CHECK} text and "
           f"{STORE_CHECK} hybrid searches equal to their plain recomputation, no removed id "
           f"returned")
+    store_kernels_alone(store, texts_q[0], sq[0], dev, tag, time_ms)
     if profile:
         profile_window(lambda: [store.new_search().with_vector(sq[i]).with_text(texts_q[i])
                                 .with_metadata(*filt)
@@ -2437,7 +2554,10 @@ def edge_checks(dev, seed, tag):
           f"scorer bit-equal in {len(edge_cases.BM25_CASES)} cases (empty queries, a term "
           f"without postings or covering every document, repeated terms, every document "
           f"deleted or filtered out, k above the matches, the padding edge, ragged chunks, "
-          f"k = 1 and 1024) ({time.perf_counter() - t0:.1f} s) {tag}")
+          f"k = 1 and 1024, partial tiles, runs across tiles and in the last one, one query "
+          f"over 70,000 and 330,000 documents, ragged query groups, shared and moved terms, "
+          f"several windows of positions, untouched allowed documents) "
+          f"({time.perf_counter() - t0:.1f} s) {tag}")
 
 
 def sortnet_rows_plain(gmin, kb):
@@ -2754,7 +2874,8 @@ def main():
     del bm
 
     # -- 12. the persistent hybrid store ---------------------------------------------------
-    stl = store_phase(corpus, queries, texts, qterms, dev, tag, args.profile)["launches"]
+    stl = store_phase(corpus, queries, texts, qterms, dev, tag, time_ms,
+                      args.profile)["launches"]
     del texts
 
     def entry(name, source, replaces, key, n_launches):

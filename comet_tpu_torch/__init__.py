@@ -39,11 +39,17 @@ from comet_tpu_torch.types import (
 from comet_tpu_torch.core.node import (
     VectorNode,
     MetadataNode,
+    new_vector_node,
+    new_vector_node_with_id,
     new_metadata_node,
     new_metadata_node_with_id,
 )
 from comet_tpu_torch.core.results import VectorResult, TextResult, Reranker
 from comet_tpu_torch.core.limiter import sanitize_k, limit_results, autocut, autocut_results
+from comet_tpu_torch.core.aggregation import (
+    aggregate_vector_results,
+    aggregate_text_results,
+)
 from comet_tpu_torch.ops.bitset import BSI, Bitset
 from comet_tpu_torch.indexes.flat import FlatIndex
 from comet_tpu_torch.indexes.ivf import IVFIndex

@@ -2,13 +2,15 @@
 
 Counterpart of comet_tpu/core/aggregation.py: when a search runs several
 queries, hits for the same node ID are combined with Sum (default), Max or
-Mean, then sorted ascending for distances. Ties break by ascending node ID.
+Mean, then sorted ascending for vector results (distances) and descending
+for text results (relevance). Ties break by ascending node ID.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from comet_tpu_torch.core.results import TextResult, VectorResult
 from comet_tpu_torch.types import ScoreAggregationKind
 
 
@@ -47,3 +49,31 @@ def aggregate_scores(
     key = agg if ascending else -agg
     order = np.lexsort((uniq, key))
     return uniq[order], agg[order]
+
+
+def aggregate_vector_results(
+    results: list[VectorResult], kind: ScoreAggregationKind
+) -> list[VectorResult]:
+    """Object-level aggregation for vector results (ascending sort)."""
+    if not results:
+        return results
+    ids = np.array([r.node.id for r in results], dtype=np.uint32)
+    scores = np.array([r.score for r in results], dtype=np.float32)
+    node_by_id = {r.node.id: r.node for r in results}
+    uids, uscores = aggregate_scores(ids, scores, kind, ascending=True)
+    return [
+        VectorResult(node=node_by_id[int(i)], score=float(s))
+        for i, s in zip(uids, uscores)
+    ]
+
+
+def aggregate_text_results(
+    results: list[TextResult], kind: ScoreAggregationKind
+) -> list[TextResult]:
+    """Object-level aggregation for text results (descending sort)."""
+    if not results:
+        return results
+    ids = np.array([r.id for r in results], dtype=np.uint32)
+    scores = np.array([r.score for r in results], dtype=np.float32)
+    uids, uscores = aggregate_scores(ids, scores, kind, ascending=False)
+    return [TextResult(id=int(i), score=float(s)) for i, s in zip(uids, uscores)]

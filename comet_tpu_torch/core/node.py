@@ -78,6 +78,15 @@ class MetadataNode:
         return self.metadata
 
 
+def new_vector_node(vector: np.ndarray) -> VectorNode:
+    """Create a VectorNode with an auto-assigned ID (node.go:56)."""
+    return VectorNode(next_node_id(), np.asarray(vector, dtype=np.float32))
+
+
+def new_vector_node_with_id(node_id: int, vector: np.ndarray) -> VectorNode:
+    return VectorNode(int(node_id), np.asarray(vector, dtype=np.float32))
+
+
 def new_metadata_node(metadata: dict[str, Any]) -> MetadataNode:
     """Create a MetadataNode with an auto-assigned ID (node.go:166)."""
     return MetadataNode(next_node_id(), dict(metadata))

@@ -65,8 +65,9 @@ SIGNATURES = {
     "comet_beam_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P],
     # post_slot, post_tf, t_start, t_len, t_idf, q_off, Q, doc_len, allowed,
-    # n_pad, avgdl, out, stream
-    "comet_bm25_score": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _LL, ctypes.c_float, _P, _P],
+    # n_pad, avgdl, T, QG, out, stream
+    "comet_bm25_score": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _LL, ctypes.c_float, _I, _I,
+                         _P, _P],
     # nodes, table, row_len, qb, qn, bd, bs, be, Q, ef, W, d, ndig, expand,
     # stop, od, os, oe, misc, stream
     "comet_fused_expand": [_P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

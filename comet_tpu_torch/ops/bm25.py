@@ -19,13 +19,16 @@ negated (0 for the rest), summed term by term in query order with the
 reference's XLA expression; K1 (`ops/sortnet.topk_rows`) then takes the k
 smallest of each row, which orders the results by score desc, then slot
 asc, as `lax.top_k` does. On a CUDA tensor the rows come from the kernel
-of `csrc/bm25_score.cu`, counted in `LAUNCHES`; on a CPU tensor from the
-plain version, `_bm25_dense_plain`, which sums in the same order and gives
-the same bits. `_bm25_score_plain` is the whole plain scorer, for the card
-checks.
+of `csrc/bm25_score.cu`, counted in `LAUNCHES`: a block scores a group of
+queries over a tile of documents, its shape from `tile_shape`. On a CPU
+tensor they come from the plain version, `_bm25_dense_plain`, which sums
+in the same order and gives the same bits. `_bm25_score_plain` is the
+whole plain scorer, for the card checks.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -48,6 +51,15 @@ SCORE_BYTES_MAX = 3 << 30
 # postings gathered at once by the plain version
 _PLAIN_GATHER_MAX = 1 << 26
 
+# The kernel's block: GROUP_MAX queries (fewer when a chunk has fewer) over
+# a tile of TILE_MAX documents, halved down to TILE_MIN while the grid has
+# fewer than BLOCKS_PER_SM blocks for each SM of the card. The fastest pair
+# of `scripts/ab_bm25_scorer.py --sweep` on an H100 at 256-query chunks.
+GROUP_MAX = 8
+TILE_MAX = 1024
+TILE_MIN = 128
+BLOCKS_PER_SM = 2
+
 # Kernel launches made by `_bm25_dense_cuda`.
 LAUNCHES = 0
 
@@ -55,6 +67,22 @@ LAUNCHES = 0
 def chunk_rows(n_pad: int) -> int:
     """Queries a chunk scores at once."""
     return max(1, SCORE_BYTES_MAX // (12 * max(int(n_pad), 1)))
+
+
+def tile_shape(rows: int, n_pad: int, sms: int) -> tuple[int, int]:
+    """The kernel's (documents a tile, queries a block) for `rows` queries
+    over `n_pad` documents on a card of `sms` SMs."""
+    group = min(GROUP_MAX, max(int(rows), 1))
+    groups = -(-max(int(rows), 1) // group)
+    tile = TILE_MAX
+    while tile > TILE_MIN and groups * -(-int(n_pad) // tile) < BLOCKS_PER_SM * sms:
+        tile //= 2
+    return tile, group
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def contribution(tf, dl, idf, avgdl):
@@ -126,13 +154,15 @@ def _bm25_dense_cuda(post_slot, post_tf, t_start, t_len, t_idf, q_off_dev, doc_l
     the card, absolute) bounds: their dense rows."""
     global LAUNCHES
     lib = _build.library()
+    dev = doc_len.device
     rows, n_pad = q_off_dev.shape[0] - 1, doc_len.shape[0]
-    out = torch.empty((rows, n_pad), dtype=torch.float32, device=doc_len.device)
-    stream = torch.cuda.current_stream(doc_len.device).cuda_stream
+    tile, group = tile_shape(rows, n_pad, _sm_count(dev.index))
+    out = torch.empty((rows, n_pad), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.comet_bm25_score(
         post_slot.data_ptr(), post_tf.data_ptr(), t_start.data_ptr(), t_len.data_ptr(),
         t_idf.data_ptr(), q_off_dev.data_ptr(), rows, doc_len.data_ptr(),
-        allowed.data_ptr(), n_pad, avgdl, out.data_ptr(), stream,
+        allowed.data_ptr(), n_pad, avgdl, tile, group, out.data_ptr(), stream,
     )
     with _build.COUNT_LOCK:
         LAUNCHES += 1

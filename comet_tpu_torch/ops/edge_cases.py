@@ -494,6 +494,17 @@ BM25_CASES = (
     ("Q not a multiple of the block or the chunk", 2000, 37, 10, 8),
     ("k = 1", 5000, 12, 1, None),
     ("k = 1024", 20000, 12, 1024, None),
+    # the kernel's tiling (ops/bm25.tile_shape; tiles of 128 documents here
+    # on a card of 132 SMs, 256 and 1024 for the two one-query cases)
+    ("n_pad not a multiple of the tile", 5000, 20, 10, None),
+    ("a run across tiles and a run in the last partial tile", 3001, 16, 10, None),
+    ("one query over a small segment", 70_000, 1, 10, None),
+    ("one query over a large segment", 330_000, 1, 10, None),
+    ("Q not a multiple of the query group", 3000, 37, 10, None),
+    ("the same term at the same position in every query", 2000, 40, 10, None),
+    ("the same term at different positions", 2000, 40, 10, None),
+    ("queries longer than a window of term positions", 2000, 20, 10, None),
+    ("untouched allowed documents beside filtered ones", 3001, 12, 1024, None),
 )
 
 
@@ -501,17 +512,24 @@ def bm25_case(name: str, n_pad: int, q_n: int, seed: int = 0) -> dict:
     """A scorer input (numpy, the argument names of `bm25.bm25_topk`): 40
     terms over n_pad documents (postings by ascending slot, tf 1..5, term 0
     covering every document, term 1 none), Q queries of 0-6 terms, float32
-    idf from the float64 formula at N = n_pad, allowed 90 %."""
+    idf from the float64 formula at N = n_pad, allowed 90 %; the case's
+    name shapes the terms, the queries or the mask."""
     g = np.random.default_rng((seed, n_pad, q_n, len(name)))
     n_terms = 40
     dfs = g.integers(0, n_pad + 1, size=n_terms)
     dfs[0], dfs[1] = n_pad, 0
+    if name == "untouched allowed documents beside filtered ones":
+        dfs[2:] = g.integers(0, n_pad // 50, size=n_terms - 2)
     runs = []
     for t, df in enumerate(dfs.tolist()):
         docs = np.sort(g.choice(n_pad, size=df, replace=False))
         if name == "documents at the padding edge" and 0 < df < n_pad:
             docs = np.unique(np.concatenate([docs[:-2], [0, n_pad - 1]]))
-            dfs[t] = len(docs)
+        if name == "a run across tiles and a run in the last partial tile" and t in (2, 3):
+            # n_pad % 128 >= 5: the last 5 documents lie in the last tile
+            # whatever its power-of-two size past 128
+            docs = np.arange(n_pad - 5, n_pad) if t == 2 else np.arange(100, n_pad - 300, 3)
+        dfs[t] = len(docs)
         runs.append(docs)
     post_slot = np.concatenate(runs).astype(np.int32)
     post_tf = g.integers(1, 6, size=len(post_slot)).astype(np.float32)
@@ -526,10 +544,26 @@ def bm25_case(name: str, n_pad: int, q_n: int, seed: int = 0) -> dict:
         terms = [np.append(t, 1) for t in terms]
     if name == "a term covering every document":
         terms = [np.append(t, [0, 0]) for t in terms]
+    if name == "a run across tiles and a run in the last partial tile":
+        terms = [np.concatenate([t, [2, 3]] if i % 2 else [[3], t, [2]])
+                 for i, t in enumerate(terms)]
+    if name.startswith("one query over"):   # a 2-term query and its whitespace term
+        terms = [np.array([g.integers(2, n_terms), 0, g.integers(2, n_terms)])]
+    if name == "the same term at the same position in every query":
+        # term 7 first, term 0 at every odd position (the whitespace term of
+        # multi-word queries)
+        terms = [np.concatenate([[7], np.column_stack([np.zeros_like(t), t]).ravel()])
+                 for t in terms]
+    if name == "the same term at different positions":
+        terms = [np.insert(t, min(i % 5, len(t)), 9) for i, t in enumerate(terms)]
+    if name == "queries longer than a window of term positions":
+        terms = [g.integers(0, n_terms, size=g.integers(30, 80)) for _ in terms]
+    if name == "untouched allowed documents beside filtered ones":
+        terms = [t[t > 0] for t in terms]
     tids = np.concatenate(terms + [np.zeros(0, np.int64)]).astype(np.int64)
     n = float(n_pad)
     idf = [np.float32(np.log((n - d + 0.5) / (d + 0.5) + 1.0)) for d in dfs[tids].tolist()]
-    allowed = g.random(n_pad) < 0.9
+    allowed = g.random(n_pad) < (0.5 if name.startswith("untouched") else 0.9)
     if name in ("every document deleted", "every document filtered out"):
         allowed[:] = False
     doc_len = g.integers(1, 120, size=n_pad).astype(np.float32)

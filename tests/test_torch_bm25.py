@@ -368,6 +368,91 @@ def test_scorer_edge_cases_match_float32_oracle(name, n_pad, q_n, k, chunk, monk
     np.testing.assert_array_equal(got[0].numpy(), want[0])
 
 
+def _first_at_or_past(run, n_pad, x):
+    """The kernel's search for the first posting of a run at or past slot
+    x: only the window that distinct slots below n_pad leave, [x - (n_pad
+    - len), x] (held to a search of the whole run)."""
+    top = min(len(run), x)
+    lo = min(top, max(0, x - (n_pad - len(run))))
+    found = lo + int(np.searchsorted(run[lo:top], x, "left"))
+    assert found == int(np.searchsorted(run, x, "left"))
+    return found
+
+
+def _tiled_model(case, tile, group):
+    """The kernel of csrc/bm25_score.cu in numpy float32: a block a (tile of
+    `tile` documents, group of `group` queries); per term position, each
+    distinct (run, idf) of the group's entries there finds its sub-run by
+    the window search, computes its contributions once and adds them to
+    every row with that term there; the rows are written masked. Returns
+    the dense [Q, n_pad] rows."""
+    q_off, doc_len = case["q_off"], case["doc_len"]
+    n_pad, rows = len(doc_len), len(q_off) - 1
+    f32 = np.float32
+    knorm = f32(bm25_ops._K1) * (f32(bm25_ops._1MB) + f32(bm25_ops._B) * (doc_len / case["avgdl"]))
+    out = np.empty((rows, n_pad), np.float32)
+    for q0 in range(0, rows, group):
+        qg = min(group, rows - q0)
+        first, cnt = q_off[q0:q0 + qg], np.diff(q_off[q0:q0 + qg + 1])
+        for s0 in range(0, n_pad, tile):
+            tw = min(tile, n_pad - s0)
+            acc = np.zeros((qg, tw), np.float32)
+            for j in range(int(cnt.max(initial=0))):
+                keys = {}
+                for r in np.flatnonzero(cnt > j).tolist():
+                    t = first[r] + j
+                    key = (int(case["t_start"][t]), int(case["t_len"][t]),
+                           case["t_idf"][t].view(np.uint32).item())
+                    if key[1]:
+                        keys.setdefault(key, (t, []))[1].append(r)
+                for (start, length, _), (t, members) in keys.items():
+                    run = case["post_slot"][start:start + length]
+                    lo = start + _first_at_or_past(run, n_pad, s0)
+                    hi = start + _first_at_or_past(run, n_pad, s0 + tw)
+                    x = case["post_slot"][lo:hi] - s0
+                    assert ((x >= 0) & (x < tw)).all()
+                    tf = case["post_tf"][lo:hi]
+                    c = (case["t_idf"][t] * (tf * f32(bm25_ops._K1P1))) / (tf + knorm[s0 + x])
+                    for r in members:
+                        acc[r, x] += c
+            out[q0:q0 + qg, s0:s0 + tw] = np.where(case["allowed"][s0:s0 + tw], -acc, f32(0.0))
+    return out
+
+
+@pytest.mark.parametrize("name,n_pad,q_n,k,chunk", edge_cases.BM25_CASES)
+def test_tiled_scorer_model_equals_plain_rows(name, n_pad, q_n, k, chunk):
+    """The kernel's tiled algorithm, modelled in numpy, gives the plain
+    version's dense rows bit for bit (int32 views: an allowed document no
+    posting touched is -0.0) on every edge case, at the tiling the
+    wrapper picks for a 132-SM card and at small tiles and groups."""
+    case = edge_cases.bm25_case(name, n_pad, q_n)
+    args = edge_cases.bm25_tensors(case, torch.device("cpu"))
+    want = bm25_ops._bm25_dense_plain(**{key: v for key, v in args.items() if key != "q_off"},
+                                      q_off=case["q_off"]).numpy()
+    shapes = {bm25_ops.tile_shape(q_n, n_pad, 132), (32, 3)} if n_pad <= 20000 else {
+        bm25_ops.tile_shape(q_n, n_pad, 132)}
+    for tile, group in sorted(shapes):
+        got = _tiled_model(case, tile, group)
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32),
+                                      err_msg=f"tile {tile}, group {group}")
+
+
+@pytest.mark.parametrize("rows,n_pad", [(1, 70_000), (1, 330_000), (256, 1 << 20), (37, 3000),
+                                        (1, 100), (5000, 1000)])
+def test_tile_shape_fills_the_card(rows, n_pad):
+    """Tiles are powers of two in [TILE_MIN, TILE_MAX] (multiples of 32, as
+    the kernel needs); a group holds at most GROUP_MAX queries; the grid
+    has two blocks an SM unless the tile is already the smallest."""
+    tile, group = bm25_ops.tile_shape(rows, n_pad, 132)
+    assert bm25_ops.TILE_MIN <= tile <= bm25_ops.TILE_MAX and tile & (tile - 1) == 0
+    assert tile % 32 == 0 and group == min(rows, bm25_ops.GROUP_MAX)
+    blocks = -(-rows // group) * -(-n_pad // tile)
+    assert blocks >= 2 * 132 or tile == bm25_ops.TILE_MIN
+    if tile < bm25_ops.TILE_MAX:
+        assert -(-rows // group) * -(-n_pad // (2 * tile)) < 2 * 132
+    assert bm25_ops.tile_shape(256, 1 << 20, 132) == (1024, 8)
+
+
 def test_search_batch_rows_equal_execute():
     _, port = _pair()
     queries = ["quick fox", "lazy dog", "electronics nothing", "animals"]

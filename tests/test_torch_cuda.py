@@ -785,7 +785,12 @@ def test_bm25_scorer_edges_match_plain(dev, name, n_pad, q_n, k, chunk):
     and its dense rows to the plain rows: empty queries, a term with no
     postings, one covering every document, repeated terms, every document
     deleted or filtered out, k above the matches, documents at the padding
-    edge, Q not a multiple of the block or the chunk, k = 1 and 1024."""
+    edge, Q not a multiple of the block or the chunk, k = 1 and 1024; and
+    the kernel's tiling: n_pad not a multiple of the tile, runs across
+    tiles and in the last one, one query over 70,000 and 330,000
+    documents, Q not a multiple of the query group, a term shared at one
+    position or at different ones, queries past one window of positions,
+    untouched allowed documents (-0.0) beside filtered ones."""
     assert edge_cases.check_bm25(dev, name, n_pad, q_n, k, chunk) == 0.0
 
 

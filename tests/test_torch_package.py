@@ -69,6 +69,21 @@ def test_storage_names_are_exported():
         assert getattr(comet_tpu_torch, name) is getattr(storage, name)
 
 
+def test_reference_public_names_are_exported():
+    """Every public name of comet_tpu is one of the port's, among them the
+    node and aggregation helpers of comet_tpu/core."""
+    import comet_tpu
+
+    from comet_tpu_torch.core import aggregation, node
+
+    assert set(comet_tpu.__all__) <= set(comet_tpu_torch.__all__)
+    for name, module in (("new_vector_node", node), ("new_vector_node_with_id", node),
+                         ("aggregate_vector_results", aggregation),
+                         ("aggregate_text_results", aggregation)):
+        assert name in comet_tpu_torch.__all__
+        assert getattr(comet_tpu_torch, name) is getattr(module, name)
+
+
 @pytest.mark.parametrize("source,replaces", [
     ("topk.cu", "comet_tpu/ops/sortnet.py:_kernel"),
     ("fused_scan.cu", "comet_tpu/ops/pallas_scan.py:_kernel"),

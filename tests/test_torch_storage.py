@@ -594,6 +594,31 @@ def test_remove_flushed_documents_writes_tombstones(tmp_path):
     run_both(tmp_path, scenario)
 
 
+def test_search_after_flushed_removals_can_return_fewer_than_k(tmp_path):
+    """Pins a reference behaviour that the port keeps for parity (ROADMAP
+    Queue 3): a segment chooses its top k before the store drops its
+    tombstoned ids, so live documents ranked past k in that segment never
+    come back. Twelve documents at (i, 0), flushed; the three nearest (0, 0)
+    removed; a search of (0, 0) at k = 5 returns two hits, ids 4 and 5,
+    though nine live documents remain."""
+    def scenario(lib, st, _, base):
+        cfg = make_config(lib, st, base, memtable_size_limit=1 << 20,
+                          vector=lambda: lib.FlatIndex(2, lib.DistanceKind.L2, **_dev(lib)))
+        with st.open_persistent_hybrid_index(cfg) as store:
+            ids = [store.add(np.array([i, 0], dtype=np.float32), f"document {i}", {"num": i})
+                   for i in range(12)]
+            store.flush()
+            for doc_id in ids[:3]:
+                assert store.remove(doc_id)
+            res = store.new_search().with_vector([0.0, 0.0]).with_k(5).execute()
+            live = sum(store.has_document(d) for d in ids)
+            return [ids, hits(res), live]
+
+    ids, res, live = run_both(tmp_path, scenario)
+    assert ids == list(range(1, 13)) and live == 9
+    assert [i for i, _ in res] == [4, 5]
+
+
 def _kind_factory(lib, kind):
     L2 = lib.DistanceKind.L2
     if kind == "flat":
