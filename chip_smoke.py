@@ -171,13 +171,38 @@
    crash, the reopen (WAL replay) and its first search (segments loaded
    onto the card) timed; close(). After the searches, the BM25 scorer,
    K1 on its row and K2's float32 flat mode are timed alone at one query
-   over the smallest and the largest segment, beside their bounds.
+   over the smallest and the largest segment, beside their bounds, their
+   plain versions and the one PyTorch call of the same function
+   (`index_put_(accumulate=True)` for the scorer, `torch.topk` for K1;
+   K2 has none).
    Vector-only results equal one FlatIndex on the card over the live rows
    before and after compaction and after the reopen (ids but at ties at
    the k-th score); 16 text and 16 hybrid searches equal their
    recomputation on every wrapper's plain version; no removed id comes
    back; after the crash every acknowledged document is live and found by
    has_document. `--profile` adds a window of 64 hybrid store searches.
+13. Sharding (comet_tpu_torch.parallel) over meshes of S shards, all on
+   the one card: one process drives the shards in turn, so this measures
+   the per-shard launches and K1's merge, not an interconnect. Flat at
+   S = 1, 2, 4 and 8 over the 1M corpus (2048 queries, k = 100): ids and
+   scores array-equal to section 3's FlatIndex, with allowed = ids % 3 !=
+   0 equal to the plain pipeline under that mask, and K1 at the merge's
+   shape ([S 100, 2048] candidates x queries with their slots) held to
+   its plain version and timed beside `torch.topk`. At S = 4: IVF (nlist
+   1024 with its trained centroids rounded to integers, so both probe
+   rules rank alike; nprobe 10) equal to the single-device dense route;
+   PQ and IVFPQ (m = 16, nbits 8, nlist 1024, nprobe 10) held to the
+   single-device dense routes at section 9's bar (the integer twin
+   equal); one k-means step from the IVF's trained centroids equal to a
+   plain single-device step (centroids allclose(1e-5)); HNSW (M = 16,
+   ef 200, a 1M bulk build) equal to the single-device graph beam
+   (`indexes.hnsw.BLOCKED_TABLE_BYTES_MAX` patched to 0); the seeded
+   HNSW searcher from the index's seed centroids equal at S = 1 and 4;
+   recall@100 against the flat ids. Section 11 runs its hybrid batches
+   once more over a sharded flat searcher (S = 4), equal to
+   `HybridSearchIndex.search_batch`. Queries/s and the K1 / K2 / scorer
+   launches of every search; `--profile` adds two sharded flat batches
+   at S = 4.
 
 Any mismatch raises, so the run exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it names the kernels with
@@ -1898,6 +1923,34 @@ def bm25_design_bytes(a, rows, n):
     return total, tile, group
 
 
+def bm25_library(a, n_rows, dev):
+    """The one PyTorch call that makes the scorer's sums of the chunk `a`
+    (`bm25_chunk_inputs`, n_rows queries), in another order:
+    `index_put_(accumulate=True)` of every contribution into zero rows.
+    Returns the call; its rows are the scores, where the scorer's are
+    their negation."""
+    from comet_tpu_torch.ops import bm25
+
+    n = a["doc_len"].shape[0]
+    lens = a["t_len"].long()
+    postings = int(lens.sum())
+    counts = torch.from_numpy(np.diff(a["q_off"])).to(dev)
+    rows = torch.repeat_interleave(torch.repeat_interleave(
+        torch.arange(n_rows, device=dev), counts), lens)
+    first = torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
+    pidx = (torch.repeat_interleave(a["t_start"], lens)
+            + torch.arange(postings, device=dev) - first)
+    slots = a["post_slot"][pidx].long()
+    c = bm25.contribution(a["post_tf"][pidx], a["doc_len"][slots],
+                          torch.repeat_interleave(a["t_idf"], lens),
+                          torch.tensor(a["avgdl"], dtype=torch.float32, device=dev))
+
+    def lib():
+        return torch.zeros((n_rows, n), device=dev).index_put_((rows, slots), c,
+                                                                  accumulate=True)
+    return lib
+
+
 def bm25_section(index, queries, n_terms, dev, tag, time_ms, library=False):
     """The scorer on one 256-query chunk of `queries`: its dense rows held
     bit-equal to the plain rows and timed beside them (and, with
@@ -1930,24 +1983,10 @@ def bm25_section(index, queries, n_terms, dev, tag, time_ms, library=False):
     design, tile, group = bm25_design_bytes(a, BM25_CHUNK, n)
     lms, lib_err = None, None
     if library:
-        counts = torch.from_numpy(np.diff(q_off)).to(dev)
-        rows = torch.repeat_interleave(torch.repeat_interleave(
-            torch.arange(BM25_CHUNK, device=dev), counts), lens)
-        first = torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
-        pidx = (torch.repeat_interleave(a["t_start"], lens)
-                + torch.arange(postings, device=dev) - first)
-        slots = a["post_slot"][pidx].long()
-        c = bm25.contribution(a["post_tf"][pidx], a["doc_len"][slots],
-                              torch.repeat_interleave(a["t_idf"], lens),
-                              torch.tensor(a["avgdl"], dtype=torch.float32, device=dev))
-        del pidx, first
-
-        def lib():
-            return torch.zeros((BM25_CHUNK, n), device=dev).index_put_((rows, slots), c,
-                                                                          accumulate=True)
+        lib = bm25_library(a, BM25_CHUNK, dev)
         lib_err = float((torch.where(a["allowed"], -lib(), 0.0) - dense).abs().max())
         lms = time_ms(lib)
-        del rows, slots, c
+        del lib
     print(f"BM25 scorer, 256 {n_terms}-term queries over {n} documents ({postings} postings): "
           f"dense rows bit-equal to the plain version; kernel {ms:.3f} ms, plain {pms:.3f} ms"
           + (f", index_put_(accumulate=True) {lms:.3f} ms (max abs difference {lib_err:.3g}, "
@@ -2168,7 +2207,38 @@ def hybrid_phase(corpus, queries, text_index, qterms, dev, tag, time_ms, profile
                                 for _ in range(2)], "hybrid, reciprocal rank")
     del hybrid, flat
     torch.cuda.empty_cache()
-    return {"launches": launches}
+
+    # section 13's hybrid: the same batches over a sharded flat searcher
+    from comet_tpu_torch.parallel import (ShardedFlatSearcher, ShardedHybridSearcher,
+                                          make_corpus_mesh)
+
+    vec = ShardedFlatSearcher(make_corpus_mesh([dev] * SHARD_S), corpus)
+    sharded = ShardedHybridSearcher(vec, ids, text_index=text_index, metadata_index=meta)
+    rrf = FusionKind.RECIPROCAL_RANK
+    reset_launches()
+    t0 = time.perf_counter()
+    got = sharded.search_batch(queries, texts, k=HYBRID_K, metadata_filters=filt,
+                               fusion_kind=rrf)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(ROUNDS):
+        again = sharded.search_batch(queries, texts, k=HYBRID_K, metadata_filters=filt,
+                                     fusion_kind=rrf)
+    qps = ROUNDS * BATCH / (time.perf_counter() - t0)
+    sharded_launches = read_launches()
+    if got != batches[rrf] or again != got:
+        raise AssertionError("the sharded hybrid differs from HybridSearchIndex.search_batch")
+    used = {key: v for key, v in sharded_launches.items() if v}
+    if min(sharded_launches["bm25_score"], sharded_launches["topk_cl"],
+           sharded_launches["fused_dist_select"]) <= 0:
+        raise AssertionError(f"a kernel of the sharded hybrid never launched: {used}")
+    print(f"sharded hybrid S={SHARD_S} (section 13) search_batch {BATCH} queries, filter cat = a, "
+          f"{rrf.value}, k={HYBRID_K}: equal to HybridSearchIndex.search_batch; {qps:.1f} "
+          f"queries/s steady, first batch {first:.3f} s; launches of {1 + ROUNDS} batches "
+          f"{used} {tag}")
+    del sharded, vec
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sharded_launches": sharded_launches}
 
 
 STORE_N = 1 << 19      # documents of the persistent store: the first rows of the corpus
@@ -2289,14 +2359,17 @@ def store_kernels_alone(store, text, vector, dev, tag, time_ms):
             runs = {(int(s), int(c)) for s, c in zip(a["t_start"].tolist(), a["t_len"].tolist())}
             postings = int(a["t_len"].long().sum())
             rows = {"BM25 scorer": (score, ("bm25_score",), bound(
-                8 * sum(c for _, c in runs) + 5 * n + 4 * n, 9 * postings))}
+                8 * sum(c for _, c in runs) + 5 * n + 4 * n, 9 * postings),
+                lambda: bm25._bm25_dense_plain(**args, q_off=q_off), bm25_library(a, 1, dev))}
             gv, gi = sortnet.topk_rows(dense, None, HYBRID_K)
             pv, pi = sortnet._topk_rows_plain(dense, None, HYBRID_K)
             if not (torch.equal(gi, pi) and torch.equal(gv, pv)):
                 raise AssertionError(f"K1 differs from its plain version over the {which} segment")
             rows["K1 topk_rows"] = (lambda: sortnet.topk_rows(dense, None, HYBRID_K),
                                     ("topk_select",),
-                                    bound(4 * n + 8 * sortnet.k_pow2(HYBRID_K), 0))
+                                    bound(4 * n + 8 * sortnet.k_pow2(HYBRID_K), 0),
+                                    lambda: sortnet._topk_rows_plain(dense, None, HYBRID_K),
+                                    lambda: torch.topk(dense, HYBRID_K, dim=1, largest=False))
             vecs, sqn, valid = hybrid.vector_index()._store.device_state()
             mask = torch.where(valid, sqn, torch.tensor(inf, device=dev))
             q1 = torch.from_numpy(np.ascontiguousarray(vector[None, :])).to(dev)
@@ -2308,15 +2381,19 @@ def store_kernels_alone(store, text, vector, dev, tag, time_ms):
             rows["K2 flat float32"] = (
                 lambda: fused_scan._fused_scan_cuda(q1, vecs, mask, inf, False),
                 ("fused_scan",),
-                bound(4 * (DIM + cap * DIM + 2 * cap + cap // 128), 2 * cap * DIM))
+                bound(4 * (DIM + cap * DIM + 2 * cap + cap // 128), 2 * cap * DIM),
+                lambda: fused_scan._fused_dist_select_plain(q1, vecs, mask, inf, False), None)
             parts = []
-            for name, (fn, keys, b) in rows.items():
+            for name, (fn, keys, b, plain_fn, lib) in rows.items():
                 ms = time_ms(fn, reps=21)
                 us = device_us(fn, keys, strict=False)[0]
                 device = "not measured (the trace lost the launches)" if us is None else (
                     f"{us:.1f} us")
+                # the one PyTorch call of the same function: index_put_ for
+                # the scorer, torch.topk for K1; K2 has none
+                library = "none" if lib is None else f"{time_ms(lib, reps=21):.4f} ms"
                 parts.append(f"{name} {ms:.4f} ms, device {device}, bound {b[0] * 1e3:.2f} us "
-                             f"({b[1]})")
+                             f"({b[1]}), plain {time_ms(plain_fn):.4f} ms, library {library}")
             tile, group = bm25.tile_shape(1, n, torch.cuda.get_device_properties(0)
                                           .multi_processor_count)
             print(f"store kernels alone, one query over the {which} segment ({n} documents, "
@@ -2519,6 +2596,254 @@ def store_phase(corpus, queries, texts, qterms, dev, tag, time_ms, profile):
     return {"launches": launches, "seconds": seconds}
 
 
+SHARD_COUNTS = (1, 2, 4, 8)   # flat meshes of section 13, every shard on the one card
+SHARD_S = 4                   # the other searches' shard count
+
+
+def sharded_counts(launches, what, total, need):
+    """Print a search's K1 / K2 launches, add them to `total`, and fail if
+    a kernel of `need` never launched."""
+    for key, v in launches.items():
+        total[key] = total.get(key, 0) + v
+    used = {key: v for key, v in launches.items() if v}
+    if any(launches[key] <= 0 for key in need):
+        raise AssertionError(f"{what}: a kernel of the sharded path never launched: {used}")
+    return used
+
+
+def timed_batches(fn, rounds=ROUNDS):
+    """A first call, then `rounds` steady ones. Returns (result of the
+    first, first seconds, queries/s of the steady calls)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        again = fn()
+    torch.cuda.synchronize()
+    qps = rounds * BATCH / (time.perf_counter() - t0)
+    if not all(np.array_equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError("repeated sharded searches differ")
+    return out, first, qps
+
+
+def sharded_phase(corpus, queries, flat_ids, flat_scores, dev, tag, time_ms, profile):
+    """Section 13 of the module docstring. Returns {"launches": the
+    section's counts}."""
+    from comet_tpu_torch import DistanceKind, HNSWIndex, IVFIndex, IVFPQIndex, PQIndex
+    from comet_tpu_torch.indexes import hnsw as hnsw_mod
+    from comet_tpu_torch.ops import kmeans as km
+    from comet_tpu_torch.ops import sortnet
+    from comet_tpu_torch.parallel import (ShardedFlatSearcher, ShardedHNSWSearcher,
+                                          ShardedIVFPQSearcher, ShardedIVFSearcher,
+                                          ShardedPQSearcher, ShardedSeededHNSWSearcher,
+                                          make_corpus_mesh, make_sharded_kmeans_step,
+                                          shard_rows)
+
+    t_phase = time.perf_counter()
+    ids = np.arange(1, N + 1, dtype=np.uint32)
+    total = {}
+    k12 = ("topk_cl", "fused_dist_select")
+    mesh = {s: make_corpus_mesh([dev] * s) for s in SHARD_COUNTS}
+    x_dev = torch.from_numpy(corpus).to(dev)
+    q_dev = torch.from_numpy(queries).to(dev)
+    allowed = (ids % 3) != 0
+    with uncounted():
+        ps, pi = plain_search(q_dev, x_dev, torch.from_numpy(allowed).to(dev), float("inf"),
+                              DistanceKind.L2_SQUARED)
+    del x_dev
+
+    # -- flat at every shard count, and K1's merge at its shape -----------------
+    for s in SHARD_COUNTS:
+        t0 = time.perf_counter()
+        flat = ShardedFlatSearcher(mesh[s], corpus)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        reset_launches()
+        (scores, slots), first, qps = timed_batches(lambda: flat.search(queries, K))
+        f_scores, f_slots = flat.search(queries, K, allowed=allowed)
+        launches = read_launches()
+        used = sharded_counts(launches, f"sharded flat S={s}", total, k12)
+        if not (np.array_equal(slots.astype(np.int64) + 1, flat_ids)
+                and np.array_equal(scores, flat_scores)):
+            raise AssertionError(f"sharded flat S={s}: differs from the FlatIndex of section 3")
+        if not (np.array_equal(f_slots, pi) and np.array_equal(f_scores, ps)):
+            raise AssertionError(f"sharded flat S={s} with allowed: differs from the plain "
+                                 f"pipeline under the same mask")
+        print(f"sharded flat S={s} ({s} shard(s) on {dev}) {N} x {DIM} k={K}: ids and scores "
+              f"equal to the FlatIndex (section 3), with allowed = ids % 3 != 0 equal to the "
+              f"plain pipeline; {qps:.1f} queries/s steady, first batch {first:.3f} s, "
+              f"searcher built in {t_build:.3f} s; launches of {2 + ROUNDS} searches {used} "
+              f"{tag}")
+        with uncounted(), capture(sortnet, "topk_cl", 0) as cap:
+            flat.search(queries, K)
+            vals, idx = cap.args[0], cap.args[1]
+            gv, gi = sortnet.topk_cl(vals, idx, K)
+            pv, pi_ = sortnet._topk_cl_plain(vals, idx, K)
+            torch.cuda.synchronize()
+            if not (torch.equal(gv, pv) and torch.equal(gi, pi_)):
+                raise AssertionError(f"K1 merge at S={s} differs from its plain version")
+            fin = torch.isfinite(pv)
+            err = (gv[fin] - pv[fin]).abs().max().item() if fin.any() else 0.0
+            ms = time_ms(lambda: sortnet.topk_cl(vals, idx, K))
+            pms = time_ms(lambda: sortnet._topk_cl_plain(vals, idx, K))
+            lms = time_ms(lambda: torch.topk(vals, K, dim=0, largest=False))
+            # candidates' values and slots read once, k_pow2 pairs a query written
+            b = bound(vals.numel() * 8 + BATCH * sortnet.k_pow2(K) * 8, 0)
+        print(f"K1 topk_cl, the merge at S={s} [{vals.shape[0]}, {vals.shape[1]}] (candidates "
+              f"x queries, ids) k={K}: equal to plain (max abs err {err}); kernel {ms:.4f} ms, "
+              f"plain {pms:.3f} ms, torch.topk(dim=0, largest=False) {lms:.4f} ms; bound "
+              f"{b[0]:.4f} ms ({b[1]}) {tag}")
+        if profile and s == SHARD_S:
+            profile_window(lambda: [flat.search(queries, K) for _ in range(2)],
+                           f"sharded flat S={s}")
+        del flat, cap, vals, idx
+        torch.cuda.empty_cache()
+
+    # -- IVF at S = 4 against the single-device dense route ------------------------
+    ivf = IVFIndex(DIM, NLIST, DistanceKind.L2, device="cuda")
+    ivf.train(corpus[:N_TRAIN])
+    trained = ivf._centroids.copy()
+    # integer centroids make every coarse distance exact: the sharded probes
+    # (the full L2 distance) and the single-device ones (cn - 2 cq) rank alike
+    ivf._set_centroids(np.rint(trained).astype(np.float32))
+    ivf.add_batch(corpus, ids=ids)
+    with uncounted(), env_set(COMET_IVF_SPARSE="0"):
+        want_ids, want_scores = ivf.search_batch(queries, k=K, nprobes=10)
+    sharded = ShardedIVFSearcher(mesh[SHARD_S], ivf)
+    reset_launches()
+    (scores, slots), first, qps = timed_batches(lambda: sharded.search(queries, K, nprobe=10))
+    used = sharded_counts(read_launches(), "sharded IVF", total,
+                          ("topk_cl", "fused_dist_select_nprobe"))
+    if not np.array_equal(sharded.row_ids[slots], want_ids):
+        raise AssertionError("sharded IVF ids differ from the single-device dense route")
+    np.testing.assert_allclose(scores, want_scores, rtol=1e-4, atol=1e-4)
+    print(f"sharded IVF S={SHARD_S} nlist {NLIST} (integer centroids) nprobe 10 k={K}: ids equal "
+          f"and scores allclose(1e-4) to the single-device dense route (COMET_IVF_SPARSE=0); "
+          f"recall@{K} {recall_at_k(sharded.row_ids[slots], flat_ids):.4f}; {qps:.1f} queries/s "
+          f"steady, first batch {first:.3f} s; launches {used} {tag}")
+    del sharded, ivf
+    torch.cuda.empty_cache()
+
+    # -- one k-means step at S = 4 from those centroids -------------------------------
+    valid = np.ones(N, dtype=bool)
+    prev = np.full(N, -1, dtype=np.int32)
+    step = make_sharded_kmeans_step(mesh[SHARD_S], DistanceKind.L2_SQUARED)
+    shards = shard_rows(mesh[SHARD_S], corpus, valid, prev)
+    step(*shards, trained)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assign, cents, changed = step(*shards, trained)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    x_dev = torch.from_numpy(corpus).to(dev)
+    c_dev = torch.from_numpy(trained).to(dev)
+    want_a = km._nearest(x_dev, c_dev, DistanceKind.L2_SQUARED)
+    sums = torch.zeros_like(c_dev).index_add_(0, want_a, x_dev)
+    counts = torch.zeros(NLIST, device=dev).index_add_(0, want_a, torch.ones(N, device=dev))
+    want_c = torch.where(counts[:, None] > 0, sums / counts.clamp_min(1.0)[:, None], c_dev)
+    if not torch.equal(torch.cat(assign).long(), want_a):
+        raise AssertionError("sharded k-means assignments differ from the plain step")
+    torch.testing.assert_close(cents, want_c, rtol=1e-5, atol=1e-5)
+    print(f"sharded k-means step S={SHARD_S} over {N} x {DIM} from {NLIST} centroids: assignments "
+          f"equal to one plain single-device step, centroids allclose(1e-5) (changed "
+          f"{int(changed)}); {t_step * 1e3:.3f} ms a step {tag}")
+    del shards, assign, cents, x_dev, c_dev, want_a, sums, want_c
+    torch.cuda.empty_cache()
+
+    # -- PQ and IVFPQ at S = 4 against the single-device dense routes -------------------
+    for cls in (PQIndex, IVFPQIndex):
+        if cls is PQIndex:
+            index = PQIndex(DIM, DistanceKind.L2, m=PQ_M, nbits=PQ_NBITS, device="cuda")
+            make, kw, sk, what = ShardedPQSearcher, {}, {}, "PQ"
+        else:
+            index = IVFPQIndex(DIM, DistanceKind.L2, nlist=NLIST, m=PQ_M, nbits=PQ_NBITS,
+                               device="cuda")
+            make, kw, sk, what = ShardedIVFPQSearcher, {"nprobes": 10}, {"nprobe": 10}, "IVFPQ"
+        index.train(corpus[:N_TRAIN])
+        index.add_batch(corpus, ids=ids)
+        twin = snapped_twin(index)
+        sharded = make(mesh[SHARD_S], index)
+        reset_launches()
+        (scores, slots), first, qps = timed_batches(lambda: sharded.search(queries, K, **sk))
+        used = sharded_counts(read_launches(), f"sharded {what}", total,
+                              ("topk_cl", "fused_dist_select" if cls is PQIndex
+                               else "fused_dist_select_nprobe"))
+        with uncounted(), env_set(COMET_IVFPQ_SPARSE="0"):
+            want_ids, want_scores = index.search_batch(queries, k=K, **kw)
+            near = close_to_plain(f"sharded {what}", sharded.row_ids[slots], scores, want_ids,
+                                  want_scores)
+            t_ids, t_scores = twin.search_batch(queries, k=K, **kw)
+            ts, tsl = make(mesh[SHARD_S], twin).search(queries, K, **sk)
+            if not (np.array_equal(tsl.astype(np.int64) + 1, t_ids)
+                    and np.array_equal(ts, t_scores)):
+                raise AssertionError(f"sharded {what}: the integer twin differs from its "
+                                     f"single-device dense route")
+        print(f"sharded {what} S={SHARD_S} m={PQ_M} nbits={PQ_NBITS}"
+              + (f" nlist {NLIST} nprobe 10" if kw else "") + f" k={K}: allclose(1e-5, 1e-4) "
+              f"to the single-device dense route ({near} ids at near ties differ), the integer "
+              f"twin equal to its dense route; recall@{K} "
+              f"{recall_at_k(sharded.row_ids[slots], flat_ids):.4f}; {qps:.1f} queries/s "
+              f"steady, first batch {first:.3f} s; launches {used} {tag}")
+        del index, twin, sharded
+        torch.cuda.empty_cache()
+
+    # -- HNSW at S = 4 over a bulk-built graph: classic and seeded --------------------
+    saved = hnsw_mod.BLOCKED_TABLE_BYTES_MAX
+    hnsw_mod.BLOCKED_TABLE_BYTES_MAX = 0   # no routing table: the graph-beam search
+    try:
+        t0 = time.perf_counter()
+        index = HNSWIndex(DIM, DistanceKind.L2, device="cuda")
+        with uncounted():
+            index.add_batch(corpus, ids=ids)
+            index._ensure_seed()       # the index's own seed centroids
+        torch.cuda.synchronize()
+        print(f"HNSW for section 13: bulk build and seed centroids "
+              f"{time.perf_counter() - t0:.3f} s {tag}")
+        with uncounted():
+            t0 = time.perf_counter()
+            want_ids, want_scores = index.search_batch(queries, k=K, ef_search=EF_SEARCH)
+            t_single = time.perf_counter() - t0
+    finally:
+        hnsw_mod.BLOCKED_TABLE_BYTES_MAX = saved
+    sharded = ShardedHNSWSearcher(mesh[SHARD_S], index)
+    reset_launches()
+    t0 = time.perf_counter()
+    scores, slots = sharded.search(queries, K, ef_search=EF_SEARCH)
+    t_sharded = time.perf_counter() - t0
+    if not (np.array_equal(slots.astype(np.int64) + 1, want_ids)
+            and np.array_equal(scores, want_scores)):
+        raise AssertionError("sharded HNSW differs from the single-device graph beam")
+    print(f"sharded HNSW S={SHARD_S} M=16 ef={EF_SEARCH} k={K} (graph beam, queries sharded): ids "
+          f"and scores equal to the single-device graph beam; recall@{K} "
+          f"{recall_at_k(slots.astype(np.int64) + 1, flat_ids):.4f}; {BATCH / t_sharded:.1f} "
+          f"queries/s ({t_sharded:.3f} s a batch; single device {t_single:.3f} s) {tag}")
+    runs = []
+    for s in (1, SHARD_S):
+        seeded = ShardedSeededHNSWSearcher(mesh[s], index)
+        reset_launches()
+        t0 = time.perf_counter()
+        runs.append(seeded.search(queries, K, ef_search=EF_SEARCH))
+        t_seeded = time.perf_counter() - t0
+        used = sharded_counts(read_launches(), f"sharded seeded HNSW S={s}", total,
+                              ("topk_cl", "fused_dist_select_nprobe"))
+        print(f"sharded seeded HNSW S={s} (the index's {seeded._nlist} seed centroids, nprobe "
+              f"{seeded._nprobe_default}) k={K}: recall@{K} "
+              f"{recall_at_k(runs[-1][1].astype(np.int64) + 1, flat_ids):.4f}; "
+              f"{BATCH / t_seeded:.1f} queries/s ({t_seeded:.3f} s a batch); launches {used} "
+              f"{tag}")
+        del seeded
+    if not all(np.array_equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("sharded seeded HNSW differs between S=1 and S=4")
+    print(f"sharded seeded HNSW: S=1 and S={SHARD_S} equal")
+    del index, sharded
+    torch.cuda.empty_cache()
+    print(f"kernel launches of section 13 (the hybrid's in section 11): {total}; phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}")
+    return {"launches": total}
+
+
 def edge_checks(dev, seed, tag):
     """K1, K2's three modes, K3's two modes, K4's two, the scoring kernel,
     K5 and the BM25 scorer against their plain versions at edge shapes
@@ -2571,8 +2896,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace two steady flat, IVF and HNSW batches, one insertion "
-                         "round, one IVFPQ batch, two BM25 and hybrid batches and 64 "
-                         "hybrid store searches with torch.profiler")
+                         "round, one IVFPQ batch, two BM25 and hybrid batches, 64 "
+                         "hybrid store searches and two sharded flat batches with "
+                         "torch.profiler")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after holding K1-K5 and the scoring kernel to their plain "
                          "versions at the main path's shapes and timing them")
@@ -2867,8 +3193,9 @@ def main():
     bm = bm25_phase(args.seed, dev, tag, time_ms, args.profile)
 
     # -- 11. hybrid search --------------------------------------------------------------------
-    hyl = hybrid_phase(corpus, queries, bm["index"], bm["qterms"], dev, tag, time_ms,
-                       args.profile)["launches"]
+    hy = hybrid_phase(corpus, queries, bm["index"], bm["qterms"], dev, tag, time_ms,
+                      args.profile)
+    hyl = hy["launches"]
     bml, bm_report = bm["launches"], bm["report"]
     texts, qterms = bm["texts"], bm["qterms"]
     del bm
@@ -2877,6 +3204,14 @@ def main():
     stl = store_phase(corpus, queries, texts, qterms, dev, tag, time_ms,
                       args.profile)["launches"]
     del texts
+
+    # -- 13. sharding over meshes of the one card -------------------------------------------
+    shl = sharded_phase(corpus, queries, got_ids, got_scores, dev, tag, time_ms,
+                        args.profile)["launches"]
+    sec13 = {key: shl.get(key, 0) + hy["sharded_launches"][key] for key in read_launches()}
+    for key in ("topk_cl", "fused_dist_select", "fused_dist_select_nprobe", "bm25_score"):
+        if sec13[key] <= 0:
+            raise AssertionError(f"section 13 never launched {key}: {sec13}")
 
     def entry(name, source, replaces, key, n_launches):
         r = (report.get(key) or fb["report"].get(key) or ivf["report"].get(key)
@@ -2891,14 +3226,16 @@ def main():
         entry("topk_cl", "comet_tpu_torch/csrc/topk.cu", "comet_tpu/ops/sortnet.py:142",
               "topk_cl", launches["topk_cl"] + fl["topk_cl"] + il["topk_cl"] + hl["topk_cl"]
               + l8["topk_cl"] + pql["topk_cl"] + bml["topk_cl"] + hyl["topk_cl"]
-              + stl["topk_cl"]),
+              + stl["topk_cl"] + sec13["topk_cl"]),
         entry("fused_dist_select", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:63", "fused_dist_select",
               launches["fused_dist_select"] + hl["fused_dist_select"] + pql["fused_dist_select"]
-              + hyl["fused_dist_select"] + stl["fused_dist_select"]),
+              + hyl["fused_dist_select"] + stl["fused_dist_select"]
+              + sec13["fused_dist_select"]),
         entry("fused_dist_select_nprobe", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:100", "fused_dist_select_nprobe",
-              il["fused_dist_select_nprobe"] + pql["fused_dist_select_nprobe"]),
+              il["fused_dist_select_nprobe"] + pql["fused_dist_select_nprobe"]
+              + sec13["fused_dist_select_nprobe"]),
         entry("fused_dist_select_bf16", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:82", "fused_dist_select_bf16",
               fl["fused_dist_select_bf16"]),
@@ -2926,7 +3263,8 @@ def main():
               "comet_tpu/ops/beam_kernel.py:582", "fused_expand", hl["fused_expand"]),
         entry("bm25_score", "comet_tpu_torch/csrc/bm25_score.cu",
               "comet_tpu/indexes/bm25.py:602", "bm25_score",
-              bml["bm25_score"] + hyl["bm25_score"] + stl["bm25_score"]),
+              bml["bm25_score"] + hyl["bm25_score"] + stl["bm25_score"]
+              + sec13["bm25_score"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

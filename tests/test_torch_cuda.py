@@ -977,3 +977,52 @@ def test_profiling_timer_times_the_card(dev):
     with profiling.timed("span", dev) as s:
         a @ a
     assert s.device_elapsed > 0
+
+
+# -- sharding: shards on one card ---------------------------------------------------
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("searcher", ["flat", "ivf"])
+def test_sharded_search_cuda_matches_single_device_and_plain(dev, searcher, shards):
+    """A mesh of S shards on cuda:0: the sharded flat and IVF searches
+    launch K2 and K1 (the merge included) and equal the single-device
+    index and the same search on the plain versions; integer data and
+    centroids, so every distance is exact."""
+    from comet_tpu_torch import FlatIndex, IVFIndex
+    from comet_tpu_torch.parallel import (ShardedFlatSearcher, ShardedIVFSearcher,
+                                          make_corpus_mesh)
+
+    rng = np.random.default_rng(17)
+    x = rng.integers(0, 256, size=(20000, 32)).astype(np.float32)
+    q = rng.integers(0, 256, size=(300, 32)).astype(np.float32)
+    allowed = np.arange(20000) % 3 != 0
+    mesh = make_corpus_mesh([dev] * shards)
+    if searcher == "flat":
+        single = FlatIndex(32, DistanceKind.L2, device="cuda")
+        single.add_batch(x, ids=range(1, 20001))
+        sharded = ShardedFlatSearcher(mesh, x, DistanceKind.L2)
+        search = lambda **kw: sharded.search(q, 40, **kw)          # noqa: E731
+        want = single.search_batch(q, k=40)
+    else:
+        single = IVFIndex(32, 64, DistanceKind.L2, device="cuda")
+        single.train(x[:4000])
+        single._set_centroids(np.rint(single._centroids).astype(np.float32))
+        single.add_batch(x, ids=range(1, 20001))
+        sharded = ShardedIVFSearcher(mesh, single)
+        search = lambda **kw: sharded.search(q, 40, nprobe=6, **kw)  # noqa: E731
+        want = single.search_batch(q, k=40, nprobes=6)
+    before = (sortnet.LAUNCHES, fused_scan.LAUNCHES + fused_scan.NPROBE_LAUNCHES)
+    scores, slots = search()
+    torch.cuda.synchronize()
+    assert sortnet.LAUNCHES > before[0]
+    assert fused_scan.LAUNCHES + fused_scan.NPROBE_LAUNCHES > before[1]
+    np.testing.assert_array_equal(slots + 1, want[0])
+    np.testing.assert_array_equal(scores, want[1])
+    f_scores, f_slots = search(allowed=allowed)
+    with _plain_versions():
+        for got, want in ((search(), (scores, slots)),
+                          (search(allowed=allowed), (f_scores, f_slots))):
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+    assert allowed[f_slots[f_slots != SENT]].all()

@@ -36,7 +36,7 @@ def test_import_loads_no_jax():
         "import comet_tpu_torch.storage, comet_tpu_torch.storage.bloom\n"
         "import comet_tpu_torch.storage.wal, comet_tpu_torch.storage.merge\n"
         "import comet_tpu_torch.io.siftgen, comet_tpu_torch.io.datasets\n"
-        "import comet_tpu_torch.utils.profiling\n"
+        "import comet_tpu_torch.utils.profiling, comet_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'comet_tpu', 'regex')]\n"
         "assert not bad, bad\n"
@@ -56,7 +56,7 @@ def test_sources_import_neither_jax_nor_reference():
     for module in ("storage/engine.py", "storage/wal.py", "storage/bloom.py",
                    "storage/merge.py", "storage/memtable.py", "storage/provider.py",
                    "storage/segment.py", "io/siftgen.py", "io/datasets.py",
-                   "utils/profiling.py"):
+                   "utils/profiling.py", "parallel/sharded.py"):
         assert module in seen, module
 
 
@@ -82,6 +82,16 @@ def test_reference_public_names_are_exported():
                          ("aggregate_text_results", aggregation)):
         assert name in comet_tpu_torch.__all__
         assert getattr(comet_tpu_torch, name) is getattr(module, name)
+
+
+def test_parallel_names_are_the_reference_s():
+    import comet_tpu.parallel
+
+    import comet_tpu_torch.parallel
+
+    assert comet_tpu_torch.parallel.__all__ == comet_tpu.parallel.__all__
+    for name in comet_tpu_torch.parallel.__all__:
+        assert hasattr(comet_tpu_torch.parallel, name)
 
 
 @pytest.mark.parametrize("source,replaces", [
