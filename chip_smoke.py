@@ -11,9 +11,18 @@
    flat path's two selects on the flat path's own inputs (the group minima
    of 256 queries, [256, 8192] with k = 128, and the candidates of their
    kept groups, [256, 16384] with k = 100) and at the HNSW finalize's
-   [2048, 256], k = 128 (rows cut from those candidates), beside
+   [2048, 256], k = 128 (rows cut from those candidates), with its device
+   time a call (`queued_device_ms`), beside
    `torch.topk(dim=1, largest=False)`, its yardstick, and in the
-   reference's column layout. Then K3 (block-sparse scan,
+   reference's column layout. K1's split route on BM25-like rows
+   from the seed ([256, 2^20] rare-term and 5 %-scored chunks at k = 10
+   and 100; one query's row over 45,428 and 286,372 documents at k = 10)
+   beside torch.topk, the bytes bound and its device time a select;
+   K2's few-query route at Q = 1-32 over the corpus's first 65,536 and
+   524,288 rows, bit-equal to the plain version and to the 128-query tile,
+   each route timed with its device time, the plain version's device time
+   at one query, and the other operands and modes at Q = 1-32 over 524,288
+   rows beside the 128-query tile. Then K3 (block-sparse scan,
    csrc/ivf_sparse.cu) on an IVF index built as in section 5 (nlist 1024
    trained on the first 100,000 rows) and the batch's own chunk lists: float32 at
    nprobe 10 and its default step budget (S = 512), at the step budget the
@@ -32,8 +41,12 @@
    placed at the root of another checkout times that checkout's kernels
    the same way. Then
    K1 (widths 1 to 65539, k 1 to 8192, ties, signed zeros, +inf and
-   repeated keys, both layouts), all three modes of K2 (Q 1-300, d 1-128,
-   N 128-4096, with and without a threshold), K3's two modes (0-128
+   repeated keys, both layouts) and its split route (ops/edge_cases
+   K1_SPLIT_CASES: [1-256, 16385-2^20], ~10^6 +-0.0 zeros past fewer than
+   k smaller values, runs across tile edges, +inf rows, permuted and
+   repeated indices, kp = 8192), all modes of K2 (Q 1-300, d 1-144,
+   N 128-4096, with and without a threshold; the few-query route at Q
+   2-32, N up to 65,536, also against the 128-query tile), K3's two modes (0-128
    probing queries a step, dead steps, S = 1, a zero-padded group, d
    3-128, L2 and cosine, with and without a threshold) and K4 split and
    fused (ties, copies, SENT and +inf rows, ew 7-300, beams and result
@@ -139,7 +152,7 @@
    it, beside `index_put_(accumulate=True)` of the same contributions
    (2-term), beside its bound and the bytes its tiled design moves
    (`bm25_design_bytes`); K1 on those [256, 2^20] rows at k = 10
-   and 100 beside `torch.topk`. Then `search_batch` of 2048 queries of
+   and 100 (its split route) beside `torch.topk`. Then `search_batch` of 2048 queries of
    the bench's mid-frequency terms (ranks 100-5000), 1-, 2- and 10-term,
    at k = 10 and 100: queries/s, launches; each batch's first 256 rows
    array-equal to the plain scorer on the card, 8 queries of each
@@ -170,11 +183,14 @@
    p99, queries/s); 16,384 more documents left in the WAL by a simulated
    crash, the reopen (WAL replay) and its first search (segments loaded
    onto the card) timed; close(). After the searches, the BM25 scorer,
-   K1 on its row and K2's float32 flat mode are timed alone at one query
-   over the smallest and the largest segment, beside their bounds, their
-   plain versions and the one PyTorch call of the same function
-   (`index_put_(accumulate=True)` for the scorer, `torch.topk` for K1;
-   K2 has none).
+   K1 on its row (the split route) and K2's float32 flat mode (the
+   few-query route) are timed alone at one query over the smallest and
+   the largest segment, beside their bounds, their plain versions and the
+   one PyTorch call of the same function (`index_put_(accumulate=True)`
+   for the scorer, `torch.topk` for K1; K2 has none), with their device
+   time a call from one profiler window over the three in turns. The
+   store's searches must launch both new routes (sections 10, 11 and 13
+   K1's split route, through their BM25 legs).
    Vector-only results equal one FlatIndex on the card over the live rows
    before and after compaction and after the reopen (ids but at ties at
    the k-th score); 16 text and 16 hybrid searches equal their
@@ -206,7 +222,10 @@
 
 Any mismatch raises, so the run exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line before it names the kernels with
-their launches, errors, times and bounds, and the line before that the card.
+their launches, errors, times and bounds (`topk_cl_split` and
+`fused_dist_select_fewq` are K1's split and K2's few-query routes, whose
+launches the `topk_cl` and `fused_dist_select*` mode entries include),
+and the line before that the card.
 """
 
 import argparse
@@ -355,6 +374,7 @@ def reset_launches():
 
     bm25.LAUNCHES = 0
     sortnet.LAUNCHES = fused_scan.LAUNCHES = fused_scan.NPROBE_LAUNCHES = 0
+    sortnet.SPLIT_LAUNCHES = fused_scan.FEWQ_LAUNCHES = 0
     fused_scan.BF16_LAUNCHES = fused_scan.F16_LAUNCHES = fused_scan.INT8_LAUNCHES = 0
     ivf_sparse.LAUNCHES = ivf_sparse.BF16_LAUNCHES = 0
     beam_kernel.LAUNCHES = beam_kernel.FUSED_LAUNCHES = beam_kernel.SCORE_LAUNCHES = 0
@@ -364,8 +384,12 @@ def reset_launches():
 def read_launches():
     from comet_tpu_torch.ops import beam_kernel, bm25, fused_scan, ivf_sparse, sortnet
 
+    # the split and few-query routes' counts are parts of topk_cl's and of
+    # the fused_dist_select modes' (a checkout without them reads 0)
     return {"bm25_score": bm25.LAUNCHES,
             "topk_cl": sortnet.LAUNCHES, "fused_dist_select": fused_scan.LAUNCHES,
+            "topk_cl_split": getattr(sortnet, "SPLIT_LAUNCHES", 0),
+            "fused_dist_select_fewq": getattr(fused_scan, "FEWQ_LAUNCHES", 0),
             "fused_dist_select_nprobe": fused_scan.NPROBE_LAUNCHES,
             "fused_dist_select_bf16": fused_scan.BF16_LAUNCHES,
             "fused_dist_select_f16": fused_scan.F16_LAUNCHES,
@@ -649,39 +673,256 @@ def beam_section(x_dev, queries, seed, dev, tag, time_ms):
               f"(fused mode: {n_adm} admitted); kernel {ms:.4f} ms, plain {pms:.3f} ms; bound "
               f"{b[0]:.4f} ms ({b[1]}; {n_bytes / 1e6:.1f} MB) {tag}")
         del table, aux, sa, nd
-    print("device time a launch (torch.profiler, mean of 20 launches): " + ", ".join(
+    print("device time a launch (torch.profiler, mean over a 0.5 s window): " + ", ".join(
         f"{k} {' + '.join(f'{u:.1f}' for u in v)} us" for k, v in dev_us.items()) + f" {tag}")
     del adj, state, q, qb, qn, nodes, allowed
     torch.cuda.empty_cache()
 
 
-def device_us(fn, keys, reps=20, strict=True):
-    """Mean device time a launch, in us, of each kernel whose name holds
-    one of `keys` (in that order), over `reps` calls of `fn` traced by
-    torch.profiler: the kernel alone, without the host's launch. A trace
-    that lost more than half the launches raises, or with `strict` False
-    gives None for that kernel."""
+def profiled_rows(fns, seconds=0.5):
+    """`kernel_rows` of one torch.profiler window of at least `seconds`
+    over calls of `fns` in turns, after a warm-up: long enough that the
+    trace keeps launches past the ~130 ms it can lose at its start."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+    return kernel_rows(prof)
+
+
+def device_us(fn, keys):
+    """Mean device time a launch, in us, of each kernel whose name holds
+    one of `keys` (in that order), over the calls of `fn` in one
+    `profiled_rows` window: the kernel alone, without the host's launch.
+    A trace that kept no launch of one raises."""
+    rows = profiled_rows([fn])
     out = []
     for key in keys:
-        tot = cnt = 0
-        for us, count, name in rows:
-            if key in name:
-                tot, cnt = tot + us, cnt + count
-        if cnt < reps // 2:
-            if strict:
-                raise AssertionError(f"the profiler saw {cnt} launches of {key} in {reps} calls")
-            out.append(None)
-            continue
+        tot = sum(us for us, _, name in rows if key in name)
+        cnt = sum(count for _, count, name in rows if key in name)
+        if cnt == 0:
+            raise AssertionError(f"the profiler kept no launch of {key}")
         out.append(tot / cnt)
+    return out
+
+
+def calls_device_us(fns, anchors):
+    """Mean device time of one call of each of `fns`, run in turns in one
+    `profiled_rows` window: for fn i, the device time of every kernel
+    whose name holds one of anchors[i][0] over the count of anchors[i][1],
+    the kernel it launches once a call. None where the trace kept no
+    launch of it."""
+    rows = profiled_rows(fns)
+    out = []
+    for names, once in anchors:
+        tot = sum(us for us, _, key in rows if any(n in key for n in names))
+        cnt = sum(count for _, count, key in rows if once in key)
+        out.append(tot / cnt if cnt else None)
+    return out
+
+
+K1_SPLIT_NAMES = (("split_pass", "split_count", "split_write", "Memset"), "split_write")
+# (rows, width, scored share, ks) of k1_split_section: BM25's chunk rows
+# and one query's row over the store's smallest and largest segment
+K1_SPLIT_SHAPES = ((256, 1 << 20, 0.0, (10, 100)), (256, 1 << 20, 0.05, (10, 100)),
+                   (1, 45_428, 0.0, (10,)), (1, 286_372, 0.0, (10,)), (1, 286_372, 0.05, (10,)))
+K2_FEWQ_NS = (65_536, 524_288)      # corpus rows of k2_fewq_section
+K2_FEWQ_QS = (1, 2, 4, 8, 16, 32)   # its query counts
+K2_FEWQ_NLIST, K2_FEWQ_NPROBE = 1024, 10   # its nprobe mode's clusters
+
+
+def bm25_like_rows(gen, rows, width, matched, dev):
+    """[rows, width] negated BM25 scores from `gen`: a `matched` share of
+    the documents scores -(1..21), the rest are +0.0 or -0.0."""
+    u = torch.rand((rows, width), generator=gen, device=dev)
+    score = -(1.0 + 20.0 * torch.rand((rows, width), generator=gen, device=dev))
+    zero = torch.where(u < matched / 2 + 0.5, torch.zeros((), device=dev),
+                       -torch.zeros((), device=dev))
+    return torch.where(u < matched, score, zero)
+
+
+def k1_split_section(seed, dev, tag, time_ms):
+    """K1's split route at the shapes that reach it: BM25's [256,
+    2^20] chunk rows (a rare-term chunk, whose boundary lies in ~10^6
+    zeros, and a common-term one, 5 % of the documents scored) at k = 10
+    and 100, and one query's row over the store's smallest and largest
+    segment (45,428 and 286,372 documents) at k = 10: held to the plain
+    version, timed beside torch.topk and the bytes bound, with the device
+    time a select. A checkout without the route times its own K1 at the
+    same shapes. Returns the report entry of the [256, 2^20] rare-term
+    chunk at k = 10."""
+    from comet_tpu_torch.ops import sortnet
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = {}
+    for rows, width, matched, ks in K1_SPLIT_SHAPES:
+        vals = bm25_like_rows(gen, rows, width, matched, dev)
+        if matched == 0.0:
+            # fewer than k scored documents: the boundary falls in the zeros
+            vals[:, :3] = -5.0
+        for k in ks:
+            gv, gi = sortnet.topk_rows(vals, None, k)
+            pv, pi = sortnet._topk_rows_plain(vals, None, k)
+            torch.cuda.synchronize()
+            if not (torch.equal(gi, pi) and torch.equal(gv, pv)):
+                raise AssertionError(f"K1 differs from its plain version at [{rows}, {width}], "
+                                     f"k={k}")
+            ms = time_ms(lambda: sortnet.topk_rows(vals, None, k), reps=11)
+            pms = time_ms(lambda: sortnet._topk_rows_plain(vals, None, k), reps=1)
+            lms = time_ms(lambda: torch.topk(vals, k, dim=1, largest=False), reps=11)
+            b = bound(4 * rows * width + 8 * rows * sortnet.k_pow2(k), 0)
+            us = calls_device_us([lambda: sortnet.topk_rows(vals, None, k)],
+                                 [K1_SPLIT_NAMES if hasattr(sortnet, "SPLIT_LAUNCHES")
+                                  else (("topk",), "topk")])[0]
+            what = "rare-term" if matched == 0.0 else f"{matched:.0%} scored"
+            print(f"K1 split route [{rows}, {width}] k={k}, idx=None, {what}: equal to plain; "
+                  f"kernel {ms:.4f} ms (device {'not measured' if us is None else f'{us:.1f} us'}"
+                  f"), plain {pms:.3f} ms, torch.topk(dim=1, largest=False) {lms:.4f} ms; bound "
+                  f"{b[0] * 1e3:.2f} us ({b[1]}) {tag}")
+            if (rows, width, matched, k) == K1_SPLIT_SHAPES[0][:3] + (10,):
+                out["topk_cl_split"] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=lms, bound=b)
+        del vals
+    torch.cuda.empty_cache()
+    return out
+
+
+def queued_device_ms(fn, reps=20):
+    """Device time of one call of `fn`, in ms: `reps` calls queued behind a
+    sleep kernel on the stream, so the card runs them back to back, timed
+    by CUDA events around them (every kernel of a call, host launch apart)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def k2_fewq_section(x_dev, queries, dev, tag, time_ms):
+    """K2's few-query route: Q = 1, 2, 4, 8, 16 and 32 queries over the
+    first 65,536 and 524,288 rows of the corpus (float32, L2), dist and
+    group minima bit-equal to the plain version and to the 128-query tile,
+    each route timed with its launch (CUDA events) and on the card alone
+    (`queued_device_ms`: the whole call, qn included), beside the bytes
+    bound; at one query over 524,288 rows also each route's kernel alone
+    (torch.profiler) and the plain version both ways. Then the other
+    operands and modes at the same Qs over 524,288 rows (bf16, float16,
+    int8 with its scale, nprobe at nprobe 10 of 1024 clusters, float32
+    cosine): both routes bit-equal to each other and timed the same two
+    ways. A checkout without the route times its tile twice. Returns the
+    report entry at one query over 524,288 rows."""
+    from comet_tpu_torch.ops import fused_scan
+
+    has = hasattr(fused_scan, "FEWQ_MAX")
+    saved = getattr(fused_scan, "FEWQ_MAX", 0)
+    inf = float("inf")
+    dev_s = lambda us: "not measured" if us is None else f"{us:.1f} us"  # noqa: E731
+    anchor = [(("fewq_scan", "fused_scan_kernel"), "scan_kernel")]
+
+    def routes(what, scan, plain=None, kernel_us=False):
+        """(few-query, tile), each (ms, device us a call, dist, gmin, the
+        kernel's device us or None), both routes held to each other and,
+        given `plain`, to the plain version."""
+        times = {}
+        try:
+            for route, limit in (("few-query", 32), ("128-query tile", 0)):
+                if has:
+                    fused_scan.FEWQ_MAX = limit
+                dist, gmin = scan()
+                if plain is not None:
+                    pdist, pgmin = plain()
+                    torch.cuda.synchronize()
+                    if not (torch.equal(dist, pdist) and torch.equal(gmin, pgmin)):
+                        raise AssertionError(f"K2 {route} at {what} differs from its plain "
+                                             f"version")
+                    del pdist, pgmin
+                times[route] = (time_ms(scan, reps=11), queued_device_ms(scan) * 1e3, dist, gmin,
+                                calls_device_us([scan], anchor)[0] if kernel_us else None)
+        finally:
+            if has:
+                fused_scan.FEWQ_MAX = saved
+        fq, tl = times["few-query"], times["128-query tile"]
+        if not (torch.equal(fq[2], tl[2]) and torch.equal(fq[3], tl[3])):
+            raise AssertionError(f"K2 at {what}: the routes differ")
+        return fq, tl
+
+    out = {}
+    for n in K2_FEWQ_NS:
+        xs = x_dev[:n]
+        mask = (xs * xs).sum(dim=1)
+        for q_n in K2_FEWQ_QS:
+            qs = torch.from_numpy(queries[:q_n]).to(dev)
+
+            def scan():
+                return fused_scan._fused_scan_cuda(qs, xs, mask, inf, False)
+
+            def plain():
+                return fused_scan._fused_dist_select_plain(qs, xs, mask, inf, False)
+            main = (q_n, n) == (1, K2_FEWQ_NS[-1])
+            fq, tl = routes(f"Q={q_n}, N={n}", scan, plain, kernel_us=main)
+            b = bound(4 * (q_n * DIM + n * DIM + n + q_n * n + q_n * (n // 128)),
+                      2 * q_n * n * DIM)
+            print(f"K2 Q={q_n} N={n} d={DIM} float32 L2: both routes equal to plain and to each "
+                  f"other; few-query {fq[0]:.4f} ms (device {fq[1]:.1f} us a call), 128-query "
+                  f"tile {tl[0]:.4f} ms (device {tl[1]:.1f} us a call); bound {b[0] * 1e3:.2f} us "
+                  f"({b[1]}) {tag}")
+            if main:
+                pms = time_ms(plain, reps=11)
+                out["fused_dist_select_fewq"] = dict(err=0.0, ms=fq[0], plain_ms=pms,
+                                                     library_ms=None, bound=b)
+                print(f"K2 at Q=1 N={n}: kernel alone (torch.profiler) few-query "
+                      f"{dev_s(fq[4])}, 128-query tile {dev_s(tl[4])}; plain version "
+                      f"{pms:.4f} ms (device {queued_device_ms(plain) * 1e3:.1f} us a call) {tag}")
+            del fq, tl
+    # the other operands and modes over the largest N
+    n = K2_FEWQ_NS[-1]
+    xs = x_dev[:n]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    assign = torch.randint(0, K2_FEWQ_NLIST, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    x8 = (xs - 128.0).clamp(-127.0, 127.0).to(torch.int8)
+    modes = (
+        ("bf16 L2", xs.to(torch.bfloat16), (xs * xs).sum(dim=1), {}, False),
+        ("float16 L2", xs.to(torch.float16), (xs * xs).sum(dim=1), {}, False),
+        ("int8 L2", x8, (x8.float() * x8.float()).sum(dim=1), {"scale": 1.0}, False),
+        ("nprobe L2", xs, (xs * xs).sum(dim=1), {"assign": assign, "nlist": K2_FEWQ_NLIST},
+         False),
+        ("float32 cosine", torch.nn.functional.normalize(xs, dim=1), torch.zeros(n, device=dev),
+         {}, True),
+    )
+    for name, corpus, mask, kw, cosine in modes:
+        for q_n in K2_FEWQ_QS:
+            qs = torch.from_numpy(queries[:q_n]).to(dev)
+            if cosine:
+                qs = torch.nn.functional.normalize(qs, dim=1)
+            kw_q = dict(kw)
+            if "assign" in kw:
+                kw_q["probes"] = torch.randint(0, K2_FEWQ_NLIST, (q_n, K2_FEWQ_NPROBE),
+                                               generator=gen, device=dev, dtype=torch.int32)
+
+            def scan():
+                return fused_scan._fused_scan_cuda(qs, corpus, mask, inf, cosine, **kw_q)
+            fq, tl = routes(f"{name}, Q={q_n}, N={n}", scan)
+            print(f"K2 {name} Q={q_n} N={n} d={DIM}: the routes equal; few-query {fq[0]:.4f} ms "
+                  f"(device {fq[1]:.1f} us a call), 128-query tile {tl[0]:.4f} ms (device "
+                  f"{tl[1]:.1f} us a call) {tag}")
+            del fq, tl
+        del corpus, mask
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1273,7 +1514,9 @@ class uncounted:
         s = self.saved
         bm25.LAUNCHES = s["bm25_score"]
         sortnet.LAUNCHES = s["topk_cl"]
+        sortnet.SPLIT_LAUNCHES = s["topk_cl_split"]
         fused_scan.LAUNCHES = s["fused_dist_select"]
+        fused_scan.FEWQ_LAUNCHES = s["fused_dist_select_fewq"]
         fused_scan.NPROBE_LAUNCHES = s["fused_dist_select_nprobe"]
         fused_scan.BF16_LAUNCHES = s["fused_dist_select_bf16"]
         fused_scan.F16_LAUNCHES = s["fused_dist_select_f16"]
@@ -2005,9 +2248,12 @@ def bm25_section(index, queries, n_terms, dev, tag, time_ms, library=False):
         pk1 = time_ms(lambda: sortnet._topk_rows_plain(dense, None, k), reps=1)
         lk1 = time_ms(lambda: torch.topk(dense, k, dim=1, largest=False))
         kb = bound(4 * BM25_CHUNK * n + 8 * BM25_CHUNK * sortnet.k_pow2(k), 0)
-        print(f"K1 topk_rows on those rows {[BM25_CHUNK, n]} k={k}, idx=None: equal to plain; "
-              f"kernel {k1:.4f} ms, plain {pk1:.3f} ms, torch.topk(dim=1, largest=False) "
-              f"{lk1:.4f} ms; bound {kb[0]:.4f} ms ({kb[1]}) {tag}")
+        us = calls_device_us([lambda: sortnet.topk_rows(dense, None, k)], [K1_SPLIT_NAMES])[0]
+        print(f"K1 topk_rows on those rows {[BM25_CHUNK, n]} k={k}, idx=None (split route): "
+              f"equal to plain; kernel {k1:.4f} ms (device "
+              f"{'not measured' if us is None else f'{us:.1f} us'}), plain {pk1:.3f} ms, "
+              f"torch.topk(dim=1, largest=False) {lk1:.4f} ms; bound {kb[0]:.4f} ms ({kb[1]}) "
+              f"{tag}")
         out[f"topk_bm25_k{k}"] = dict(err=0.0, ms=k1, plain_ms=pk1, library_ms=lk1, bound=kb)
     del dense
     torch.cuda.empty_cache()
@@ -2331,11 +2577,12 @@ def latency(secs):
 def store_kernels_alone(store, text, vector, dev, tag, time_ms):
     """The store's one-query kernel shapes, each timed alone over the
     smallest and the largest segment: the BM25 scorer on `text`, K1 on its
-    negated row (k = HYBRID_K) and K2's float32 flat mode on `vector`,
-    each held to its plain version (uncounted), beside its bytes bound
-    (as section 10 counts the scorer's and K1's). CUDA-event ms include
-    the host's launch; the device time a launch is torch.profiler's, where
-    its trace kept the launches."""
+    negated row (k = HYBRID_K; the split route) and K2's float32 flat mode
+    on `vector` (the few-query route), each held to its plain version
+    (uncounted), beside its bytes bound (as section 10 counts the
+    scorer's and K1's). CUDA-event ms include the host's launch; the
+    device time a call is torch.profiler's, over the three run in turns in
+    one window (`calls_device_us`)."""
     from comet_tpu_torch.ops import bm25, fused_scan, sortnet
 
     segs = sorted(store.segments.list(), key=lambda seg: seg.get_index().count())
@@ -2358,7 +2605,7 @@ def store_kernels_alone(store, text, vector, dev, tag, time_ms):
                                      f"{which} segment")
             runs = {(int(s), int(c)) for s, c in zip(a["t_start"].tolist(), a["t_len"].tolist())}
             postings = int(a["t_len"].long().sum())
-            rows = {"BM25 scorer": (score, ("bm25_score",), bound(
+            rows = {"BM25 scorer": (score, (("bm25_score",), "bm25_score"), bound(
                 8 * sum(c for _, c in runs) + 5 * n + 4 * n, 9 * postings),
                 lambda: bm25._bm25_dense_plain(**args, q_off=q_off), bm25_library(a, 1, dev))}
             gv, gi = sortnet.topk_rows(dense, None, HYBRID_K)
@@ -2366,7 +2613,7 @@ def store_kernels_alone(store, text, vector, dev, tag, time_ms):
             if not (torch.equal(gi, pi) and torch.equal(gv, pv)):
                 raise AssertionError(f"K1 differs from its plain version over the {which} segment")
             rows["K1 topk_rows"] = (lambda: sortnet.topk_rows(dense, None, HYBRID_K),
-                                    ("topk_select",),
+                                    K1_SPLIT_NAMES,
                                     bound(4 * n + 8 * sortnet.k_pow2(HYBRID_K), 0),
                                     lambda: sortnet._topk_rows_plain(dense, None, HYBRID_K),
                                     lambda: torch.topk(dense, HYBRID_K, dim=1, largest=False))
@@ -2380,14 +2627,16 @@ def store_kernels_alone(store, text, vector, dev, tag, time_ms):
             cap = vecs.shape[0]
             rows["K2 flat float32"] = (
                 lambda: fused_scan._fused_scan_cuda(q1, vecs, mask, inf, False),
-                ("fused_scan",),
+                (("fewq_scan",), "fewq_scan"),
                 bound(4 * (DIM + cap * DIM + 2 * cap + cap // 128), 2 * cap * DIM),
                 lambda: fused_scan._fused_dist_select_plain(q1, vecs, mask, inf, False), None)
             parts = []
-            for name, (fn, keys, b, plain_fn, lib) in rows.items():
+            # the device time a call: the three kernels in turns in one
+            # profiler window, past the start a trace can lose
+            dev_us = calls_device_us([r[0] for r in rows.values()], [r[1] for r in rows.values()])
+            for (name, (fn, keys, b, plain_fn, lib)), us in zip(rows.items(), dev_us):
                 ms = time_ms(fn, reps=21)
-                us = device_us(fn, keys, strict=False)[0]
-                device = "not measured (the trace lost the launches)" if us is None else (
+                device = "not measured (the trace kept no launch)" if us is None else (
                     f"{us:.1f} us")
                 # the one PyTorch call of the same function: index_put_ for
                 # the scorer, torch.topk for K1; K2 has none
@@ -2853,7 +3102,12 @@ def edge_checks(dev, seed, tag):
     t0 = time.perf_counter()
     for k, width in edge_cases.K1_CASES:
         edge_cases.check_k1(dev, k, width, seed)
+    for case in edge_cases.K1_SPLIT_CASES:
+        edge_cases.check_k1_split(dev, *case, seed=seed)
+    torch.cuda.empty_cache()
     k2_err = max(edge_cases.check_k2(dev, q_n, d, n, seed) for q_n, d, n in edge_cases.K2_SHAPES)
+    k2_err = max([k2_err] + [edge_cases.check_k2_fewq(dev, q_n, d, n, seed)
+                             for q_n, d, n in edge_cases.K2_FEWQ_SHAPES])
     k3_err = max(edge_cases.check_k3(dev, layout, d, seed) for layout, d in edge_cases.K3_CASES)
     for case in edge_cases.K4_CASES:
         edge_cases.check_k4(dev, *case, seed=seed)
@@ -2864,9 +3118,15 @@ def edge_checks(dev, seed, tag):
         edge_cases.check_bm25(dev, *case, seed=seed)
     torch.cuda.synchronize()
     print(f"edge shapes: K1 equal to its plain version in {3 * len(edge_cases.K1_CASES)} selects "
-          f"(k {edge_cases.K1_KS}, widths 1-65539, both layouts and idx=None, one launch each "
-          f"for k_pow2 <= {sortnet.KP_MAX}); K2's float32, nprobe and bf16 modes equal to their "
-          f"plain versions in {10 * len(edge_cases.K2_SHAPES)} scans (cosine float32 "
+          f"(k {edge_cases.K1_KS}, widths 1-65539, both layouts and idx=None, in the launches "
+          f"of its route for k_pow2 <= {sortnet.KP_MAX}) and its split route in "
+          f"{3 * len(edge_cases.K1_SPLIT_CASES)} more ([1-256, 16385-2^20], k 10-8192: ~10^6 "
+          f"+-0.0 zeros past fewer than k smaller values, runs across tile edges, +inf rows, "
+          f"permuted and repeated indices, ties decided by the last value digit); K2's float32, "
+          f"nprobe, bf16, float16 and int8 modes equal to their plain versions in "
+          f"{11 * 2 * (len(edge_cases.K2_SHAPES) + len(edge_cases.K2_FEWQ_SHAPES))} scans "
+          f"(Q 1-300, d 1-144; the few-query route at Q 1-32 also bit-equal to the 128-query tile, "
+          f"Gaussian float32 included; cosine float32 "
           f"allclose(1e-5, 1e-6), max abs err {k2_err:.3g}); K3's float32 and bf16 modes in "
           f"{8 * len(edge_cases.K3_CASES)} scans (member counts "
           f"{edge_cases.K3_MEMBER_COUNTS} a step, dead steps, S = 1, a zero-padded group, d 3-128; "
@@ -3055,6 +3315,7 @@ def main():
         fin = torch.isfinite(pv)
         err = (gv[fin] - pv[fin]).abs().max().item() if fin.any() else 0.0
         ms = time_ms(lambda: sortnet.topk_rows(vals, idx, k))
+        us = queued_device_ms(lambda: sortnet.topk_rows(vals, idx, k)) * 1e3
         pms = time_ms(lambda: sortnet._topk_rows_plain(vals, idx, k))
         lms = time_ms(lambda: torch.topk(vals, k, dim=1, largest=False))
         # the values (and indices) read once, k_pow2 (value, index) pairs of
@@ -3063,13 +3324,17 @@ def main():
                   + vals.shape[0] * sortnet.k_pow2(k) * 8, 0)
         k1_rows[what] = (err, ms, pms, lms, b)
         print(f"K1 topk_rows {what} {list(vals.shape)} k={k}"
-              f"{', idx=None' if idx is None else ''}: equal to plain; kernel {ms:.4f} ms, "
-              f"plain {pms:.3f} ms, torch.topk(dim=1, largest=False) {lms:.4f} ms; bound "
-              f"{b[0]:.4f} ms ({b[1]}) {tag}")
+              f"{', idx=None' if idx is None else ''}: equal to plain; kernel {ms:.4f} ms "
+              f"(device {us:.1f} us a call), plain {pms:.3f} ms, torch.topk(dim=1, "
+              f"largest=False) {lms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) {tag}")
     err, ms, pms, lms, b = k1_rows["candidate select"]
     report["topk_cl"] = dict(err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=b)
     del q_dev, invalid, gmin, gsel, cand, cidx, fin_v, fin_i
     torch.cuda.empty_cache()
+
+    # K1's split route and K2's few-query route at their shapes
+    report.update(k1_split_section(args.seed, dev, tag, time_ms))
+    report.update(k2_fewq_section(x_dev, queries, dev, tag, time_ms))
 
     # K3 on the IVF layout, K4 and K5 on a beam state made from the seed
     report["sparse_scan"] = k3_section(corpus, queries, dev, tag, time_ms)
@@ -3197,6 +3462,8 @@ def main():
                       args.profile)
     hyl = hy["launches"]
     bml, bm_report = bm["launches"], bm["report"]
+    if min(bml["topk_cl_split"], hyl["topk_cl_split"]) <= 0:
+        raise AssertionError(f"K1's split route never launched in sections 10-11: {bml}, {hyl}")
     texts, qterms = bm["texts"], bm["qterms"]
     del bm
 
@@ -3204,12 +3471,15 @@ def main():
     stl = store_phase(corpus, queries, texts, qterms, dev, tag, time_ms,
                       args.profile)["launches"]
     del texts
+    if min(stl["topk_cl_split"], stl["fused_dist_select_fewq"]) <= 0:
+        raise AssertionError(f"a new route never launched in the store's searches: {stl}")
 
     # -- 13. sharding over meshes of the one card -------------------------------------------
     shl = sharded_phase(corpus, queries, got_ids, got_scores, dev, tag, time_ms,
                         args.profile)["launches"]
     sec13 = {key: shl.get(key, 0) + hy["sharded_launches"][key] for key in read_launches()}
-    for key in ("topk_cl", "fused_dist_select", "fused_dist_select_nprobe", "bm25_score"):
+    for key in ("topk_cl", "topk_cl_split", "fused_dist_select", "fused_dist_select_nprobe",
+                "bm25_score"):
         if sec13[key] <= 0:
             raise AssertionError(f"section 13 never launched {key}: {sec13}")
 
@@ -3222,11 +3492,20 @@ def main():
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
 
     il, hl, fl, l8 = ivf["launches"], hnsw["launches"], fb["launches"], fl8["launches"]
+
+    def main_path(key):
+        return sum(d.get(key, 0) for d in (launches, fl, il, hl, l8, pql, bml, hyl, stl, sec13))
+
     kernels = [
         entry("topk_cl", "comet_tpu_torch/csrc/topk.cu", "comet_tpu/ops/sortnet.py:142",
               "topk_cl", launches["topk_cl"] + fl["topk_cl"] + il["topk_cl"] + hl["topk_cl"]
               + l8["topk_cl"] + pql["topk_cl"] + bml["topk_cl"] + hyl["topk_cl"]
               + stl["topk_cl"] + sec13["topk_cl"]),
+        entry("topk_cl_split", "comet_tpu_torch/csrc/topk.cu", "comet_tpu/ops/sortnet.py:142",
+              "topk_cl_split", main_path("topk_cl_split")),
+        entry("fused_dist_select_fewq", "comet_tpu_torch/csrc/fused_scan.cu",
+              "comet_tpu/ops/pallas_scan.py:63", "fused_dist_select_fewq",
+              main_path("fused_dist_select_fewq")),
         entry("fused_dist_select", "comet_tpu_torch/csrc/fused_scan.cu",
               "comet_tpu/ops/pallas_scan.py:63", "fused_dist_select",
               launches["fused_dist_select"] + hl["fused_dist_select"] + pql["fused_dist_select"]

@@ -70,6 +70,27 @@
 // cluster id is loaded once per thread and row, the word through the
 // read-only cache, where a 256-query chunk's masks (256 x nlist / 8 bytes)
 // stay resident.
+//
+// A few queries (Q <= FEWQ_Q_MAX; ops/fused_scan.py picks the route): one
+// query over a corpus needs one read of it (524,288 x 128 float32 rows are
+// 268 MB, 81 us at 3.35 TB/s) and 2 N d operations, so device memory bounds
+// it, and a 128-query tile would compute 127 query rows of FMAs for
+// nothing. The few-query tile (`fewq_scan_kernel`) owns one 128-row group
+// and streams it through shared memory in stages of FQ_ROW_BYTES of every
+// row (32 float32, 64 bf16 or float16, 128 int8 depths), FQ_STAGES - 1 of
+// them in flight (cp.async, 16 bytes a copy, eight lanes a row's 128
+// contiguous bytes, so every line fetched is used whole at once) while one
+// is multiplied; the queries' same depths are copied beside them. Each
+// thread keeps one row and QPT queries (the block's two halves take
+// queries [0, QPT) and [QPT, 2 QPT)): it reads its row 16 bytes at a time
+// (a pitch of FQ_PITCH keeps eight rows' reads on distinct banks), widens
+// the values exactly, and reads each query's as broadcasts. Rows that are
+// not 16-byte aligned are copied element by element instead. Every
+// distance is the same dot_fma chain from 0 in ascending depth, with the
+// same epilogue (depth past d pads with zeros, which leave a sum that is
+// never -0.0 unchanged), so both routes give bit-equal dist and gmin on
+// any data. The group minimum is a warp reduction and one across the
+// block's four warps of a half.
 
 #include <stdint.h>
 
@@ -97,28 +118,269 @@ __global__ void __launch_bounds__(FT_THREADS, 2) fused_scan_kernel(
         gmin + (long long)q0 * (N / FT_BN) + g, N / FT_BN);
 }
 
-// Whether rows of d values of type T starting at p take vector loads.
+#define FEWQ_Q_MAX 32   // queries the few-query tile takes at most
+#define FQ_STAGES 3     // depth stages a block has in flight
+#define FQ_ROW_BYTES 128                 // bytes of each row a stage holds
+#define FQ_PITCH (FQ_ROW_BYTES + 16)     // their pitch in shared memory
+
+// One 16-byte copy from device to shared memory, past L1; zeros when !ok.
+__device__ __forceinline__ void fq_copy16(void* dst, const void* src, bool ok)
+{
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void fq_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fq_wait()
+{
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The float32 values of 16 bytes of T: 4, 8 or 16 of them.
+template <typename T>
+__device__ __forceinline__ void fq_unpack(uint4 w, float* v)
+{
+    ft_unpack<T>(w, v);
+    if constexpr (sizeof(T) == 1) ft_unpack<T>(make_uint4(w.z, w.w, 0u, 0u), v + 8);
+}
+
+// An element of T as raw bits, for the scalar copies.
+template <int B> struct fq_bits;
+template <> struct fq_bits<1> { typedef unsigned char T; };
+template <> struct fq_bits<2> { typedef unsigned short T; };
+template <> struct fq_bits<4> { typedef unsigned T; };
+
+// A stage's layout: K depths of the group's FT_BN rows (FQ_ROW_BYTES each,
+// at FQ_PITCH), then the same depths of 2 QPT queries (Q_ROW bytes each).
+template <typename TQ, typename TX, int QPT>
+struct fq_smem {
+    static constexpr int K = FQ_ROW_BYTES / (int)sizeof(TX);
+    static constexpr int X_BYTES = FT_BN * FQ_PITCH;
+    static constexpr int Q_ROW = K * (int)sizeof(TQ);
+    static constexpr int STAGE = X_BYTES + 2 * QPT * Q_ROW;
+    static constexpr int BYTES = FQ_STAGES * STAGE;
+};
+
+// Starts the copy of depths [k0, k0 + K) of the group's rows (xg, row
+// stride d) and of the queries into stage `st`, zeros past d and past Q:
+// cp.async where rows are 16-byte aligned (VEC), else element by element.
+template <typename TQ, typename TX, bool VEC, int QPT>
+__device__ __forceinline__ void fq_stage_load(unsigned char* st, const TX* __restrict__ xg,
+                                              const TQ* __restrict__ q, int Q, int d, int k0)
+{
+    typedef fq_smem<TQ, TX, QPT> S;
+    unsigned char* qs = st + S::X_BYTES;
+    if constexpr (VEC) {
+        constexpr int XV = 16 / (int)sizeof(TX), XC = FQ_ROW_BYTES / 16;
+#pragma unroll
+        for (int i = 0; i < FT_BN * XC / FT_THREADS; ++i) {
+            const int u = threadIdx.x + i * FT_THREADS;
+            const int row = u / XC, k = k0 + (u % XC) * XV;
+            fq_copy16(st + row * FQ_PITCH + (u % XC) * 16,
+                      k < d ? (const void*)(xg + (long long)row * d + k) : (const void*)xg, k < d);
+        }
+        constexpr int QV = 16 / (int)sizeof(TQ), QC = S::Q_ROW / 16;
+        for (int u = threadIdx.x; u < 2 * QPT * QC; u += FT_THREADS) {
+            const int qi = u / QC, k = k0 + (u % QC) * QV;
+            const bool ok = qi < Q && k < d;
+            fq_copy16(qs + qi * S::Q_ROW + (u % QC) * 16,
+                      ok ? (const void*)(q + (long long)qi * d + k) : (const void*)q, ok);
+        }
+    } else {
+        typedef typename fq_bits<sizeof(TX)>::T BX;
+        typedef typename fq_bits<sizeof(TQ)>::T BQ;
+        for (int u = threadIdx.x; u < FT_BN * S::K; u += FT_THREADS) {
+            const int row = u / S::K, kk = u % S::K;
+            reinterpret_cast<BX*>(st + row * FQ_PITCH)[kk] = k0 + kk < d
+                ? reinterpret_cast<const BX*>(xg)[(long long)row * d + k0 + kk] : BX(0);
+        }
+        for (int u = threadIdx.x; u < 2 * QPT * S::K; u += FT_THREADS) {
+            const int qi = u / S::K, kk = u % S::K;
+            reinterpret_cast<BQ*>(qs + qi * S::Q_ROW)[kk] = qi < Q && k0 + kk < d
+                ? reinterpret_cast<const BQ*>(q)[(long long)qi * d + k0 + kk] : BQ(0);
+        }
+    }
+}
+
+template <int MODE, typename TQ, typename TX, bool VEC, int QPT>
+__global__ void __launch_bounds__(FT_THREADS) fewq_scan_kernel(
+    const TQ* __restrict__ q, const float* __restrict__ qn,
+    const TX* __restrict__ x, const float* __restrict__ mask, float thr,
+    int Q, int N, int d, int cosine, float scale, const int* __restrict__ assign,
+    const unsigned* __restrict__ words, int n_words,
+    float* __restrict__ dist, float* __restrict__ gmin)
+{
+    typedef fq_smem<TQ, TX, QPT> S;
+    extern __shared__ __align__(16) unsigned char fq_stages[];
+    __shared__ float s_min[2 * QPT][FT_BN / 32];
+    const int tid = threadIdx.x;
+    const int row = tid % FT_BN;
+    const int h = tid / FT_BN;
+    const int g = blockIdx.x;
+    const long long n0 = (long long)g * FT_BN;
+    const TX* xg = x + n0 * d;
+    const int n_st = (d + S::K - 1) / S::K;
+
+    float acc[QPT];
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) acc[j] = 0.0f;
+    // This thread's row against its QPT queries over one stage, in
+    // ascending depth: 16 bytes of the row at a time (conflict-free at
+    // FQ_PITCH), each query's values read as broadcasts.
+    auto compute = [&](const unsigned char* st) {
+        constexpr int XV = 16 / (int)sizeof(TX), QB = XV * (int)sizeof(TQ);
+        constexpr int QV = 16 / (int)sizeof(TQ);
+        const unsigned char* xr = st + row * FQ_PITCH;
+        const unsigned char* qb = st + S::X_BYTES + h * QPT * S::Q_ROW;
+#pragma unroll
+        for (int c = 0; c < FQ_ROW_BYTES / 16; ++c) {
+            float xv[XV];
+            fq_unpack<TX>(*reinterpret_cast<const uint4*>(xr + c * 16), xv);
+#pragma unroll
+            for (int j = 0; j < QPT; ++j) {
+                float qv[XV];
+#pragma unroll
+                for (int t = 0; t < QB / 16; ++t) {
+                    const unsigned char* p = qb + j * S::Q_ROW + c * QB + t * 16;
+                    fq_unpack<TQ>(*reinterpret_cast<const uint4*>(p), qv + t * QV);
+                }
+#pragma unroll
+                for (int e = 0; e < XV; ++e) acc[j] = dot_fma(qv[e], xv[e], acc[j]);
+            }
+        }
+    };
+
+    // FQ_STAGES - 1 stages in flight while one is multiplied.
+#pragma unroll
+    for (int s = 0; s < FQ_STAGES - 1; ++s) {
+        if (s < n_st)
+            fq_stage_load<TQ, TX, VEC, QPT>(fq_stages + s * S::STAGE, xg, q, Q, d, s * S::K);
+        fq_commit();
+    }
+    for (int s = 0; s < n_st; ++s) {
+        fq_wait<FQ_STAGES - 2>();
+        __syncthreads();   // stage s is in; stage s - 1's buffer is free
+        const int nx = s + FQ_STAGES - 1;
+        if (nx < n_st)
+            fq_stage_load<TQ, TX, VEC, QPT>(fq_stages + (nx % FQ_STAGES) * S::STAGE, xg, q, Q, d,
+                                            nx * S::K);
+        fq_commit();
+        compute(fq_stages + (s % FQ_STAGES) * S::STAGE);
+    }
+
+    const float m_row = mask[n0 + row];
+    const int a_row = MODE == SCAN_ROW_BITS ? assign[n0 + row] : 0;
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) {
+        const int qi = h * QPT + j;
+        const bool qok = qi < Q;
+        const float ip = sizeof(TX) == 1 ? acc[j] * scale : acc[j];
+        float dd = scan_distance(ip, qok ? qn[qi] : 0.0f, m_row, thr, cosine);
+        if (MODE == SCAN_ROW_BITS) {
+            const bool in = qok && probe_in(words + (long long)qi * n_words, n_words, a_row);
+            dd = in ? dd : CUDART_INF_F;
+        }
+        if (qok) dist[(long long)qi * N + n0 + row] = dd;
+        float m = dd;
+#pragma unroll
+        for (int off = 16; off >= 1; off >>= 1) m = fminf(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
+        if ((tid & 31) == 0) s_min[qi][row >> 5] = m;
+    }
+    __syncthreads();
+    const long long n_groups = N / FT_BN;
+    for (int qi = tid; qi < Q && qi < 2 * QPT; qi += FT_THREADS) {
+        float m = s_min[qi][0];
+#pragma unroll
+        for (int w = 1; w < FT_BN / 32; ++w) m = fminf(m, s_min[qi][w]);
+        gmin[qi * n_groups + g] = m;
+    }
+}
+
+// Whether rows of d values of type T starting at p take the 128-query
+// tile's vector loads.
 template <typename T>
 static bool vec_ok(const void* p, int d)
 {
     return d % ft_width<T>::VW == 0 && (uintptr_t)p % ft_width<T>::BYTES == 0;
 }
 
-template <int MODE, typename TQ, typename TX>
-static void launch(unsigned blocks, cudaStream_t s, const void* q, const float* qn,
-                   const void* x, const float* mask, float thr, int Q, int N, int d,
-                   int cosine, float scale, const int* assign, const unsigned* words,
-                   int n_words, float* dist, float* gmin)
+// Whether rows of d values of type T starting at p take 16-byte copies.
+template <typename T>
+static bool vec16_ok(const void* p, int d)
 {
-    if (vec_ok<TQ>(q, d) && vec_ok<TX>(x, d)) {
-        fused_scan_kernel<MODE, TQ, TX, true><<<blocks, FT_THREADS, 0, s>>>(
-            (const TQ*)q, qn, (const TX*)x, mask, thr, Q, N, d, cosine, scale, assign,
-            words, n_words, dist, gmin);
-    } else {
-        fused_scan_kernel<MODE, TQ, TX, false><<<blocks, FT_THREADS, 0, s>>>(
-            (const TQ*)q, qn, (const TX*)x, mask, thr, Q, N, d, cosine, scale, assign,
-            words, n_words, dist, gmin);
+    return (d * (int)sizeof(T)) % 16 == 0 && (uintptr_t)p % 16 == 0;
+}
+
+template <int MODE, typename TQ, typename TX, bool VEC, int QPT>
+static int launch_fewq(unsigned blocks, cudaStream_t s, const void* q, const float* qn,
+                       const void* x, const float* mask, float thr, int Q, int N, int d,
+                       int cosine, float scale, const int* assign, const unsigned* words,
+                       int n_words, float* dist, float* gmin)
+{
+    constexpr int smem = fq_smem<TQ, TX, QPT>::BYTES;
+    const int err = smem_attr<fewq_scan_kernel<MODE, TQ, TX, VEC, QPT>>(smem);
+    if (err != 0) return err;
+    fewq_scan_kernel<MODE, TQ, TX, VEC, QPT><<<blocks, FT_THREADS, smem, s>>>(
+        (const TQ*)q, qn, (const TX*)x, mask, thr, Q, N, d, cosine, scale, assign,
+        words, n_words, dist, gmin);
+    return 0;
+}
+
+template <int MODE, typename TQ, typename TX, int QPT>
+static int launch_fewq_vec(unsigned blocks, cudaStream_t s, const void* q, const float* qn,
+                           const void* x, const float* mask, float thr, int Q, int N, int d,
+                           int cosine, float scale, const int* assign, const unsigned* words,
+                           int n_words, float* dist, float* gmin)
+{
+    if (vec16_ok<TQ>(q, d) && vec16_ok<TX>(x, d)) {
+        return launch_fewq<MODE, TQ, TX, true, QPT>(blocks, s, q, qn, x, mask, thr, Q, N, d,
+                                                    cosine, scale, assign, words, n_words, dist,
+                                                    gmin);
     }
+    return launch_fewq<MODE, TQ, TX, false, QPT>(blocks, s, q, qn, x, mask, thr, Q, N, d, cosine,
+                                                 scale, assign, words, n_words, dist, gmin);
+}
+
+// The 128-query tile, or (fewq) the few-query tile with the fewest
+// queries a thread that cover Q. Returns a CUDA error code.
+template <int MODE, typename TQ, typename TX>
+static int launch(bool fewq, cudaStream_t s, const void* q, const float* qn,
+                  const void* x, const float* mask, float thr, int Q, int N, int d,
+                  int cosine, float scale, const int* assign, const unsigned* words,
+                  int n_words, float* dist, float* gmin)
+{
+    const unsigned groups = (unsigned)(N / FT_BN);
+    if (!fewq) {
+        const unsigned blocks = (unsigned)((Q + FT_BM - 1) / FT_BM) * groups;
+        if (vec_ok<TQ>(q, d) && vec_ok<TX>(x, d)) {
+            fused_scan_kernel<MODE, TQ, TX, true><<<blocks, FT_THREADS, 0, s>>>(
+                (const TQ*)q, qn, (const TX*)x, mask, thr, Q, N, d, cosine, scale, assign,
+                words, n_words, dist, gmin);
+        } else {
+            fused_scan_kernel<MODE, TQ, TX, false><<<blocks, FT_THREADS, 0, s>>>(
+                (const TQ*)q, qn, (const TX*)x, mask, thr, Q, N, d, cosine, scale, assign,
+                words, n_words, dist, gmin);
+        }
+        return 0;
+    }
+    if (Q <= 2) {
+        return launch_fewq_vec<MODE, TQ, TX, 1>(groups, s, q, qn, x, mask, thr, Q, N, d, cosine,
+                                                scale, assign, words, n_words, dist, gmin);
+    } else if (Q <= 8) {
+        return launch_fewq_vec<MODE, TQ, TX, 4>(groups, s, q, qn, x, mask, thr, Q, N, d, cosine,
+                                                scale, assign, words, n_words, dist, gmin);
+    } else if (Q <= 16) {
+        return launch_fewq_vec<MODE, TQ, TX, 8>(groups, s, q, qn, x, mask, thr, Q, N, d, cosine,
+                                                scale, assign, words, n_words, dist, gmin);
+    }
+    return launch_fewq_vec<MODE, TQ, TX, 16>(groups, s, q, qn, x, mask, thr, Q, N, d, cosine,
+                                             scale, assign, words, n_words, dist, gmin);
 }
 
 // Operand codes of comet_fused_scan: the types of q [Q, d] and x [N, d].
@@ -127,15 +389,16 @@ enum { OP_F32 = 0, OP_BF16 = 1, OP_F16 = 2, OP_INT8 = 3 };
 // assign == NULL: flat mode; otherwise nprobe mode with `words`, n_words
 // 32-bit words of probe bits per query (float32 operands only). `operand`:
 // OP_F32 (q, x float32), OP_BF16 (both bfloat16), OP_F16 (both float16) or
-// OP_INT8 (q bfloat16, x int8, inner products times `scale`).
+// OP_INT8 (q bfloat16, x int8, inner products times `scale`). `fewq`: the
+// few-query tile (Q <= FEWQ_Q_MAX), else the 128-query tile.
 extern "C" int comet_fused_scan(
     const void* q, const float* qn, const void* x, const float* mask,
     float thr, int Q, int N, int d, int cosine, int operand, float scale,
     const int* assign, const unsigned* words, int n_words, float* dist, float* gmin,
-    void* stream)
+    int fewq, void* stream)
 {
     if (Q < 1 || N < FT_BN || N % FT_BN != 0 || d < 1 || operand < OP_F32 ||
-        operand > OP_INT8) {
+        operand > OP_INT8 || (fewq && Q > FEWQ_Q_MAX)) {
         return (int)cudaErrorInvalidValue;
     }
     if (assign != nullptr && (words == nullptr || n_words < 1 || operand != OP_F32)) {
@@ -144,22 +407,24 @@ extern "C" int comet_fused_scan(
     const long long blocks = (long long)((Q + FT_BM - 1) / FT_BM) * (N / FT_BN);
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const unsigned b = (unsigned)blocks;
+    const bool fq = fewq != 0;
+    int err;
     if (operand == OP_BF16) {
-        launch<SCAN_ALL, bf16_t, bf16_t>(b, s, q, qn, x, mask, thr, Q, N, d, cosine, 1.0f,
-                                         nullptr, nullptr, 0, dist, gmin);
+        err = launch<SCAN_ALL, bf16_t, bf16_t>(fq, s, q, qn, x, mask, thr, Q, N, d, cosine, 1.0f,
+                                               nullptr, nullptr, 0, dist, gmin);
     } else if (operand == OP_F16) {
-        launch<SCAN_ALL, half_t, half_t>(b, s, q, qn, x, mask, thr, Q, N, d, cosine, 1.0f,
-                                         nullptr, nullptr, 0, dist, gmin);
+        err = launch<SCAN_ALL, half_t, half_t>(fq, s, q, qn, x, mask, thr, Q, N, d, cosine, 1.0f,
+                                               nullptr, nullptr, 0, dist, gmin);
     } else if (operand == OP_INT8) {
-        launch<SCAN_ALL, bf16_t, i8_t>(b, s, q, qn, x, mask, thr, Q, N, d, cosine, scale,
-                                       nullptr, nullptr, 0, dist, gmin);
+        err = launch<SCAN_ALL, bf16_t, i8_t>(fq, s, q, qn, x, mask, thr, Q, N, d, cosine, scale,
+                                             nullptr, nullptr, 0, dist, gmin);
     } else if (assign == nullptr) {
-        launch<SCAN_ALL, float, float>(b, s, q, qn, x, mask, thr, Q, N, d, cosine, 1.0f,
-                                       nullptr, nullptr, 0, dist, gmin);
+        err = launch<SCAN_ALL, float, float>(fq, s, q, qn, x, mask, thr, Q, N, d, cosine, 1.0f,
+                                             nullptr, nullptr, 0, dist, gmin);
     } else {
-        launch<SCAN_ROW_BITS, float, float>(b, s, q, qn, x, mask, thr, Q, N, d, cosine, 1.0f,
-                                            assign, words, n_words, dist, gmin);
+        err = launch<SCAN_ROW_BITS, float, float>(fq, s, q, qn, x, mask, thr, Q, N, d, cosine,
+                                                  1.0f, assign, words, n_words, dist, gmin);
     }
+    if (err != 0) return err;
     return (int)cudaGetLastError();
 }

@@ -9,8 +9,9 @@ changed source or header rebuilds and an unchanged tree loads the library
 already built. Nothing is downloaded; a missing nvcc or a failed build
 raises.
 
-Every C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `check` turns a non-zero code into an exception.
+Every C entry point that launches does so on the stream it is given and
+returns `cudaGetLastError()`; `check` turns a non-zero code into an
+exception. `comet_topk_split_bytes` returns a workspace size instead.
 """
 
 from __future__ import annotations
@@ -40,18 +41,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 SIGNATURES = {
-    # vals, idx, in_row, in_col, rows, width, kp, scratch,
+    # vals, idx, in_row, in_col, rows, width, kp,
     # vout, iout, out_row, out_col, stream
-    "comet_topk_select": [_P, _P, _LL, _LL, _I, _I, _I, _P,
+    "comet_topk_select": [_P, _P, _LL, _LL, _I, _I, _I,
                           _P, _P, _LL, _LL, _P],
+    # rows, width, kp, tile -> bytes
+    "comet_topk_split_bytes": [_I, _I, _I, _I],
+    # vals, idx, in_row, in_col, rows, width, kp, tile, ws,
+    # vout, iout, out_row, out_col, stream
+    "comet_topk_split": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P,
+                         _P, _P, _LL, _LL, _P],
     # vals, idx, in_row, in_col, rows, width, n_pad, k, keys,
     # vout, iout, out_row, out_col, stream
     "comet_topk_rows_global": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P,
                                _P, _P, _LL, _LL, _P],
     # q, qn, x, mask, thr, Q, N, d, cosine, operand, scale, assign, words, n_words,
-    # dist, gmin, stream
+    # dist, gmin, fewq, stream
     "comet_fused_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, ctypes.c_float,
-                         _P, _P, _I, _P, _P, _P],
+                         _P, _P, _I, _P, _P, _I, _P],
     # q, qn, x, mask, probes, P, chunk_ids, cluster_ids, order, thr, G, S, d,
     # cosine, bf16, dist, gmin, stream
     "comet_sparse_scan": [_P, _P, _P, _P, _P, _I, _P, _P, _P, ctypes.c_float,
@@ -73,6 +80,9 @@ SIGNATURES = {
     "comet_fused_expand": [_P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P],
 }
+
+# Entry points that return something other than a CUDA error code.
+RESTYPES = {"comet_topk_split_bytes": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -159,7 +169,7 @@ def _build() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     build_info.update(
         nvcc=nvcc, library=lib_path, compiled=compiled,
         seconds=time.perf_counter() - t0, log=log,

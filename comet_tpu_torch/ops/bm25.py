@@ -45,8 +45,8 @@ _K1P1 = float(np.float32(K1 + 1.0))
 _B = float(np.float32(B))
 _1MB = float(np.float32(1.0 - B))
 
-# One chunk's dense float32 rows and K1's int64 scratch row past
-# sortnet.SMEM_KEYS: 12 bytes a (query, slot), 256 queries at 2^20 slots.
+# One chunk's dense float32 rows, budgeted at 12 bytes a (query, slot):
+# 256 queries at 2^20 slots.
 SCORE_BYTES_MAX = 3 << 30
 # postings gathered at once by the plain version
 _PLAIN_GATHER_MAX = 1 << 26

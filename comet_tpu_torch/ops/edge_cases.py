@@ -25,7 +25,7 @@ INF = float("inf")
 
 def k1_widths(k: int) -> list[int]:
     """Widths around k_pow2, 2 k_pow2 (direct sort against radix select)
-    and SMEM_KEYS (shared memory against the scratch row)."""
+    and SMEM_KEYS (one block a row against the split route)."""
     kp = sortnet.k_pow2(k)
     return sorted({1, kp - 1, kp, kp + 1, 4095, 4097, 16384, 16385, 65539})
 
@@ -56,23 +56,129 @@ def check_k1(dev: torch.device, k: int, width: int, seed: int = 0) -> None:
     v, ix = k1_rows(np.random.default_rng((seed, k, width)), width)
     vt, it = torch.from_numpy(v).to(dev), torch.from_numpy(ix).to(dev)
     vc, ic = vt.T.contiguous(), it.T.contiguous()
-    for layout, run, plain in (
-        ("rows", lambda: sortnet.topk_rows(vt, it, k), lambda: sortnet._topk_rows_plain(vt, it, k)),
+    _k1_layouts(vt, it, vc, ic, k, f"width {width}, k {k}")
+
+
+def _k1_layouts(vt, it, vc, ic, k, where):
+    """K1 against its plain version on [L, C] rows (with `it` and with
+    idx=None) and on their [C, L] columns (vc, ic), each select in the
+    launches `sortnet.select_launches` gives where k_pow2 <= KP_MAX."""
+    rows, width = vt.shape
+    for layout, run, plain, has_idx in (
+        ("rows", lambda: sortnet.topk_rows(vt, it, k), lambda: sortnet._topk_rows_plain(vt, it, k),
+         True),
         ("rows, idx=None", lambda: sortnet.topk_rows(vt, None, k),
-         lambda: sortnet._topk_rows_plain(vt, None, k)),
-        ("columns", lambda: sortnet.topk_cl(vc, ic, k), lambda: sortnet._topk_cl_plain(vc, ic, k)),
+         lambda: sortnet._topk_rows_plain(vt, None, k), False),
+        ("columns", lambda: sortnet.topk_cl(vc, ic, k), lambda: sortnet._topk_cl_plain(vc, ic, k),
+         True),
     ):
-        before = sortnet.LAUNCHES
+        before = (sortnet.LAUNCHES, sortnet.SPLIT_LAUNCHES)
         got = run()
-        if sortnet.k_pow2(k) <= sortnet.KP_MAX and sortnet.LAUNCHES != before + 1:
-            raise AssertionError(f"K1 took {sortnet.LAUNCHES - before} launches at width {width}, "
-                                 f"k {k} ({layout})")
+        if sortnet.k_pow2(k) <= sortnet.KP_MAX:
+            n = sortnet.select_launches(rows, width, k, has_idx)
+            split = n if sortnet.split_route(rows, width, sortnet.k_pow2(k)) else 0
+            if (sortnet.LAUNCHES - before[0], sortnet.SPLIT_LAUNCHES - before[1]) != (n, split):
+                raise AssertionError(
+                    f"K1 took {sortnet.LAUNCHES - before[0]} launches "
+                    f"({sortnet.SPLIT_LAUNCHES - before[1]} split) at {where} ({layout}), "
+                    f"not {n} ({split})")
         want = plain()
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"K1 differs from its plain version at width {width}, k {k} "
-                                 f"({layout})")
+            raise AssertionError(f"K1 differs from its plain version at {where} ({layout})")
 
 
+# K1's split route (ops/sortnet.split_route): (rows, width, k, kind). The
+# widths of BM25's chunk rows (2^20) and of the store's largest and
+# smallest segment (286,372 and 45,428) at 1, 2 and 256 rows; widths just
+# past SMEM_KEYS (16,385 and 16,512); kp = 8192 on wide rows.
+K1_SPLIT_CASES = (
+    (1, 1 << 20, 10, "zeros"), (2, 1 << 20, 100, "zeros"), (256, 1 << 20, 10, "zeros"),
+    (256, 1 << 20, 100, "random"), (1, 286_372, 10, "zeros"), (2, 286_372, 10, "random"),
+    (256, 286_372, 100, "ties"), (1, 1 << 20, 100, "tile edges"),
+    (2, 286_372, 1000, "tile edges"), (2, 286_372, 10, "inf"), (1, 1 << 20, 8192, "random"),
+    (2, 70_000, 8192, "ties"), (1, 45_428, 10, "zeros"), (1, 16_385, 10, "random"),
+    (8, 16_512, 100, "ties"), (3, 20_000, 128, "pairs"), (2, 286_372, 100, "near"),
+    (1, 1 << 20, 10, "near"),
+)
+K1_SPLIT_KINDS = ("zeros", "random", "ties", "tile edges", "inf", "pairs", "near")
+
+
+def k1_split_rows(rng: np.random.Generator, kind: str, rows: int, width: int, k: int):
+    """[rows, width] float32 values and int32 indices of a K1_SPLIT_CASES kind:
+    - zeros: BM25's negated scores where few documents match: +0.0 and
+      -0.0 mixed, fewer than k negative values, a few positive ones, so
+      the boundary falls inside ~width equal zeros;
+    - random: Gaussian values;
+    - ties: values 0..3;
+    - tile edges: values past 10, but for runs of eight 1.0 across every
+      multiple of 64 columns (every tile edge of the route's tilings and
+      of a small test tiling), enough for the boundary to fall in them;
+    - inf: every value +inf;
+    - pairs: values 0..2 with indices 0..4, so whole (value, index) keys
+      repeat across the boundary;
+    - near: values past 100 but for 3 k of them, 1 + j 2^-23 with j in
+      0..4: five values that share their first 22 bits, each repeated, so
+      the boundary falls in a run that only the last value digit tells
+      apart.
+    Indices are a permutation of each row, c -> (a c + b) mod width with
+    a random a prime to width (non-monotone, cheap at 2^28 keys), but for
+    `pairs`."""
+    if kind == "zeros":
+        v = np.where(rng.random((rows, width)) < 0.5, np.float32(-0.0), np.float32(0.0))
+        for r in range(rows):
+            hit = rng.choice(width, size=max(k // 2, 1) + 64, replace=False)
+            v[r, hit[:max(k // 2, 1)]] = -rng.random(max(k // 2, 1)).astype(np.float32) - 0.5
+            v[r, hit[max(k // 2, 1):]] = rng.random(64).astype(np.float32) + 0.5
+    elif kind == "random":
+        v = rng.normal(size=(rows, width)).astype(np.float32)
+    elif kind == "ties":
+        v = rng.integers(0, 4, size=(rows, width)).astype(np.float32)
+    elif kind == "tile edges":
+        v = (10.0 + rng.random((rows, width))).astype(np.float32)
+        edges = np.arange(64, width, 64)
+        run = (edges[:, None] + np.arange(-4, 4)[None, :]).reshape(-1)
+        v[:, run] = 1.0
+    elif kind == "inf":
+        v = np.full((rows, width), np.inf, np.float32)
+    elif kind == "pairs":
+        v = rng.integers(0, 3, size=(rows, width)).astype(np.float32)
+    elif kind == "near":
+        v = (100.0 + rng.random((rows, width))).astype(np.float32)
+        for r in range(rows):
+            hit = rng.choice(width, size=min(3 * k, width), replace=False)
+            v[r, hit] = (np.float32(1.0).view(np.int32)
+                         + rng.integers(0, 5, size=hit.shape[0])).astype(np.int32).view(np.float32)
+    else:
+        raise ValueError(f"unknown kind {kind}")
+    if kind == "pairs":
+        return v, rng.integers(0, 5, size=(rows, width)).astype(np.int32)
+    idx = np.empty((rows, width), np.int32)
+    cols = np.arange(width, dtype=np.int64)
+    for r in range(rows):
+        a = int(rng.integers(1, width)) | 1
+        while np.gcd(a, width) != 1:
+            a += 2
+        idx[r] = (a * cols + int(rng.integers(0, width))) % width
+    return v, idx
+
+
+def check_k1_split(dev: torch.device, rows: int, width: int, k: int, kind: str,
+                   seed: int = 0) -> None:
+    """K1 array-equal to its plain version on a K1_SPLIT_CASES case, in the
+    row layout (with idx and with idx=None) and the column layout."""
+    if not sortnet.split_route(rows, width, sortnet.k_pow2(k)):
+        raise ValueError(f"[{rows}, {width}], k {k} does not take the split route")
+    v, ix = k1_split_rows(np.random.default_rng((seed, rows, width, k)), kind, rows, width, k)
+    vt, it = torch.from_numpy(v).to(dev), torch.from_numpy(ix).to(dev)
+    _k1_layouts(vt, it, vt.T.contiguous(), it.T.contiguous(), k,
+                f"[{rows}, {width}], k {k}, {kind}")
+
+
+# K2's few-query route (Q <= fused_scan.FEWQ_MAX; K2_SHAPES' Q = 1 takes it
+# too): Q 2-32; d 3 and 20 (rows copied element by element but for float32
+# at d = 20), 128 (whole stages of 128 bytes a row) and 144 (16-byte copies
+# with a last stage cut short in every operand); N from one group to 512
+K2_FEWQ_SHAPES = tuple(itertools.product((2, 5, 8, 17, 32), (3, 20, 128, 144), (128, 65536)))
 K2_INT8_SCALES = (1.0, 0.0371, 3.5)   # abs-max scales of the int8 corpus cases
 
 
@@ -151,6 +257,39 @@ def check_k2(dev: torch.device, q_n: int, d: int, n: int, seed: int = 0) -> floa
                 raise AssertionError(f"K2 {where}: a masked entry differs")
             if both.any():
                 err = max(err, (dist[both] - pdist[both]).abs().max().item())
+    return err
+
+
+def check_k2_fewq(dev: torch.device, q_n: int, d: int, n: int, seed: int = 0) -> float:
+    """K2's few-query route at one shape: `check_k2` against the plain
+    versions, then dist and the group minima bit-equal to the 128-query
+    tile's in every mode and operand, also on Gaussian float32 data (where
+    only the same sum order gives the same bits), without and with a
+    threshold; each call through the route counts one FEWQ_LAUNCHES.
+    Returns check_k2's largest absolute error."""
+    if q_n > fused_scan.FEWQ_MAX:
+        raise ValueError(f"Q={q_n} does not take the few-query route")
+    err = check_k2(dev, q_n, d, n, seed)
+    g = np.random.default_rng((seed, q_n, d, n, 1))
+    qg = torch.from_numpy(g.normal(size=(q_n, d)).astype(np.float32)).to(dev)
+    xg = torch.from_numpy(g.normal(size=(n, d)).astype(np.float32)).to(dev)
+    gauss = ("float32 L2 Gaussian", qg, xg, (xg * xg).sum(1), {}, False, True)
+    saved = fused_scan.FEWQ_MAX
+    for name, q, x, mask, kw, cosine, _ in k2_cases(q_n, d, n, dev, seed) + (gauss,):
+        for thr in (float("inf"), float(fused_scan._fused_dist_select_plain(
+                q, x, mask, float("inf"), cosine, **kw)[0].nan_to_num(0.0, 0.0).median())):
+            before = fused_scan.FEWQ_LAUNCHES
+            got = fused_scan._fused_scan_cuda(q, x, mask, thr, cosine, **kw)
+            if fused_scan.FEWQ_LAUNCHES != before + 1:
+                raise AssertionError(f"K2 {name} at Q={q_n} did not take the few-query route")
+            try:
+                fused_scan.FEWQ_MAX = 0
+                tile = fused_scan._fused_scan_cuda(q, x, mask, thr, cosine, **kw)
+            finally:
+                fused_scan.FEWQ_MAX = saved
+            if not (torch.equal(got[0], tile[0]) and torch.equal(got[1], tile[1])):
+                raise AssertionError(f"K2 {name} at Q={q_n}, d={d}, N={n}, threshold {thr:g}: "
+                                     f"the few-query route differs from the 128-query tile")
     return err
 
 

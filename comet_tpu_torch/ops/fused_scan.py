@@ -12,7 +12,11 @@ kernel of `csrc/fused_scan.cu` (see the note there), counted in `LAUNCHES`
 (flat mode), `NPROBE_LAUNCHES` (nprobe mode), `BF16_LAUNCHES`,
 `F16_LAUNCHES` or `INT8_LAUNCHES` (the flat mode's bf16, float16 and int8
 corpus operands), and the group choice from
-K1 (ops/sortnet.py). On a CPU tensor both stages run their plain PyTorch
+K1 (ops/sortnet.py). The kernel has two routes: the 128-query tile, and
+for at most `FEWQ_MAX` queries (a store's one-query search, a hybrid
+`execute`) the few-query tile, which streams the corpus once and gives
+the same bits; its launches count under the mode's counter and also in
+`FEWQ_LAUNCHES`. On a CPU tensor both stages run their plain PyTorch
 versions; the device alone decides.
 
 `flat_topk_pipeline` is plain torch around the two kernels: for each chunk
@@ -86,6 +90,14 @@ NPROBE_LAUNCHES = 0
 BF16_LAUNCHES = 0
 F16_LAUNCHES = 0
 INT8_LAUNCHES = 0
+# ... of which the few-query route's (any mode)
+FEWQ_LAUNCHES = 0
+
+# Queries at or below which the scan takes the few-query tile (all it
+# takes, csrc/fused_scan.cu FEWQ_Q_MAX). On an H100 it beat the 128-query
+# tile at every Q of 1-32 over 524,288 rows in every operand and mode
+# (chip_smoke.py --kernels-only, PERF.md §6).
+FEWQ_MAX = 32
 
 # The kernel's operand codes (csrc/fused_scan.cu) by corpus dtype, and the
 # dtype the queries are rounded to for the product.
@@ -153,9 +165,10 @@ def _fused_dist_select_plain(queries, corpus, mask_vec, thr: float, cosine: bool
 def _fused_scan_cuda(queries, corpus, mask_vec, thr: float, cosine: bool,
                      assign=None, probes=None, nlist: int = 0, scale=None):
     """Launch K2 (nprobe mode when `assign` is given, the bf16, float16 or
-    int8 operand for a corpus of that dtype, int8 with its `scale`).
+    int8 operand for a corpus of that dtype, int8 with its `scale`; the
+    few-query tile for at most FEWQ_MAX queries).
     Returns (dist [Q, N], gmin [Q, N // GROUP])."""
-    global LAUNCHES, NPROBE_LAUNCHES, BF16_LAUNCHES, F16_LAUNCHES, INT8_LAUNCHES
+    global LAUNCHES, NPROBE_LAUNCHES, BF16_LAUNCHES, F16_LAUNCHES, INT8_LAUNCHES, FEWQ_LAUNCHES
     lib = _build.library()
     q_n, d = queries.shape
     n = corpus.shape[0]
@@ -169,16 +182,18 @@ def _fused_scan_cuda(queries, corpus, mask_vec, thr: float, cosine: bool,
         n_words = words.shape[1]
     dist = torch.empty((q_n, n), dtype=torch.float32, device=dev)
     gmin = torch.empty((q_n, n // GROUP), dtype=torch.float32, device=dev)
+    fewq = q_n <= FEWQ_MAX
     code = lib.comet_fused_scan(
         q.data_ptr(), qn.data_ptr(), corpus.data_ptr(),
         mask_vec.data_ptr(), thr, q_n, n, d, int(cosine), operand,
         float(scale) if scale is not None else 1.0,
         assign.data_ptr() if assign is not None else None,
         words.data_ptr() if words is not None else None, n_words,
-        dist.data_ptr(), gmin.data_ptr(),
+        dist.data_ptr(), gmin.data_ptr(), int(fewq),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     with _build.COUNT_LOCK:
+        FEWQ_LAUNCHES += int(fewq)
         if corpus.dtype == torch.bfloat16:
             BF16_LAUNCHES += 1
         elif corpus.dtype == torch.float16:

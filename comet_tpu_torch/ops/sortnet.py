@@ -7,13 +7,20 @@ selection with a row per query, [L, C] in and [L, k_pow2] out, which is the
 layout the search pipeline produces; its `idx` may be None, meaning the
 index of a candidate is its position in the row.
 
-On a CUDA tensor both launch the kernel of `csrc/topk.cu` (see the note
-there) and count each launch in `LAUNCHES`: one launch per select, a radix
-select per row or, for rows no wider than 2 k_pow2, a direct sort. A k_pow2
-above KP_MAX sorts whole rows in device memory instead: one launch to pack
-the keys, one per bitonic stage and one to unpack. On a CPU tensor they
-run the plain PyTorch versions, `_topk_cl_plain` and `_topk_rows_plain`;
-the device alone decides. Any other device raises.
+On a CUDA tensor both launch the kernels of `csrc/topk.cu` (see the note
+there) and count each launch in `LAUNCHES`. For k_pow2 <= KP_MAX a select
+takes one of two routes, each a fixed launch sequence:
+- one block a row: one launch, a radix select per row or, for rows no
+  wider than 2 k_pow2, a direct sort;
+- split (`split_route`): rows wider than SMEM_KEYS, cut into tiles of
+  `split_tile` columns (2,048-65,536) with a block each: 5 launches
+  without `idx`, 7 with it (`select_launches`), also counted in
+  `SPLIT_LAUNCHES`; its workspace is ~40 KiB a row plus k_pow2 keys,
+  never a copy of the row.
+A k_pow2 above KP_MAX sorts whole rows in device memory instead: one
+launch to pack the keys, one per bitonic stage and one to unpack. On a CPU
+tensor they run the plain PyTorch versions, `_topk_cl_plain` and
+`_topk_rows_plain`; the device alone decides. Any other device raises.
 
 -0.0 is returned as +0.0 by both versions (it compares equal to +0.0 in
 the ordering, and no distance on the search path is -0.0).
@@ -26,11 +33,23 @@ import torch
 from comet_tpu_torch.ops import _build
 from comet_tpu_torch.ops.topk import IDX_SENTINEL, lexsort_topk
 
-KP_MAX = 8192       # largest k_pow2 of the one-launch select
+KP_MAX = 8192       # largest k_pow2 of the radix selects
 SMEM_KEYS = 16384   # a row's keys held in shared memory at most (128 KiB)
 
-# Kernel launches made by `_topk_cuda`.
+# The split route's tiles: a power of two of columns between these, small
+# enough that the grid has SPLIT_BLOCKS_PER_SM blocks an SM where the rows
+# allow. Tiles of 65,536 ran [256, 2^20] faster than 16,384, and tiles
+# below 2,048 ran one row of 286,372 slower (a one-off sweep on an H100;
+# PERF.md §6). Rows of at most SMEM_KEYS keep one block a row: it beat the
+# split route at 1-16 rows of 4,096-16,384 columns (PERF.md §6).
+SPLIT_TILE_MIN = 2048
+SPLIT_TILE_MAX = 65536
+SPLIT_BLOCKS_PER_SM = 8
+
+# Kernel launches made by `_topk_cuda` (both routes), and those of the
+# split route alone.
 LAUNCHES = 0
+SPLIT_LAUNCHES = 0
 
 
 def _next_pow2(x: int) -> int:
@@ -91,10 +110,31 @@ def _same_strides(vals, idx):
     return vals, idx
 
 
+def split_route(rows: int, width: int, kp: int) -> bool:
+    """Whether a select of k_pow2 `kp` over [rows, width] takes the split
+    route: rows wider than one block holds in shared memory."""
+    return kp <= KP_MAX and width > max(SMEM_KEYS, 2 * kp)
+
+
+def split_tile(rows: int, width: int, sms: int) -> int:
+    """Columns of a split-route tile: the power of two in [SPLIT_TILE_MIN,
+    SPLIT_TILE_MAX] nearest above rows * width / (SPLIT_BLOCKS_PER_SM * sms)."""
+    want = -(-rows * width // (SPLIT_BLOCKS_PER_SM * sms))
+    return min(max(_next_pow2(want), SPLIT_TILE_MIN), SPLIT_TILE_MAX)
+
+
+def select_launches(rows: int, width: int, k: int, has_idx: bool) -> int:
+    """Kernel launches of one select of k_pow2(k) <= KP_MAX."""
+    if not split_route(rows, width, k_pow2(k)):
+        return 1
+    return 7 if has_idx else 5
+
+
 def _topk_cuda(vals, idx, k, rows, width, in_row, in_col, rows_out):
-    """Launch K1: one select of every row or, for k_pow2 above KP_MAX, one
-    sort of whole rows in device memory."""
-    global LAUNCHES
+    """Launch K1: one select of every row (one block a row, or the split
+    route) or, for k_pow2 above KP_MAX, one sort of whole rows in device
+    memory."""
+    global LAUNCHES, SPLIT_LAUNCHES
     lib = _build.library()
     kp = k_pow2(k)
     dev = vals.device
@@ -117,14 +157,23 @@ def _topk_cuda(vals, idx, k, rows, width, in_row, in_col, rows_out):
             LAUNCHES += 2 + log_n * (log_n + 1) // 2   # pack, stages, unpack
         _build.check(code, "topk_rows_global")
         return vout, iout
-    # rows wider than 2 kp take the radix select; past SMEM_KEYS their keys
-    # live in a scratch row in device memory
-    scratch = None
-    if width > 2 * kp and width > SMEM_KEYS:
-        scratch = torch.empty((rows, width), dtype=torch.int64, device=dev)
+    if split_route(rows, width, kp):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        tile = split_tile(rows, width, sms)
+        n_bytes = lib.comet_topk_split_bytes(rows, width, kp, tile)
+        ws = torch.empty((n_bytes + 7) // 8, dtype=torch.int64, device=dev)
+        code = lib.comet_topk_split(
+            vals.data_ptr(), idx_ptr, in_row, in_col, rows, width, kp, tile,
+            ws.data_ptr(), vout.data_ptr(), iout.data_ptr(), out_row, out_col, stream,
+        )
+        n = select_launches(rows, width, k, idx is not None)
+        with _build.COUNT_LOCK:
+            LAUNCHES += n
+            SPLIT_LAUNCHES += n
+        _build.check(code, "topk_split")
+        return vout, iout
     code = lib.comet_topk_select(
         vals.data_ptr(), idx_ptr, in_row, in_col, rows, width, kp,
-        scratch.data_ptr() if scratch is not None else None,
         vout.data_ptr(), iout.data_ptr(), out_row, out_col, stream,
     )
     with _build.COUNT_LOCK:

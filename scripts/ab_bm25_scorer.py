@@ -17,7 +17,7 @@ chip_smoke's store phase). At each shape every library's dense rows are
 held bit-equal (int32 views) to `_bm25_dense_plain`, then timed in TURNS
 turns, the libraries' order reversed every other turn: the median
 CUDA-event ms of 5 launches (the host's launch included) and
-torch.profiler's device time a launch (mean of 20), beside `zero_` of a
+torch.profiler's device time a launch (mean over a 0.5 s window), beside `zero_` of a
 tensor of the rows' shape, a write-only yardstick. `--sweep` then times
 the last tree's kernel, held bit-equal, at other tiles and query groups.
 Prints each shape's bound as chip_smoke.py counts it. Needs one NVIDIA

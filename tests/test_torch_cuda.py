@@ -68,11 +68,23 @@ def test_topk_rows_positions_as_indices(dev, k):
 
 @pytest.mark.parametrize("k,width", edge_cases.K1_CASES)
 def test_topk_select_edges_match_plain(dev, k, width):
-    """One launch per select (k_pow2 <= KP_MAX), array-equal to the plain
-    version in both layouts and with idx=None: widths around k_pow2, 2
-    k_pow2 (direct sort against radix select) and SMEM_KEYS (shared memory
-    against the scratch row), on ties, signed zeros, +inf and repeated keys."""
+    """The launches of its route per select (k_pow2 <= KP_MAX), array-equal
+    to the plain version in both layouts and with idx=None: widths around
+    k_pow2, 2 k_pow2 (direct sort against radix select) and SMEM_KEYS (one
+    block a row against the split route), on ties, signed zeros, +inf and
+    repeated keys."""
     edge_cases.check_k1(dev, k, width)
+
+
+@pytest.mark.parametrize("rows,width,k,kind", edge_cases.K1_SPLIT_CASES)
+def test_topk_split_route_edges_match_plain(dev, rows, width, k, kind):
+    """K1's split route array-equal to the plain version in both layouts
+    and with idx=None, in its launches: BM25's [256, 2^20] rows and the
+    store's one-query rows, ~10^6 +-0.0 zeros past fewer than k smaller
+    values, runs across tile edges, +inf rows, permuted and repeated
+    indices, kp = 8192."""
+    edge_cases.check_k1_split(dev, rows, width, k, kind)
+    torch.cuda.empty_cache()
 
 
 def _scan_inputs(rng, q_n, n, d, cosine):
@@ -126,6 +138,15 @@ def test_fused_scan_edges_match_plain(dev, q_n, d, n):
     cosine, Gaussian data) array-equal to the plain versions, float32
     cosine allclose(1e-5, 1e-6) with flips only at the threshold."""
     edge_cases.check_k2(dev, q_n, d, n)
+
+
+@pytest.mark.parametrize("q_n,d,n", edge_cases.K2_FEWQ_SHAPES)
+def test_fused_scan_fewq_edges_match_plain_and_tile(dev, q_n, d, n):
+    """K2's few-query route at Q 2-32 in every mode and operand, with and
+    without a threshold, d not a multiple of 4: held to the plain versions
+    as check_k2 holds them, and bit-equal to the 128-query tile, Gaussian
+    float32 included."""
+    edge_cases.check_k2_fewq(dev, q_n, d, n)
 
 
 @pytest.mark.parametrize("k", [1, 100, 1000])
