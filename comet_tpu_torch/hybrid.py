@@ -36,6 +36,7 @@ from comet_tpu_torch.types import (
     InvalidConfigError,
     ScoreAggregationKind,
 )
+from comet_tpu_torch.utils.profiling import count, span
 
 MAGIC = b"CHYB"
 VERSION = 2  # v2: CRC32 payload trailer (v1 readable, no trailer check)
@@ -242,61 +243,66 @@ class HybridSearchIndex:
 
         Returns a list of Q result lists.
         """
-        if vectors is not None:
-            vectors = np.atleast_2d(np.asarray(vectors, dtype=np.float32))
-        nq = (
-            len(vectors) if vectors is not None
-            else len(texts) if texts is not None else 0
-        )
-        if nq == 0:
-            return []
-        if vectors is not None and texts is not None and len(texts) != nq:
-            raise InvalidConfigError("vectors and texts length mismatch")
-        fus = fusion or (
-            new_fusion(fusion_kind) if fusion_kind is not None else default_fusion()
-        )
-
-        # STEP 1: shared metadata pre-filter -> packed candidate bitset
-        candidates = None
-        if metadata_filters or metadata_groups:
-            self._require(self._metadata, "metadata")
-            candidates = self._metadata.filter_bitset(
-                metadata_filters or [], metadata_groups or []
+        with span("layer.hybrid.search_batch"):
+            if vectors is not None:
+                vectors = np.atleast_2d(np.asarray(vectors, dtype=np.float32))
+            nq = (
+                len(vectors) if vectors is not None
+                else len(texts) if texts is not None else 0
             )
-            if candidates.is_empty():
-                return [[] for _ in range(nq)]
-
-        # STEP 2: launch the vector batch (stays in flight on device)
-        v_handle = None
-        vec_idx = None
-        if vectors is not None:
-            vec_idx = self._require(self._vector, "vector")
-            vec_idx._check_dim(vectors)
-            builder = vec_idx._make_batch_builder(
-                k, threshold, candidates, nprobes, ef_search, None, -1, 1, True
-            )
-            with vec_idx._lock:
-                v_handle = vec_idx._search_launch(vectors, builder)
-
-        # STEP 3: text batch (host tokenization overlaps the vector search)
-        t_ids = t_sc = None
-        if texts is not None:
-            text_idx = self._require(self._text, "text")
-            t_ids, t_sc = text_idx.search_batch(
-                texts, k=k, document_ids=candidates, cutoff=cutoff
+            count("queries", nq)
+            if nq == 0:
+                return []
+            if vectors is not None and texts is not None and len(texts) != nq:
+                raise InvalidConfigError("vectors and texts length mismatch")
+            fus = fusion or (
+                new_fusion(fusion_kind) if fusion_kind is not None else default_fusion()
             )
 
-        v_ids = v_sc = None
-        if v_handle is not None:
-            v_ids, v_sc = vec_idx._search_collect(v_handle)
-            v_ids, v_sc = v_ids[:, :k], v_sc[:, :k]
-            if cutoff != -1:
-                v_ids, v_sc = postprocess_batch_rows(
-                    v_ids, v_sc, k, cutoff=cutoff, ascending=True,
+            # STEP 1: shared metadata pre-filter -> packed candidate bitset
+            candidates = None
+            if metadata_filters or metadata_groups:
+                self._require(self._metadata, "metadata")
+                with span("layer.hybrid.filter"):
+                    candidates = self._metadata.filter_bitset(
+                        metadata_filters or [], metadata_groups or []
+                    )
+                if candidates.is_empty():
+                    return [[] for _ in range(nq)]
+
+            # STEP 2: launch the vector batch (stays in flight on device)
+            v_handle = None
+            vec_idx = None
+            if vectors is not None:
+                vec_idx = self._require(self._vector, "vector")
+                vec_idx._check_dim(vectors)
+                builder = vec_idx._make_batch_builder(
+                    k, threshold, candidates, nprobes, ef_search, None, -1, 1, True
+                )
+                with vec_idx._lock, span("layer.vector.launch"):
+                    v_handle = vec_idx._search_launch(vectors, builder)
+
+            # STEP 3: text batch (host tokenization overlaps the vector search)
+            t_ids = t_sc = None
+            if texts is not None:
+                text_idx = self._require(self._text, "text")
+                t_ids, t_sc = text_idx.search_batch(
+                    texts, k=k, document_ids=candidates, cutoff=cutoff
                 )
 
-        # STEP 4: per-query fusion (host; k is small)
-        return fuse_batch_rows(v_ids, v_sc, t_ids, t_sc, candidates, fus, nq, k)
+            v_ids = v_sc = None
+            if v_handle is not None:
+                with span("layer.vector.collect"):
+                    v_ids, v_sc = vec_idx._search_collect(v_handle)
+                v_ids, v_sc = v_ids[:, :k], v_sc[:, :k]
+                if cutoff != -1:
+                    v_ids, v_sc = postprocess_batch_rows(
+                        v_ids, v_sc, k, cutoff=cutoff, ascending=True,
+                    )
+
+            # STEP 4: per-query fusion (host; k is small), with the result lists
+            with span("layer.hybrid.fusion"):
+                return fuse_batch_rows(v_ids, v_sc, t_ids, t_sc, candidates, fus, nq, k)
 
     # -- serialization ----------------------------------------------------------
 
@@ -496,90 +502,96 @@ class HybridSearchBuilder:
 
     def execute(self) -> list[HybridSearchResult]:
         """Pipeline parity with hybrid_search_index.go:477-615."""
-        idx = self._index
+        with span("layer.hybrid.execute"):
+            idx = self._index
+            count("queries", 1)
 
-        # STEP 1: metadata pre-filter -> packed candidate bitset
-        candidates = None
-        if self._metadata_filters or self._metadata_groups:
-            if idx._metadata is None:
-                raise InvalidConfigError(
-                    "metadata filters specified but no metadata index configured"
+            # STEP 1: metadata pre-filter -> packed candidate bitset
+            candidates = None
+            if self._metadata_filters or self._metadata_groups:
+                if idx._metadata is None:
+                    raise InvalidConfigError(
+                        "metadata filters specified but no metadata index configured"
+                    )
+                with span("layer.hybrid.filter"):
+                    candidates = idx._metadata.filter_bitset(
+                        self._metadata_filters, self._metadata_groups
+                    )
+                if candidates.is_empty():
+                    return []
+
+            # STEP 2: the vector search, run to its end (the Go reference runs
+            # the steps strictly sequentially, hybrid_search_index.go:510-544)
+            vector_scores: dict[int, float] = {}
+            if self._vector_query is not None:
+                if idx._vector is None:
+                    raise InvalidConfigError(
+                        "vector query specified but no vector index configured"
+                    )
+                vs = (
+                    idx._vector.new_search()
+                    .with_query(self._vector_query)
+                    .with_k(self._k)
+                    .with_score_aggregation(self._aggregation)
+                    .with_cutoff(self._cutoff)
                 )
-            candidates = idx._metadata.filter_bitset(
-                self._metadata_filters, self._metadata_groups
-            )
-            if candidates.is_empty():
-                return []
+                if self._nprobes > 0:
+                    vs = vs.with_nprobes(self._nprobes)
+                if self._ef_search > 0:
+                    vs = vs.with_ef_search(self._ef_search)
+                if self._threshold > 0:
+                    vs = vs.with_threshold(self._threshold)
+                if candidates is not None:
+                    vs = vs.with_document_ids(candidates)
+                for r in vs.execute():
+                    vector_scores[r.get_id()] = float(r.get_score())
 
-        # STEP 2: the vector search, run to its end (the Go reference runs
-        # the steps strictly sequentially, hybrid_search_index.go:510-544)
-        vector_scores: dict[int, float] = {}
-        if self._vector_query is not None:
-            if idx._vector is None:
-                raise InvalidConfigError(
-                    "vector query specified but no vector index configured"
+            # STEP 3: text search
+            text_scores: dict[int, float] = {}
+            if self._text_queries:
+                if idx._text is None:
+                    raise InvalidConfigError(
+                        "text query specified but no text index configured"
+                    )
+                ts = (
+                    idx._text.new_search()
+                    .with_query(*self._text_queries)
+                    .with_k(self._k)
+                    .with_score_aggregation(self._aggregation)
+                    .with_cutoff(self._cutoff)
                 )
-            vs = (
-                idx._vector.new_search()
-                .with_query(self._vector_query)
-                .with_k(self._k)
-                .with_score_aggregation(self._aggregation)
-                .with_cutoff(self._cutoff)
-            )
-            if self._nprobes > 0:
-                vs = vs.with_nprobes(self._nprobes)
-            if self._ef_search > 0:
-                vs = vs.with_ef_search(self._ef_search)
-            if self._threshold > 0:
-                vs = vs.with_threshold(self._threshold)
-            if candidates is not None:
-                vs = vs.with_document_ids(candidates)
-            for r in vs.execute():
-                vector_scores[r.get_id()] = float(r.get_score())
+                if candidates is not None:
+                    ts = ts.with_document_ids(candidates)
+                for r in ts.execute():
+                    text_scores[r.get_id()] = float(r.get_score())
 
-        # STEP 3: text search
-        text_scores: dict[int, float] = {}
-        if self._text_queries:
-            if idx._text is None:
-                raise InvalidConfigError(
-                    "text query specified but no text index configured"
-                )
-            ts = (
-                idx._text.new_search()
-                .with_query(*self._text_queries)
-                .with_k(self._k)
-                .with_score_aggregation(self._aggregation)
-                .with_cutoff(self._cutoff)
-            )
-            if candidates is not None:
-                ts = ts.with_document_ids(candidates)
-            for r in ts.execute():
-                text_scores[r.get_id()] = float(r.get_score())
+            # STEP 4: fusion
+            if vector_scores and text_scores:
+                with span("layer.hybrid.fusion"):
+                    combined = self._fusion.combine(vector_scores, text_scores)
+            elif vector_scores:
+                combined = vector_scores
+            elif text_scores:
+                combined = text_scores
+            else:
+                combined = {}
 
-        # STEP 4: fusion
-        if vector_scores and text_scores:
-            combined = self._fusion.combine(vector_scores, text_scores)
-        elif vector_scores:
-            combined = vector_scores
-        elif text_scores:
-            combined = text_scores
-        else:
-            combined = {}
+            with span("layer.hybrid.results"):
+                # metadata-only search: every candidate scores 1.0 (:589-593)
+                if not combined and candidates is not None:
+                    combined = {int(i): 1.0 for i in candidates.to_array()}
 
-        # metadata-only search: every candidate scores 1.0 (:589-593)
-        if not combined and candidates is not None:
-            combined = {int(i): 1.0 for i in candidates.to_array()}
-
-        results = [HybridSearchResult(i, s) for i, s in combined.items()]
-        # Sort: descending for fused/text scores (higher = better). For a
-        # VECTOR-ONLY search the scores are distances, so ascending — the
-        # reference sorts desc unconditionally (hybrid_search_index.go:596-613),
-        # which ranks vector-only results worst-first; that quirk is not
-        # replicated. Ties break by ascending id (the reference's tie order
-        # is unspecified Go map order).
-        vector_only = bool(vector_scores) and not text_scores and combined is vector_scores
-        if vector_only:
-            results.sort(key=lambda r: (r.score, r.id))
-        else:
-            results.sort(key=lambda r: (-r.score, r.id))
-        return results[: self._k] if self._k < len(results) else results
+                results = [HybridSearchResult(i, s) for i, s in combined.items()]
+                # Sort: descending for fused/text scores (higher = better). For a
+                # VECTOR-ONLY search the scores are distances, so ascending — the
+                # reference sorts desc unconditionally (hybrid_search_index.go:596-613),
+                # which ranks vector-only results worst-first; that quirk is not
+                # replicated. Ties break by ascending id (the reference's tie order
+                # is unspecified Go map order).
+                vector_only = (bool(vector_scores) and not text_scores
+                               and combined is vector_scores)
+                if vector_only:
+                    results.sort(key=lambda r: (r.score, r.id))
+                else:
+                    results.sort(key=lambda r: (-r.score, r.id))
+                return results[: self._k] if self._k < len(results) else results

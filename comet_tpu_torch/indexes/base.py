@@ -39,6 +39,7 @@ from comet_tpu_torch.types import (
     ScoreAggregationKind,
 )
 from comet_tpu_torch.utils.memory import memory_report
+from comet_tpu_torch.utils.profiling import count, count_h2d, span
 
 MIN_CAPACITY = 1024
 INVALID_ID = np.uint32(0xFFFFFFFF)
@@ -226,6 +227,7 @@ class SlotStore:
         uploaded whole when it is not current."""
         if self._dev_version != self.version:
             self._dev = None  # free the old mirror before the new upload
+            count_h2d(self.vectors.nbytes + self.valid.nbytes, self.device)
             vecs = torch.from_numpy(self.vectors).to(self.device, copy=True)
             sqnorms = (vecs * vecs).sum(dim=1)
             valid = torch.from_numpy(self.valid).to(self.device, copy=True)
@@ -403,13 +405,16 @@ class BaseVectorIndex:
         `nprobes` is the IVF probe count, `ef_search` the HNSW beam width
         and `nrefine` the IVFPQ re-rank depth (other indexes ignore them).
         """
-        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        self._check_dim(queries)
-        builder = self._make_batch_builder(k, threshold, document_ids, nprobes, ef_search,
-                                           nrefine, cutoff, group_size, wire_scores)
-        with self._lock:
-            ids, scores = self._search_collect(self._search_launch(queries, builder))
-        return _finish_rows(ids, scores, k, aggregation, cutoff, group_size)
+        with span("layer.vector.search_batch"):
+            queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+            self._check_dim(queries)
+            count("queries", len(queries))
+            builder = self._make_batch_builder(k, threshold, document_ids, nprobes, ef_search,
+                                               nrefine, cutoff, group_size, wire_scores)
+            with self._lock:
+                ids, scores = self._launch_collect(queries, builder)
+            with span("layer.vector.results"):
+                return _finish_rows(ids, scores, k, aggregation, cutoff, group_size)
 
     def search_stream(
         self,
@@ -493,7 +498,9 @@ class BaseVectorIndex:
     def _device_ids(self) -> torch.Tensor:
         """Device mirror of the slot -> doc-id array, for filter expansion."""
         if self._dev_ids_version != self._store.version:
-            self._dev_ids = torch.from_numpy(self._store.ids.astype(np.int64)).to(self._device)
+            ids = self._store.ids.astype(np.int64)
+            count_h2d(ids.nbytes, self._device)
+            self._dev_ids = torch.from_numpy(ids).to(self._device)
             self._dev_ids_version = self._store.version
         return self._dev_ids
 
@@ -504,6 +511,7 @@ class BaseVectorIndex:
         else:
             n_words = (int(doc_filter._ids.max()) >> 6) + 1
         words = doc_filter.word_mask(n_words).view(np.uint32).astype(np.int64)
+        count_h2d(words.nbytes, self._device)
         return torch.from_numpy(words).to(self._device)
 
     def _slot_ok(self, builder: "VectorSearchBuilder") -> torch.Tensor:
@@ -520,10 +528,11 @@ class BaseVectorIndex:
         """The kernels' additive mask over the slots (`_slot_ok`). `sqnorms`
         replaces the store's squared norms (an int8 copy's dequantised
         ones)."""
-        if sqnorms is None:
-            sqnorms = self._store.device_state()[1]
-        return _additive_mask(self._slot_ok(builder), sqnorms,
-                              self._distance_kind == DistanceKind.COSINE)
+        with span("layer.vector.mask"):
+            if sqnorms is None:
+                sqnorms = self._store.device_state()[1]
+            return _additive_mask(self._slot_ok(builder), sqnorms,
+                                  self._distance_kind == DistanceKind.COSINE)
 
     def _lookup_node_vectors(self, node_ids: Sequence[int]) -> list[np.ndarray]:
         """WithNode resolution (flat_index_search.go:171-196)."""
@@ -532,30 +541,41 @@ class BaseVectorIndex:
     def _execute_search(self, builder: VectorSearchBuilder) -> list[VectorResult]:
         if not builder._queries and not builder._node_ids:
             raise InvalidConfigError("must specify either queries or node IDs")
-        with self._lock:
-            queries = list(builder._queries)
-            for q in queries:
-                self._check_dim(q)
-            if builder._node_ids:
-                queries.extend(self._lookup_node_vectors(builder._node_ids))
-            qarr = np.stack(queries).astype(np.float32)
-            ids, scores = self._search_collect(self._search_launch(qarr, builder))
+        with span("layer.vector.execute"):
+            with self._lock:
+                queries = list(builder._queries)
+                for q in queries:
+                    self._check_dim(q)
+                if builder._node_ids:
+                    queries.extend(self._lookup_node_vectors(builder._node_ids))
+                qarr = np.stack(queries).astype(np.float32)
+                count("queries", len(qarr))
+                ids, scores = self._launch_collect(qarr, builder)
 
-        flat_ids = ids.reshape(-1)
-        flat_scores = scores.reshape(-1)
-        keep = flat_ids != INVALID_ID
-        uids, uscores = aggregate_scores(
-            flat_ids[keep], flat_scores[keep], builder._aggregation, ascending=True
-        )
-        results = [
-            VectorResult(node=self._result_node(int(i)), score=float(s))
-            for i, s in zip(uids, uscores)
-        ]
-        results = limit_results(results, builder._k)
-        results = autocut_results(results, builder._cutoff)
-        if builder._reranker is not None:
-            results = builder._reranker.rerank(results)
-        return results
+            with span("layer.vector.results"):
+                flat_ids = ids.reshape(-1)
+                flat_scores = scores.reshape(-1)
+                keep = flat_ids != INVALID_ID
+                uids, uscores = aggregate_scores(
+                    flat_ids[keep], flat_scores[keep], builder._aggregation, ascending=True
+                )
+                results = [
+                    VectorResult(node=self._result_node(int(i)), score=float(s))
+                    for i, s in zip(uids, uscores)
+                ]
+                results = limit_results(results, builder._k)
+                results = autocut_results(results, builder._cutoff)
+                if builder._reranker is not None:
+                    results = builder._reranker.rerank(results)
+                return results
+
+    def _launch_collect(self, queries: np.ndarray, builder: VectorSearchBuilder):
+        """`_search_launch` then `_search_collect`, each in its span (caller
+        holds the lock)."""
+        with span("layer.vector.launch"):
+            handle = self._search_launch(queries, builder)
+        with span("layer.vector.collect"):
+            return self._search_collect(handle)
 
     def _result_node(self, node_id: int) -> VectorNode:
         return VectorNode(node_id, np.array(self._store.get_vector(node_id)))

@@ -43,6 +43,7 @@ from comet_tpu_torch.ops import bm25 as bm25_ops
 from comet_tpu_torch.ops.bitset import Bitset
 from comet_tpu_torch.types import InvalidConfigError, NodeNotFoundError, ScoreAggregationKind
 from comet_tpu_torch.utils.memory import memory_report
+from comet_tpu_torch.utils.profiling import count, count_h2d, span
 
 MAGIC = b"CB25"
 VERSION = 3  # v3: CRC32 payload trailer (v2 readable, no trailer check)
@@ -251,8 +252,9 @@ class BM25SearchIndex:
         arrays = [self._doc_terms[d] for d in slot_docs.tolist()]
         lens = np.fromiter(map(len, arrays), dtype=np.int64, count=len(arrays))
         n, dev = len(slot_docs), self._device
-        terms = torch.from_numpy(np.concatenate(arrays) if arrays else np.zeros(0, np.int32))
-        terms = terms.to(dev).long()
+        terms = np.concatenate(arrays) if arrays else np.zeros(0, np.int32)
+        count_h2d(terms.nbytes + lens.nbytes + 4 * n, dev)   # the lengths twice
+        terms = torch.from_numpy(terms).to(dev).long()
         slots = torch.repeat_interleave(torch.arange(n, device=dev),
                                         torch.from_numpy(lens).to(dev))
         keys, tf = torch.unique(terms * max(n, 1) + slots, sorted=True, return_counts=True)
@@ -310,23 +312,31 @@ class BM25SearchIndex:
         holds documents): (ids [Q, k] uint32, scores [Q, k] float32), empty
         slots (INVALID_ID, 0). `k_all` replaces k by the most documents a
         query can touch, so each row holds every match."""
-        slot_docs, post_slot, post_tf, doc_len, df, term_start = self._postings()
-        t_start, t_len, t_idf, q_off = self._query_terms(queries, df, term_start)
+        with span("layer.text.postings"):
+            slot_docs, post_slot, post_tf, doc_len, df, term_start = self._postings()
+        with span("layer.text.terms"):
+            t_start, t_len, t_idf, q_off = self._query_terms(queries, df, term_start)
         if k_all:
             touched = np.add.reduceat(np.append(t_len, 0).astype(np.int64), q_off[:-1])
             touched[np.diff(q_off) == 0] = 0
             k = max(1, min(len(slot_docs), int(touched.max(initial=0))))
         dev = self._device
-        allowed = torch.from_numpy(self._allowed(slot_docs, document_ids)).to(dev)
-        vals, slots = bm25_ops.bm25_topk(
-            post_slot, post_tf, torch.from_numpy(t_start).to(dev),
-            torch.from_numpy(t_len).to(dev), torch.from_numpy(t_idf).to(dev), q_off,
-            doc_len, allowed, np.float32(self._total_tokens / self._num_docs), k,
-        )
-        vals, slots = vals.cpu().numpy(), slots.cpu().numpy()
-        miss = vals >= 0
-        ids = np.where(miss, INVALID_ID, slot_docs[np.where(miss, 0, slots)]).astype(np.uint32)
-        scores = np.where(miss, np.float32(0.0), -vals).astype(np.float32)
+        with span("layer.text.mask"):
+            allowed = self._allowed(slot_docs, document_ids)
+            count_h2d(allowed.nbytes, dev)
+            allowed = torch.from_numpy(allowed).to(dev)
+        with span("layer.text.score"):
+            count_h2d(t_start.nbytes + t_len.nbytes + t_idf.nbytes, dev)
+            vals, slots = bm25_ops.bm25_topk(
+                post_slot, post_tf, torch.from_numpy(t_start).to(dev),
+                torch.from_numpy(t_len).to(dev), torch.from_numpy(t_idf).to(dev), q_off,
+                doc_len, allowed, np.float32(self._total_tokens / self._num_docs), k,
+            )
+        with span("layer.text.collect"):
+            vals, slots = vals.cpu().numpy(), slots.cpu().numpy()
+            miss = vals >= 0
+            ids = np.where(miss, INVALID_ID, slot_docs[np.where(miss, 0, slots)]).astype(np.uint32)
+            scores = np.where(miss, np.float32(0.0), -vals).astype(np.float32)
         return ids, scores
 
     # -- search ---------------------------------------------------------------
@@ -348,12 +358,16 @@ class BM25SearchIndex:
         uint32, scores [Q, k] float32); empty slots hold id == 0xFFFFFFFF /
         score == 0. `cutoff` / `group_size` / `aggregation` are the fluent
         pipeline's post-steps per row (descending text semantics)."""
-        ids, scores = self._search_batch_core(list(queries), k, document_ids)
-        return postprocess_batch_rows(
-            ids, scores, k,
-            aggregation=aggregation, cutoff=cutoff, group_size=group_size,
-            ascending=False, empty_score=0.0,
-        )
+        with span("layer.text.execute"):
+            queries = list(queries)
+            count("queries", len(queries))
+            ids, scores = self._search_batch_core(queries, k, document_ids)
+            with span("layer.text.results"):
+                return postprocess_batch_rows(
+                    ids, scores, k,
+                    aggregation=aggregation, cutoff=cutoff, group_size=group_size,
+                    ascending=False, empty_score=0.0,
+                )
 
     def _search_batch_core(self, queries: list[str], k: int = 10, document_ids=None):
         with self._lock:
@@ -534,20 +548,22 @@ class BM25SearchBuilder:
             raise InvalidConfigError("must specify either queries or node IDs")
 
         idx = self._index
-        with idx._lock:
-            queries = list(self._queries)
-            if self._node_ids:
-                queries.extend(idx._lookup_node_texts(self._node_ids))
-            if idx._num_docs == 0:
-                return []
-            ids, scores = idx._score(queries, self._k, self._document_ids,
-                                     k_all=self._k <= 0)
-        hit = ids != INVALID_ID
-        if not hit.any():
-            return []
-        uids, uscores = aggregate_scores(ids[hit], scores[hit], self._aggregation,
-                                         ascending=False)
-        results = [TextResult(int(i), float(s)) for i, s in zip(uids, uscores)]
-        results = limit_results(results, self._k)
-        results = autocut_results(results, self._cutoff)
-        return results
+        with span("layer.text.execute"):
+            with idx._lock:
+                queries = list(self._queries)
+                if self._node_ids:
+                    queries.extend(idx._lookup_node_texts(self._node_ids))
+                count("queries", len(queries))
+                if idx._num_docs == 0:
+                    return []
+                ids, scores = idx._score(queries, self._k, self._document_ids,
+                                         k_all=self._k <= 0)
+            with span("layer.text.results"):
+                hit = ids != INVALID_ID
+                if not hit.any():
+                    return []
+                uids, uscores = aggregate_scores(ids[hit], scores[hit], self._aggregation,
+                                                 ascending=False)
+                results = [TextResult(int(i), float(s)) for i, s in zip(uids, uscores)]
+                results = limit_results(results, self._k)
+                return autocut_results(results, self._cutoff)

@@ -48,6 +48,7 @@ from comet_tpu_torch.ops.distance import preprocess
 from comet_tpu_torch.ops.fused_scan import flat_topk_pipeline
 from comet_tpu_torch.ops.topk import IDX_SENTINEL
 from comet_tpu_torch.types import DistanceKind, InvalidConfigError, VectorIndexKind
+from comet_tpu_torch.utils.profiling import count_h2d, span
 
 MAGIC = b"CFLT"
 VERSION = 2  # v2: CRC32 payload trailer (v1 readable, no trailer check)
@@ -213,13 +214,16 @@ class FlatIndex(BaseVectorIndex):
         # the pipeline works on squared distances for L2
         thr_k = thr * thr if kind == DistanceKind.L2 else thr
 
-        qprep = preprocess(queries, kind)
-        q = torch.as_tensor(qprep, device=self._device)
         corpus, sqnorms, scale = self._device_corpus()
-        s, i = flat_topk_pipeline(
-            q, corpus, self._slot_mask(builder, sqnorms), thr_k, k_want,
-            cosine=cosine, sqrt_out=kind == DistanceKind.L2, scale=scale,
-        )
+        mask = self._slot_mask(builder, sqnorms)
+        with span("layer.vector.scan"):
+            qprep = preprocess(queries, kind)
+            count_h2d(qprep.nbytes, self._device)
+            q = torch.as_tensor(qprep, device=self._device)
+            s, i = flat_topk_pipeline(
+                q, corpus, mask, thr_k, k_want,
+                cosine=cosine, sqrt_out=kind == DistanceKind.L2, scale=scale,
+            )
         if self._rerank:
             return ("rerank", i, store.ids, qprep, k_eff, builder._threshold)
         return ("dev", s if builder._wire_scores else None, i, store.ids)

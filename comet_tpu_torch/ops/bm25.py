@@ -35,6 +35,7 @@ import torch
 
 from comet_tpu_torch.ops import _build, sortnet
 from comet_tpu_torch.ops.sortnet import topk_rows, use_plain
+from comet_tpu_torch.utils.profiling import count_h2d
 
 K1 = 1.2  # bm25_index.go:75-80
 B = 0.75
@@ -201,7 +202,9 @@ def bm25_topk(post_slot, post_tf, t_start, t_len, t_idf, q_off, doc_len, allowed
             return _bm25_dense_plain(post_slot, post_tf, t_start, t_len, t_idf, q_off[q0:q1 + 1],
                                      doc_len, allowed, avgdl)
     else:
-        q_off_dev = torch.from_numpy(q_off.astype(np.int32)).to(doc_len.device)
+        q_off32 = q_off.astype(np.int32)
+        count_h2d(q_off32.nbytes, doc_len.device)
+        q_off_dev = torch.from_numpy(q_off32).to(doc_len.device)
 
         def dense(q0, q1):
             return _bm25_dense_cuda(post_slot, post_tf, t_start, t_len, t_idf,

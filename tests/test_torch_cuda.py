@@ -182,6 +182,31 @@ def test_flat_index_cuda_matches_cpu(dev, k):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("filtered", [False, True])
+def test_h2d_bytes_of_a_one_query_flat_search(dev, filtered):
+    """The copy counter under a profiler: once the index's mirrors are on
+    the card, a one-query search copies its query and, with a filter, the
+    filter's packed 64-bit words, each as two int64 halves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from comet_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 256, size=(5000, 128)).astype(np.float32)
+    idx = FlatIndex(128, DistanceKind.L2, device="cuda")
+    idx.add_batch(x, ids=range(1, 5001))
+
+    def search():
+        b = idx.new_search().with_query(x[7]).with_k(10)
+        return (b.with_document_ids(range(1, 3000)) if filtered else b).execute()
+
+    search()     # the mirrors of the corpus and the ids go to the card here
+    with profile(activities=[ProfilerActivity.CPU]):
+        search()
+    words = 16 * ((2999 >> 6) + 1) if filtered else 0
+    assert profiling.per_query("h2d_bytes") == x[7].nbytes + words
+
+
 # -- IVF: K2's nprobe mode and K3 ---------------------------------------------------
 
 
