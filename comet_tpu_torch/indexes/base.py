@@ -30,7 +30,6 @@ from comet_tpu_torch.core.limiter import autocut, autocut_results, limit_results
 from comet_tpu_torch.core.node import VectorNode
 from comet_tpu_torch.core.results import Reranker, VectorResult
 from comet_tpu_torch.ops.bitset import Bitset
-from comet_tpu_torch.ops.topk import IDX_SENTINEL
 from comet_tpu_torch.types import (
     DimensionMismatchError,
     DistanceKind,
@@ -71,12 +70,12 @@ def _additive_mask(ok, sqnorms, cosine: bool):
 def _words_ok(words32, ids, valid):
     """Validity and the doc-ID filter expanded from packed 32-bit words (bit
     i of word w = doc 32w + i), as [cap] bool. Ids beyond the words' span
-    are excluded. `words32` and `ids` are int64 tensors of the unsigned
-    values."""
+    are excluded. `words32` is an int64 tensor of the unsigned words, `ids`
+    the slots' uint32 ids' bits as int32."""
     n_words = words32.shape[0]
-    widx = ids >> 5
+    widx = (ids >> 5) & 0x07FFFFFF     # the unsigned id's shift: no sign bits
     in_range = widx < n_words
-    w = words32[widx.clamp(max=n_words - 1)]
+    w = words32.index_select(0, widx.clamp(max=n_words - 1))
     fbit = (w >> (ids & 31)) & 1
     return valid & in_range & (fbit == 1)
 
@@ -88,7 +87,9 @@ class SlotStore:
     padding. `valid[slot]` False means deleted-or-padding. The device mirror
     follows `version`: an add or a remove writes its rows into a current
     mirror in place; a flush, a load or a capacity growth leaves it to be
-    uploaded whole at the next `device_state`.
+    uploaded whole at the next `device_state`. The ids' device copy
+    (`device_id_map`), which maps result slots and expands the doc-ID
+    filter, follows `version` the same way.
     """
 
     def __init__(self, dim: int, capacity: int = MIN_CAPACITY, *, device: torch.device):
@@ -104,6 +105,8 @@ class SlotStore:
         self.version = 0
         self._dev_version = -1
         self._dev = None  # (vectors, sqnorms, valid) tensors on self.device
+        self._id_map_version = -1
+        self._id_map = None  # int32 [capacity + 1] on self.device
 
     # -- mutation ----------------------------------------------------------
 
@@ -209,18 +212,25 @@ class SlotStore:
 
     def _sync_rows(self, slots: np.ndarray) -> None:
         """After one mutation of `slots`: write their rows (vector, squared
-        norm, validity) into the mirror in place when it was current before
-        it and the capacity is unchanged, and keep it current."""
-        if (self._dev is None or self._dev_version != self.version - 1
-                or self._dev[0].shape[0] != self.capacity):
+        norm, validity; id) into each mirror in place when it was current
+        before it and the capacity is unchanged, and keep it current."""
+        sync_dev = (self._dev is not None and self._dev_version == self.version - 1
+                    and self._dev[0].shape[0] == self.capacity)
+        sync_map = (self._id_map is not None and self._id_map_version == self.version - 1
+                    and self._id_map.shape[0] == self.capacity + 1)
+        if not (sync_dev or sync_map):
             return
-        vecs, sqnorms, valid = self._dev
         rows = torch.from_numpy(np.asarray(slots, dtype=np.int64)).to(self.device)
-        v = torch.from_numpy(self.vectors[slots]).to(self.device)
-        vecs[rows] = v
-        sqnorms[rows] = (v * v).sum(dim=1)
-        valid[rows] = torch.from_numpy(self.valid[slots]).to(self.device)
-        self._dev_version = self.version
+        if sync_dev:
+            vecs, sqnorms, valid = self._dev
+            v = torch.from_numpy(self.vectors[slots]).to(self.device)
+            vecs[rows] = v
+            sqnorms[rows] = (v * v).sum(dim=1)
+            valid[rows] = torch.from_numpy(self.valid[slots]).to(self.device)
+            self._dev_version = self.version
+        if sync_map:
+            self._id_map[rows] = torch.from_numpy(self.ids[slots].view(np.int32)).to(self.device)
+            self._id_map_version = self.version
 
     def device_state(self):
         """Device mirror (vectors [cap, d], sqnorms [cap], valid [cap]),
@@ -234,6 +244,22 @@ class SlotStore:
             self._dev = (vecs, sqnorms, valid)
             self._dev_version = self.version
         return self._dev
+
+    def device_id_map(self) -> torch.Tensor:
+        """The slot -> id map on the device, for mapping result slots and
+        expanding the doc-ID filter: the uint32 ids' bits as int32
+        [capacity + 1], whose last entry, -1, is INVALID_ID's bits for an
+        empty result slot. An add writes its rows in place, at slots no
+        earlier search can return (a remove rewrites its row unchanged);
+        any other change uploads a new tensor, so a pending search keeps
+        the ids it was launched with."""
+        if self._id_map_version != self.version:
+            self._id_map = None  # free the old map before the new upload
+            ids = np.append(self.ids, INVALID_ID).view(np.int32)
+            count_h2d(ids.nbytes, self.device)
+            self._id_map = torch.from_numpy(ids).to(self.device, copy=True)
+            self._id_map_version = self.version
+        return self._id_map
 
 
 class VectorSearchBuilder:
@@ -339,8 +365,6 @@ class BaseVectorIndex:
         self._device = resolve_device(device)
         self._store = SlotStore(dim, device=self._device)
         self._lock = threading.RLock()
-        self._dev_ids = None            # slot -> doc-id mirror, for filters
-        self._dev_ids_version = -1
 
     # -- contracts (index.go:32-63) -----------------------------------------
 
@@ -495,15 +519,6 @@ class BaseVectorIndex:
                 f"vector dimension mismatch: expected {self._dim}, got {vectors.shape[-1]}"
             )
 
-    def _device_ids(self) -> torch.Tensor:
-        """Device mirror of the slot -> doc-id array, for filter expansion."""
-        if self._dev_ids_version != self._store.version:
-            ids = self._store.ids.astype(np.int64)
-            count_h2d(ids.nbytes, self._device)
-            self._dev_ids = torch.from_numpy(ids).to(self._device)
-            self._dev_ids_version = self._store.version
-        return self._dev_ids
-
     def _filter_words(self, doc_filter: DocumentFilter) -> torch.Tensor:
         """The filter's packed words over its id span, as int64 on device."""
         if doc_filter._bitset is not None:
@@ -521,7 +536,8 @@ class BaseVectorIndex:
         valid = self._store.device_state()[2]
         doc_filter = DocumentFilter(builder._document_ids)
         if doc_filter.enabled:
-            return _words_ok(self._filter_words(doc_filter), self._device_ids(), valid)
+            return _words_ok(self._filter_words(doc_filter),
+                             self._store.device_id_map()[:-1], valid)
         return valid
 
     def _slot_mask(self, builder: "VectorSearchBuilder", sqnorms=None) -> torch.Tensor:
@@ -662,8 +678,12 @@ def collect_device_handle(handle):
 
     Handle forms:
       ("empty", q)                       — no rows in the index
-      ("dev", scores, slots, ids_snap)   — device tensors [Q, k]; scores
-                                           None when they stay on the device
+      ("dev", scores, slots, id_map)     — device tensors: scores and slots
+                                           [Q, k], scores None when they stay
+                                           on the device; `id_map` is the
+                                           store's `device_id_map()` at launch
+    The slots are mapped to ids on the device; only the ids and the scores
+    are copied out.
     """
     if handle[0] == "empty":
         q = handle[1]
@@ -671,15 +691,16 @@ def collect_device_handle(handle):
             np.full((q, 0), INVALID_ID, dtype=np.uint32),
             np.zeros((q, 0), dtype=np.float32),
         )
-    _, s, i, ids_snap = handle
-    slots = i.cpu().numpy()
+    _, s, i, id_map = handle
+    # an empty slot (IDX_SENTINEL) clamps to the map's last entry, INVALID_ID
+    at = i.clamp(0, id_map.shape[0] - 1).reshape(-1)
+    ids = id_map.index_select(0, at).view(i.shape).cpu().numpy().view(np.uint32)
+    count("ids_on_card", i.shape[0])
     if s is None:
-        scores = np.zeros(slots.shape, dtype=np.float32)
+        scores = np.zeros(ids.shape, dtype=np.float32)
     else:
         scores = s.cpu().numpy()
-    hit = slots != IDX_SENTINEL
-    ids = np.where(hit, ids_snap[np.where(hit, slots, 0)], INVALID_ID)
-    return ids.astype(np.uint32), scores
+    return ids, scores
 
 
 def threshold_scalar(threshold: float) -> np.float32:

@@ -215,6 +215,7 @@ class FlatIndex(BaseVectorIndex):
         thr_k = thr * thr if kind == DistanceKind.L2 else thr
 
         corpus, sqnorms, scale = self._device_corpus()
+        id_map = None if self._rerank else store.device_id_map()
         mask = self._slot_mask(builder, sqnorms)
         with span("layer.vector.scan"):
             qprep = preprocess(queries, kind)
@@ -226,7 +227,7 @@ class FlatIndex(BaseVectorIndex):
             )
         if self._rerank:
             return ("rerank", i, store.ids, qprep, k_eff, builder._threshold)
-        return ("dev", s if builder._wire_scores else None, i, store.ids)
+        return ("dev", s if builder._wire_scores else None, i, id_map)
 
     def _search_collect(self, handle):
         if handle[0] == "rerank":

@@ -283,6 +283,7 @@ class IVFIndex(BaseVectorIndex):
         probe, updating `_sparse_S_hint[(nprobe, k_pad)]` so that later
         batches of the same shape start right-sized."""
         st = self._device_sparse()
+        id_map = self._store.device_id_map()
         kind = self._distance_kind
         cosine = kind == DistanceKind.COSINE
         thr = threshold_scalar(builder._threshold)
@@ -310,7 +311,7 @@ class IVFIndex(BaseVectorIndex):
         S_eff = max(S, -(-k_pow2(k_pad) * sp.SEL_GROUP // sp.CHUNK))
         retry = (q, k_pad, k_eff, nprobe, builder, S_eff, S_max) if S_eff < S_max else None
         s = s[:, :k_eff] if builder._wire_scores else None
-        return ("sparse", s, i[:, :k_eff], self._store.ids, overflow, retry)
+        return ("sparse", s, i[:, :k_eff], id_map, overflow, retry)
 
     def _search_launch(self, queries: np.ndarray, builder: VectorSearchBuilder):
         if not self._trained:
@@ -345,13 +346,14 @@ class IVFIndex(BaseVectorIndex):
         thr = threshold_scalar(builder._threshold)
         thr_k = thr * thr if kind == DistanceKind.L2 else thr
         vecs = store.device_state()[0]
+        id_map = store.device_id_map()
         s, i = ivf_topk_pipeline(
             q, vecs, self._slot_mask(builder), thr_k, self._dev_centroids,
             self._device_dense(), k_pad, nprobe,
             coarse_cosine=cosine, cosine=cosine, sqrt_out=kind == DistanceKind.L2,
         )
         s, i = s[:, :k_eff], i[:, :k_eff]
-        return ("dev", s if builder._wire_scores else None, i, store.ids)
+        return ("dev", s if builder._wire_scores else None, i, id_map)
 
     def _search_collect(self, handle):
         if handle[0] == "sparse":

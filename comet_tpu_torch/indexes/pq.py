@@ -352,6 +352,7 @@ class PQIndex(BaseVectorIndex):
         thr = threshold_scalar(builder._threshold)
         q = torch.as_tensor(preprocess(queries, self._distance_kind), device=self._device)
         ok = self._slot_ok(builder)
+        id_map = store.device_id_map()
         if self._store.capacity * self._dim * 4 <= DECODED_BYTES_MAX:
             rec, sqn = self._device_decoded()
             # ADC is the square root of an L2 distance for every metric
@@ -367,7 +368,7 @@ class PQIndex(BaseVectorIndex):
                     for q0 in range(0, q.shape[0], PQ_QUERY_CHUNK)]
             s, i = torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
         s, i = s[:, :k_eff], i[:, :k_eff]
-        return ("dev", s if builder._wire_scores else None, i, store.ids)
+        return ("dev", s if builder._wire_scores else None, i, id_map)
 
     def _search_collect(self, handle):
         return collect_device_handle(handle)

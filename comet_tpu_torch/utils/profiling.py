@@ -18,8 +18,9 @@ Counterpart of comet_tpu/utils/profiling.py on torch:
   and a shared no-op context. The outermost span on a thread is a
   request; the spans opened inside it are its steps. `count(key, n)` adds
   to the innermost open span's counters while on: a request counts the
-  `queries` it serves, and each copy to a CUDA device its `h2d_bytes`
-  (`count_h2d`).
+  `queries` it serves, each copy to a CUDA device its `h2d_bytes`
+  (`count_h2d`), and a collect that maps result slots to ids on the
+  device the rows it maps (`ids_on_card`).
 - `span_ms`, `unnamed_ms` and `per_query` summarise the stored requests:
   the store holds the newest profiled stretch only (the first span under a
   profiler after one without it empties it), at most `MAX_RECORDS`

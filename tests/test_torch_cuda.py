@@ -207,6 +207,55 @@ def test_h2d_bytes_of_a_one_query_flat_search(dev, filtered):
     assert profiling.per_query("h2d_bytes") == x[7].nbytes + words
 
 
+def test_a_flat_batch_maps_ids_on_the_card_as_the_host_map_did(dev, monkeypatch):
+    """A [2048, 100] batch over 2^17 rows whose ids lie at and above 2^31:
+    the ids mapped on the card equal the numpy host map of the same slots,
+    and the whole search's peak memory grows by the id map's 4 bytes a
+    slot, no more (the gather's temporaries fall after the scan's peak)."""
+    from comet_tpu_torch.indexes import flat as flat_mod
+    from comet_tpu_torch.indexes.base import INVALID_ID
+
+    rng = np.random.default_rng(17)
+    n = 1 << 17
+    x = rng.integers(0, 256, size=(n, 128)).astype(np.float32)
+    q = rng.integers(0, 256, size=(2048, 128)).astype(np.float32)
+    ids = np.uint32(2**31) + rng.permutation(n).astype(np.uint32) * np.uint32(16381)
+    ids[0] = 0xFFFFFFFE
+    q[0] = x[0]                     # row 0, the largest id, is query 0's nearest
+    idx = FlatIndex(128, DistanceKind.L2, device="cuda")
+    idx.add_batch(x, ids=ids)
+    idx.remove(int(ids[9]))
+    store = idx._store
+    store.device_state()
+
+    def host_map(handle):
+        _, s, i, _ = handle
+        slots = i.cpu().numpy()
+        hit = slots != topk.IDX_SENTINEL
+        return (np.where(hit, ids_snap[np.where(hit, slots, 0)], INVALID_ID).astype(np.uint32),
+                s.cpu().numpy())
+
+    def searched():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = idx.search_batch(q, k=100)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    ids_snap = store.ids.copy()
+    with monkeypatch.context() as m:
+        m.setattr(store, "device_id_map", lambda: None)
+        m.setattr(flat_mod, "collect_device_handle", host_map)
+        want, host_peak = searched()
+    got, peak = searched()          # the id map goes to the card at this launch
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[0].dtype == np.uint32 and (got[0] >= 2**31).all() and (got[0] == ids[0]).any()
+    assert not (got[0] == ids[9]).any()
+    assert peak - host_peak <= 4 * (store.capacity + 1) + 512     # the allocator's 512-byte blocks
+
+
 # -- IVF: K2's nprobe mode and K3 ---------------------------------------------------
 
 

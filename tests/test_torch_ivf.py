@@ -345,11 +345,11 @@ def test_sparse_overflow_triggers_escalated_rescan(rng):
     def fake_launch(q, k_pad, k_eff, nprobe, builder, S_override=None):
         calls.append(S_override)
         return ("sparse", torch.tensor([[1.0, 2.0]]), torch.tensor([[0, 1]], dtype=torch.int32),
-                idx._store.ids, torch.zeros(1, dtype=torch.int32), None)
+                idx._store.device_id_map(), torch.zeros(1, dtype=torch.int32), None)
 
     idx._launch_sparse = fake_launch
     retry = (torch.zeros((128, 8)), 2, 2, 2, None, 8, 64)
-    ids, scores = idx._search_collect(("sparse", s1, i1, idx._store.ids, overflow, retry))
+    ids, scores = idx._search_collect(("sparse", s1, i1, idx._store.device_id_map(), overflow, retry))
     assert calls and calls[0] >= 8 + 3
     assert idx._sparse_S_hint.get((2, 2)) == calls[0]
     np.testing.assert_allclose(scores[0], [1.0, 2.0])
@@ -360,7 +360,7 @@ def test_sparse_overflow_triggers_escalated_rescan(rng):
 def test_sparse_zero_overflow_no_rescan(rng):
     idx, _ = _trained(rng)
     handle = ("sparse", torch.tensor([[1.5]]), torch.tensor([[2]], dtype=torch.int32),
-              idx._store.ids, torch.zeros(1, dtype=torch.int32), (None,) * 7)
+              idx._store.device_id_map(), torch.zeros(1, dtype=torch.int32), (None,) * 7)
     ids, scores = idx._search_collect(handle)
     np.testing.assert_allclose(scores[0], [1.5])
     assert idx.stats()["sparse_overflow_batches"] == 0

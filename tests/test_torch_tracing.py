@@ -134,6 +134,26 @@ def test_a_profiled_search_records_its_span_tree(indexes, kind):
     assert profiling.per_query("h2d_bytes") == 0      # a CPU index copies to no card
 
 
+@pytest.mark.parametrize("kind", ["flat_fluent", "flat_batch", "hybrid_fluent", "hybrid_batch"])
+def test_the_device_collect_maps_ids_on_the_card_once_a_query(indexes, kind):
+    """`ids_on_card` counts the rows whose slots the collect maps to ids on
+    the device: one a query on the flat paths and the hybrid vector leg."""
+    search(indexes, kind)
+    profiled(lambda: search(indexes, kind))
+    assert profiling.per_query("ids_on_card") == 1.0
+
+
+def test_the_rerank_collect_maps_ids_on_the_host_and_counts_none(indexes):
+    rerank = ct.FlatIndex(D, ct.DistanceKind.L2, storage="bfloat16", rerank=True, device="cpu")
+    rerank.add_batch(indexes.vecs, ids=range(1, N + 1))
+    for run in (lambda: rerank.search_batch(indexes.vecs[:4] + 0.25, k=K),
+                lambda: rerank.new_search().with_query(indexes.vecs[3]).with_k(K).execute()):
+        run()
+        profiled(run)
+        assert profiling.per_query("queries") is not None
+        assert not any(r.counters and "ids_on_card" in r.counters for r in profiling.spans())
+
+
 @pytest.mark.parametrize("kind", list(TREES))
 def test_results_with_spans_on_equal_results_with_spans_off(indexes, kind):
     off = search(indexes, kind)
