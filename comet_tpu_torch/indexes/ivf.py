@@ -23,6 +23,14 @@ Search takes one of two routes, each exact within the probed lists:
 
 On a CUDA index both run their kernels, on a CPU index their plain PyTorch
 versions.
+
+Under a profiler (`utils/profiling.span`) a search records the steps
+`layer.vector.scan` (the query's copy, and each pipeline's enqueue),
+`layer.ivf.layout` (a rebuild of a route's layout after the store
+changed) and `layer.ivf.rescan` (each overflow rescan, its wait
+included), and counts `ivf_sparse_rows` (the queries a launch sends down
+the sparse route; 0 on the dense one) and the copies to the card in
+`h2d_bytes`.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from comet_tpu_torch.types import (
     NotTrainedError,
     VectorIndexKind,
 )
+from comet_tpu_torch.utils.profiling import count, count_h2d, span
 
 logger = logging.getLogger(__name__)
 
@@ -147,6 +156,7 @@ class IVFIndex(BaseVectorIndex):
 
     def _set_centroids(self, centroids: np.ndarray) -> None:
         self._centroids = centroids
+        count_h2d(centroids.nbytes, self._device)
         self._dev_centroids = torch.from_numpy(centroids).to(self._device)
         self._trained = True
 
@@ -238,10 +248,16 @@ class IVFIndex(BaseVectorIndex):
         """Cluster-major layout for the block-sparse scan, rebuilt when the
         contents change. Soft-deleted slots are left out of the layout;
         padding rows carry +inf in the additive mask."""
+        if self._order_key_src is not self._centroids or self._sparse_version != self._store.version:
+            with span("layer.ivf.layout"):
+                self._build_sparse()
+        return self._sparse
+
+    def _build_sparse(self) -> None:
         if self._order_key_src is not self._centroids:
-            self._order_key = torch.from_numpy(
-                sp.cluster_order_key(self._centroids, device=self._device)
-            ).to(self._device)
+            key = sp.cluster_order_key(self._centroids, device=self._device)
+            count_h2d(key.nbytes, self._device)
+            self._order_key = torch.from_numpy(key).to(self._device)
             self._order_key_src = self._centroids
         if self._sparse_version != self._store.version:
             self._sparse = None   # free the old layout before the new one
@@ -249,6 +265,8 @@ class IVFIndex(BaseVectorIndex):
             assign = np.where(self._store.valid[:n], self._assign[:n], -1).astype(np.int32)
             lay = sp.build_cluster_major(assign, self._nlist)
             vecs, sqnorms, _ = self._store.device_state()
+            count_h2d(lay["perm"].nbytes + lay["chunk_start"].nbytes + lay["nchunks"].nbytes,
+                      self._device)
             perm = torch.from_numpy(lay["perm"]).to(self._device)
             pc = perm.clamp_min(0).long()
             base = torch.zeros_like(sqnorms) if self._distance_kind == DistanceKind.COSINE else sqnorms
@@ -264,14 +282,15 @@ class IVFIndex(BaseVectorIndex):
                 "max_chunks": lay["max_chunks"],
             }
             self._sparse_version = self._store.version
-        return self._sparse
 
     def _device_dense(self) -> torch.Tensor:
         """Device copy of the per-slot cluster ids for the dense scan."""
         if self._dense_version != self._store.version:
-            cap = self._store.capacity
-            self._dev_assign = torch.from_numpy(self._assign[:cap].copy()).to(self._device)
-            self._dense_version = self._store.version
+            with span("layer.ivf.layout"):
+                assign = self._assign[: self._store.capacity].copy()
+                count_h2d(assign.nbytes, self._device)
+                self._dev_assign = torch.from_numpy(assign).to(self._device)
+                self._dense_version = self._store.version
         return self._dev_assign
 
     # -- search ---------------------------------------------------------------
@@ -300,12 +319,13 @@ class IVFIndex(BaseVectorIndex):
             S = max(S_override, S)
         S = min(S, S_max)
         UC = min(S, self._nlist)
-        s, i, overflow = sp.ivf_sparse_pipeline(
-            q, st["corpus"], mask_vec, st["row_slot"], thr_k, self._dev_centroids,
-            self._order_key, st["chunk_start"], st["nchunks"],
-            k=k_pad, nprobe=nprobe, S=S, UC=UC, MC=MC, nlist=self._nlist,
-            coarse_cosine=cosine, cosine=cosine, sqrt_out=kind == DistanceKind.L2,
-        )
+        with span("layer.vector.scan"):
+            s, i, overflow = sp.ivf_sparse_pipeline(
+                q, st["corpus"], mask_vec, st["row_slot"], thr_k, self._dev_centroids,
+                self._order_key, st["chunk_start"], st["nchunks"],
+                k=k_pad, nprobe=nprobe, S=S, UC=UC, MC=MC, nlist=self._nlist,
+                coarse_cosine=cosine, cosine=cosine, sqrt_out=kind == DistanceKind.L2,
+            )
         # overflow counts chunks dropped beyond the EFFECTIVE budget (the
         # pipeline raises S to kb * SEL_GROUP / CHUNK): escalate from there
         S_eff = max(S, -(-k_pow2(k_pad) * sp.SEL_GROUP // sp.CHUNK))
@@ -323,7 +343,6 @@ class IVFIndex(BaseVectorIndex):
         k_pad = min(next_pow2(k_eff), store.capacity)
         nprobe = self._sanitize_nprobes(builder._nprobes)
         kind = self._distance_kind
-        q = torch.as_tensor(preprocess(queries, kind), device=self._device)
 
         sparse_env = os.environ.get("COMET_IVF_SPARSE", "")
         use_sparse = (
@@ -340,18 +359,27 @@ class IVFIndex(BaseVectorIndex):
             if 2 * hint >= self._sparse["nch_total"]:
                 use_sparse = False
         if use_sparse:
+            self._device_sparse()     # a rebuild is a step of its own, not the scan's
+        else:
+            vecs = store.device_state()[0]
+            mask, assign = self._slot_mask(builder), self._device_dense()
+        with span("layer.vector.scan"):
+            qprep = preprocess(queries, kind)
+            count_h2d(qprep.nbytes, self._device)
+            q = torch.as_tensor(qprep, device=self._device)
+            count("ivf_sparse_rows", len(qprep) if use_sparse else 0)
+        if use_sparse:
             return self._launch_sparse(q, k_pad, k_eff, nprobe, builder)
 
         cosine = kind == DistanceKind.COSINE
         thr = threshold_scalar(builder._threshold)
         thr_k = thr * thr if kind == DistanceKind.L2 else thr
-        vecs = store.device_state()[0]
         id_map = store.device_id_map()
-        s, i = ivf_topk_pipeline(
-            q, vecs, self._slot_mask(builder), thr_k, self._dev_centroids,
-            self._device_dense(), k_pad, nprobe,
-            coarse_cosine=cosine, cosine=cosine, sqrt_out=kind == DistanceKind.L2,
-        )
+        with span("layer.vector.scan"):
+            s, i = ivf_topk_pipeline(
+                q, vecs, mask, thr_k, self._dev_centroids, assign, k_pad, nprobe,
+                coarse_cosine=cosine, cosine=cosine, sqrt_out=kind == DistanceKind.L2,
+            )
         s, i = s[:, :k_eff], i[:, :k_eff]
         return ("dev", s if builder._wire_scores else None, i, id_map)
 
@@ -377,9 +405,10 @@ class IVFIndex(BaseVectorIndex):
                     dropped, int((ov > 0).sum()), S_new, S_old,
                 )
                 self._sparse_S_hint[(nprobe, k_pad)] = S_new
-                _, s, i, ids, overflow, retry = self._launch_sparse(
-                    q, k_pad, k_eff, nprobe, builder, S_override=S_new)
-                ov = overflow.cpu().numpy()
+                with span("layer.ivf.rescan"):
+                    _, s, i, ids, overflow, retry = self._launch_sparse(
+                        q, k_pad, k_eff, nprobe, builder, S_override=S_new)
+                    ov = overflow.cpu().numpy()
                 dropped = int(ov.sum())
             handle = ("dev", s, i, ids)
         return collect_device_handle(handle)

@@ -207,6 +207,30 @@ def test_h2d_bytes_of_a_one_query_flat_search(dev, filtered):
     assert profiling.per_query("h2d_bytes") == x[7].nbytes + words
 
 
+@pytest.mark.parametrize("route", ["1", "0"])
+def test_h2d_bytes_of_an_ivf_batch(dev, route, monkeypatch):
+    """The copy counter on the IVF path, each route: once the layouts are
+    on the card, a batch copies its queries and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from comet_tpu_torch import IVFIndex
+    from comet_tpu_torch.utils import profiling
+
+    monkeypatch.setenv("COMET_IVF_SPARSE", route)
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 256, size=(5000, 128)).astype(np.float32)
+    idx = IVFIndex(128, 16, DistanceKind.L2, device="cuda")
+    idx.train(x[:2000])
+    idx.add_batch(x, ids=range(1, 5001))
+    q = x[:40] + 0.5
+    idx.search_batch(q, k=10, nprobes=4)     # the layouts go to the card here
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        idx.search_batch(q, k=10, nprobes=4)
+    assert profiling.per_query("h2d_bytes") == q[0].nbytes
+    assert profiling.per_query("ivf_sparse_rows") == (1.0 if route == "1" else 0.0)
+
+
 def test_a_flat_batch_maps_ids_on_the_card_as_the_host_map_did(dev, monkeypatch):
     """A [2048, 100] batch over 2^17 rows whose ids lie at and above 2^31:
     the ids mapped on the card equal the numpy host map of the same slots,

@@ -186,6 +186,111 @@ def test_a_new_profiled_stretch_empties_the_last_and_the_store_is_bounded(indexe
     assert all(r.end is not None for r in profiling.spans())
 
 
+# -- the IVF path ------------------------------------------------------------
+
+IVF_ROUTES = {"sparse": "1", "dense": "0"}
+IVF_TREES = {
+    "sparse": {"layer.vector.search_batch>layer.vector.launch",
+               "layer.vector.launch>layer.vector.scan",
+               "layer.vector.search_batch>layer.vector.collect",
+               "layer.vector.search_batch>layer.vector.results"},
+    "dense": {"layer.vector.search_batch>layer.vector.launch",
+              "layer.vector.launch>layer.vector.mask",
+              "layer.vector.launch>layer.vector.scan",
+              "layer.vector.search_batch>layer.vector.collect",
+              "layer.vector.search_batch>layer.vector.results"},
+}
+
+
+def _ivf(n=600, nlist=16):
+    rng = np.random.default_rng(11)
+    vecs = rng.integers(0, 16, size=(n, D)).astype(np.float32)
+    idx = ct.IVFIndex(D, nlist, ct.DistanceKind.L2, device="cpu")
+    idx.train(vecs)
+    idx.add_batch(vecs, ids=np.arange(1, n + 1, dtype=np.uint32))
+    return idx, vecs
+
+
+def _edges(recs):
+    return {f"{r.parent.name}>{r.name}" for r in recs if r.parent is not None}
+
+
+@pytest.mark.parametrize("route", list(IVF_ROUTES))
+def test_a_profiled_ivf_search_records_its_span_tree_and_route(route, monkeypatch):
+    """The first search builds the route's layout inside `layer.ivf.layout`;
+    once it is current, a batch's tree is the flat batch's, with the
+    queries' copy and each pipeline's enqueue in `layer.vector.scan`, and
+    `ivf_sparse_rows` counts the queries the sparse route served."""
+    monkeypatch.setenv("COMET_IVF_SPARSE", IVF_ROUTES[route])
+    idx, vecs = _ivf()
+    q = vecs[:5] + 0.25
+    first, _ = profiled(lambda: idx.search_batch(q, k=K, nprobes=3))
+    assert "layer.vector.launch>layer.ivf.layout" in _edges(profiling.spans())
+    profiling.clear()
+    again, _ = profiled(lambda: idx.search_batch(q, k=K, nprobes=3))
+    recs = profiling.spans()
+    assert _edges(recs) == IVF_TREES[route]
+    assert sum(r.name == "layer.vector.scan" for r in recs) == 2
+    assert profiling.per_query("ivf_sparse_rows") == (1.0 if route == "sparse" else 0.0)
+    assert profiling.per_query("h2d_bytes") == 0
+    assert not any(r.name == "layer.ivf.rescan" for r in recs)
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_forced_overflow_opens_the_rescan_span_and_counts_it(monkeypatch):
+    """A step budget too small for the probes: the first scan drops chunks,
+    the collect rescans inside `layer.ivf.rescan` (a scan and the wait for
+    its overflow counts), once for each step of the budget's escalation;
+    the rescanned results equal the dense route's."""
+    from comet_tpu_torch.indexes import ivf as ivf_mod
+
+    monkeypatch.setenv("COMET_IVF_SPARSE", "1")
+    idx, vecs = _ivf()
+    q = vecs[:6] + 0.5
+    idx.search_batch(q, k=4, nprobes=7)        # the layout is built here
+    idx._sparse_S_hint.clear()
+    before = idx.stats()
+    profiling.clear()
+    monkeypatch.setattr(ivf_mod.sp, "default_budgets", lambda nprobe, nlist, total, mc: (4, 4, mc))
+    got, _ = profiled(lambda: idx.search_batch(q, k=4, nprobes=7))
+    recs = profiling.spans()
+    rescans = [r for r in recs if r.name == "layer.ivf.rescan"]
+    assert rescans and all(r.parent.name == "layer.vector.collect" for r in rescans)
+    assert {r.name for r in recs if r.parent in rescans} == {"layer.vector.scan"}
+    after = idx.stats()
+    assert after["sparse_overflow_batches"] == before["sparse_overflow_batches"] + 1
+    assert after["sparse_overflow_chunks"] > before["sparse_overflow_chunks"]
+    assert profiling.span_ms("layer.ivf.rescan") > 0
+    monkeypatch.setenv("COMET_IVF_SPARSE", "0")
+    want = idx.search_batch(q, k=4, nprobes=7)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("route", list(IVF_ROUTES))
+def test_the_ivf_query_copy_counts_in_h2d_bytes_for_a_card_and_not_for_the_cpu(
+        route, monkeypatch):
+    """`count_h2d` counts only copies to a CUDA device: a CPU index counts
+    nothing; the same search with the index's copies taken as copies to a
+    card counts the queries' bytes and, with the layouts current, only
+    them."""
+    from comet_tpu_torch.indexes import ivf as ivf_mod
+
+    monkeypatch.setenv("COMET_IVF_SPARSE", IVF_ROUTES[route])
+    idx, vecs = _ivf()
+    q = vecs[:8] + 0.25
+    idx.search_batch(q, k=K, nprobes=3)
+    profiling.clear()
+    profiled(lambda: idx.search_batch(q, k=K, nprobes=3))
+    assert profiling.per_query("h2d_bytes") == 0
+    card = torch.device("cuda")
+    monkeypatch.setattr(ivf_mod, "count_h2d", lambda n, dev: profiling.count_h2d(n, card))
+    profiling.clear()
+    profiled(lambda: idx.search_batch(q, k=K, nprobes=3))
+    assert profiling.per_query("h2d_bytes") == q[0].nbytes
+
+
 def _rec(name, a_ms, b_ms, request, parent=None, **counters):
     return SpanRecord(name, int(a_ms * 1e6), None if b_ms is None else int(b_ms * 1e6),
                       request, parent, counters or None)
@@ -223,7 +328,10 @@ CARDBENCH_TESTS = os.path.join(REPO, "cardbench", "tests")
 SPAN_METRICS = {"flat-batch2048": ["vector_mask_ms", "collect_ms", "results_ms", "unnamed_ms"],
                 "flat-online-k10": ["vector_mask_ms", "collect_ms", "results_ms", "unnamed_ms"],
                 "hybrid-online-rrf": ["text_mask_ms", "vector_mask_ms", "collect_ms",
-                                      "results_ms", "unnamed_ms"]}
+                                      "results_ms", "unnamed_ms"],
+                "ivf-batch2048": ["collect_ms", "results_ms", "unnamed_ms", "rescan_ms",
+                                  "sparse_share"]}
+TINY_NLIST = 32     # the IVF cell's lists at the tiny cells' 4096 rows
 
 
 def _leaf_intervals(events):
@@ -254,6 +362,8 @@ def test_a_tiny_traced_run_of_each_cell_reports_the_span_metrics(cell, monkeypat
     monkeypatch.setattr(trace, "digest", keep_events)
     spec_cell = tiny_cell(cell)
     spec_cell["traffic_spec"]["trace_seconds"] = 0.5
+    if "nlist" in spec_cell["config_spec"]:
+        spec_cell["config_spec"]["nlist"] = TINY_NLIST
     result, _ = run.run(spec_cell, 2 ** 33 + 5, 1.0, True, "cpu")
     listed = spec.reported(cell, True)
     for name in SPAN_METRICS[cell]:
