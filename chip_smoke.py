@@ -376,7 +376,7 @@ def reset_launches():
     sortnet.LAUNCHES = fused_scan.LAUNCHES = fused_scan.NPROBE_LAUNCHES = 0
     sortnet.SPLIT_LAUNCHES = fused_scan.FEWQ_LAUNCHES = 0
     fused_scan.BF16_LAUNCHES = fused_scan.F16_LAUNCHES = fused_scan.INT8_LAUNCHES = 0
-    ivf_sparse.LAUNCHES = ivf_sparse.BF16_LAUNCHES = 0
+    ivf_sparse.LAUNCHES = ivf_sparse.BF16_LAUNCHES = ivf_sparse.COMPACT_LAUNCHES = 0
     beam_kernel.LAUNCHES = beam_kernel.FUSED_LAUNCHES = beam_kernel.SCORE_LAUNCHES = 0
     beam_kernel.PACKED_SCORE_LAUNCHES = beam_kernel.FUSE_LAUNCHES = 0
 
@@ -384,8 +384,9 @@ def reset_launches():
 def read_launches():
     from comet_tpu_torch.ops import beam_kernel, bm25, fused_scan, ivf_sparse, sortnet
 
-    # the split and few-query routes' counts are parts of topk_cl's and of
-    # the fused_dist_select modes' (a checkout without them reads 0)
+    # the split, few-query and compact routes' counts are parts of
+    # topk_cl's, of the fused_dist_select modes' and of sparse_scan's (a
+    # checkout without them reads 0)
     return {"bm25_score": bm25.LAUNCHES,
             "topk_cl": sortnet.LAUNCHES, "fused_dist_select": fused_scan.LAUNCHES,
             "topk_cl_split": getattr(sortnet, "SPLIT_LAUNCHES", 0),
@@ -395,6 +396,7 @@ def read_launches():
             "fused_dist_select_f16": fused_scan.F16_LAUNCHES,
             "fused_dist_select_int8": fused_scan.INT8_LAUNCHES,
             "sparse_scan": ivf_sparse.LAUNCHES, "sparse_scan_bf16": ivf_sparse.BF16_LAUNCHES,
+            "sparse_scan_compact": getattr(ivf_sparse, "COMPACT_LAUNCHES", 0),
             "beam_merge": beam_kernel.LAUNCHES, "beam_merge_fused": beam_kernel.FUSED_LAUNCHES,
             "gather_score": beam_kernel.SCORE_LAUNCHES,
             "gather_score_packed": beam_kernel.PACKED_SCORE_LAUNCHES,
@@ -500,15 +502,22 @@ def build_ivf(corpus, tag):
 
 def k3_section(corpus, queries, dev, tag, time_ms):
     """K3 on an IVF index's cluster-major layout (`build_ivf`, an index of
-    its own) and the batch's own chunk lists (section 2): float32 at
-    nprobe 10 and its default step budget, at the step budget the IVF path
-    learns on this batch, and the bf16 mode at
-    the seed scan's nprobe (nlist / 64) and kb (32) over a bf16 copy of the
-    layout (mask: the float32 value of each row's bf16 squared norm). Each
-    is held array-equal to the plain version (distances and group minima)
-    and timed beside its member share, the (query, step) pairs whose query
-    probes the step's cluster over G x 128 x S. Returns the float32 entry
-    of the kernels line."""
+    its own; the mixture's lists are uneven) and the batch's own chunk
+    lists (section 2). The dense route (kb_cap > 0): float32 at nprobe 10
+    and its default step budget, at the step budget the IVF path learns on
+    this batch, and the bf16 mode at the seed scan's nprobe (nlist / 64)
+    and kb (32) over a bf16 copy of the layout (mask: the float32 value of
+    each row's bf16 squared norm), each held array-equal to the plain
+    version (distances and group minima) and timed beside its member
+    share, the (query, step) pairs whose query probes the step's cluster
+    over G x 128 x S. The compact route (kb_cap = 0, the IVF path's exact
+    search): float32 at nprobe 10 and the learned step budget, its rows
+    and chunk table held array-equal to the plain version, timed with its
+    launch (the wrapper's fills included), on the card alone and the
+    kernel alone; then the whole pipeline at that budget on either route
+    (k = K), outputs array-equal, each timed with its launch and on the
+    card alone. Returns the kernels line's entries: `sparse_scan`, the
+    dense route at the default budget, and `sparse_scan_compact`."""
     from comet_tpu_torch.ops import ivf_sparse as sp
     from comet_tpu_torch.ops.distance import bf16_round
 
@@ -520,12 +529,21 @@ def k3_section(corpus, queries, dev, tag, time_ms):
     print(f"IVF cluster-major layout: {st['nch_total']} chunks of {sp.CHUNK} rows, built in "
           f"{time.perf_counter() - t0:.3f} s")
     q_all = torch.from_numpy(queries).to(dev)
+    g_n = BATCH // sp.QG
 
-    def run(label, nprobe, S=0, bf16=False, kb_cap=0):
+    def plan_of(nprobe, S, kb_cap):
         S0, _, MC = sp.default_budgets(nprobe, NLIST, st["nch_total"], st["max_chunks"])
         S = S or S0
         plan = sp.scan_plan(q_all, ivf._dev_centroids, ivf._order_key, st["chunk_start"],
                             st["nchunks"], 128, nprobe, S, min(S, NLIST), MC, NLIST, False, kb_cap)
+        live = plan["cluster_ids"] >= 0
+        member = (plan["probes"][:, :nprobe].view(g_n, sp.QG, -1, 1)
+                  == plan["cluster_ids"].view(g_n, 1, 1, plan["S"])).any(dim=2)  # [G, QG, S]
+        chunks_read = int(torch.unique(plan["chunk_ids"][live]).numel())
+        return plan, MC, live, member, chunks_read
+
+    def run(label, nprobe, S=0, bf16=False, kb_cap=0):
+        plan, _, live, member, chunks_read = plan_of(nprobe, S, kb_cap)
         S = plan["S"]
         corpus, mask, qn = st["corpus"], st["mask_vec"], None
         if bf16:
@@ -542,11 +560,6 @@ def k3_section(corpus, queries, dev, tag, time_ms):
         del dist, gmin, pdist, pgmin
         ms = time_ms(lambda: sp._sparse_scan_cuda(*scan, inf, False, qn))
         pms = time_ms(lambda: sp._sparse_scan_plain(*scan, inf, False, qn))
-        g_n = BATCH // sp.QG
-        live = plan["cluster_ids"] >= 0
-        member = (plan["probes"].view(g_n, sp.QG, -1, 1)
-                  == plan["cluster_ids"].view(g_n, 1, 1, S)).any(dim=2)     # [G, QG, S]
-        chunks_read = int(torch.unique(plan["chunk_ids"][live]).numel())
         esize = 2 if bf16 else 4
         # queries (and their norms), probes and chunk lists, each listed
         # chunk and its mask read once; dist and the group minima written
@@ -555,13 +568,71 @@ def k3_section(corpus, queries, dev, tag, time_ms):
                                               + BATCH * 2 * S)
                    + chunks_read * sp.CHUNK * (esize * DIM + 4))
         b = bound(n_bytes, 2 * DIM * float(member.sum()) * sp.CHUNK)
-        print(f"K3 {label}, {BATCH} queries, S={S} ({int(live.sum())} of {g_n * S} steps live, "
-              f"{chunks_read} chunks, member share {float(member.float().mean()):.4f}): dist and "
-              f"group minima equal to plain ({n_fin} finite entries); kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms; bound {b[0]:.3f} ms ({b[1]}) {tag}")
+        print(f"K3 dense route, {label}, {BATCH} queries, S={S} ({int(live.sum())} of {g_n * S} "
+              f"steps live, {chunks_read} chunks, member share {float(member.float().mean()):.4f})"
+              f": dist and group minima equal to plain ({n_fin} finite entries); kernel {ms:.3f} "
+              f"ms, plain {pms:.3f} ms; bound {b[0]:.3f} ms ({b[1]}) {tag}")
         return dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None, bound=b)
 
-    entry = run("float32, nprobe 10", 10)
+    def run_compact(label, nprobe, S):
+        plan, MC, live, member, chunks_read = plan_of(nprobe, S, 0)
+        S = plan["S"]
+        wc = sp.compact_width(nprobe, MC)
+        args = (plan["qsorted"], st["corpus"], st["mask_vec"], plan["probes"], plan["chunk_ids"],
+                plan["cluster_ids"], st["chunk_start"], st["nchunks"], nprobe, MC, wc, inf, False)
+        cand, tab = sp._compact_scan_cuda(*args)
+        pcand, ptab = sp._compact_scan_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(cand, pcand) and torch.equal(tab, ptab)):
+            raise AssertionError(f"K3's compact route, {label}, differs from its plain version")
+        n_fin = int(torch.isfinite(pcand).sum())
+        del cand, tab, pcand, ptab
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: sp._compact_scan_cuda(*args))
+        call_us = queued_device_ms(lambda: sp._compact_scan_cuda(*args)) * 1e3
+        kernel_us = device_us(lambda: sp._compact_scan_cuda(*args), ["compact_scan_kernel"])[0]
+        pms = time_ms(lambda: sp._compact_scan_plain(*args))
+        pairs = int(member.sum())
+        # queries and their norms, probes, the walk's start table, the
+        # layout's chunk starts and counts, each chunk a walk reaches and
+        # its mask read once; the rows and the chunk table written once
+        n_bytes = (4 * (BATCH * DIM + BATCH + BATCH * plan["probes"].shape[1]
+                        + g_n * (NLIST + 1) + 2 * NLIST + 1 + BATCH * wc * (sp.CHUNK + 1))
+                   + chunks_read * sp.CHUNK * (4 * DIM + 4))
+        b = bound(n_bytes, 2 * DIM * pairs * sp.CHUNK)
+        print(f"K3 compact route, {label}, {BATCH} queries, S={S}, MC={MC}, row {wc} chunks "
+              f"({int(live.sum())} of {g_n * S} steps live, {chunks_read} chunks, {pairs} member "
+              f"(query, chunk) pairs, {pairs / BATCH:.1f} a query): rows and chunk table equal to "
+              f"plain ({n_fin} finite entries); {ms:.3f} ms with its launch and fills, device "
+              f"{call_us:.1f} us a call, kernel alone {kernel_us:.1f} us; plain {pms:.3f} ms; "
+              f"bound {b[0]:.3f} ms ({b[1]}) {tag}")
+        return dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None, bound=b), S, MC
+
+    def pipelines(nprobe, S, MC):
+        def pipe(kb_cap):
+            return sp.ivf_sparse_pipeline(
+                q_all, st["corpus"], st["mask_vec"], st["row_slot"], inf, ivf._dev_centroids,
+                ivf._order_key, st["chunk_start"], st["nchunks"], K, nprobe, S, min(S, NLIST),
+                MC, NLIST, sqrt_out=True, kb_cap=kb_cap)
+
+        # kb_cap = K keeps every selection group the exact search keeps
+        # (k_pow2(K)), so the dense route answers the same search
+        got, want = pipe(0), pipe(K)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("the IVF pipeline's compact route differs from its dense route")
+        probes = plan_of(nprobe, S, 0)[0]["probes"][:, :nprobe].long()
+        nch = st["nchunks"].long()[probes].sum(dim=1)   # each query's probed chunks
+        times = {route: (time_ms(lambda: pipe(cap)), queued_device_ms(lambda: pipe(cap), reps=10))
+                 for route, cap in (("compact", 0), ("dense", K))}
+        print(f"IVF pipeline, nprobe {nprobe}, S={S}, k={K}: the compact route (row "
+              f"{sp.compact_width(nprobe, MC)} chunks; a query probes "
+              f"{float(nch.float().mean()):.1f} chunks on average, {int(nch.max())} at most) "
+              f"equal to the dense route; "
+              + ", ".join(f"{r} {t[0]:.3f} ms with launch, device {t[1]:.3f} ms a call"
+                          for r, t in times.items()) + f" {tag}")
+
+    dense = run("float32, nprobe 10", 10)
     # the IVF path's first batch learns its step budget, the one budget the
     # index then holds, where a group's probes overflowed the default
     ivf.search_batch(queries, k=K, nprobes=10)
@@ -573,10 +644,13 @@ def k3_section(corpus, queries, dev, tag, time_ms):
         run("float32, nprobe 10, the step budget the IVF path learned", 10, S=learned[0])
     else:
         print("the IVF path learned no step budget on this batch (no overflow)")
+    compact, S, MC = run_compact("float32, nprobe 10, the IVF path's step budget", 10,
+                                 learned[0] if learned else 0)
+    pipelines(10, S, MC)
     run(f"bf16 mode, nprobe {NLIST // 64}, kb 32", NLIST // 64, bf16=True, kb_cap=32)
     del q_all, st, ivf
     torch.cuda.empty_cache()
-    return entry
+    return {"sparse_scan": dense, "sparse_scan_compact": compact}
 
 
 def merge_compares(ef, ew):
@@ -1074,7 +1148,7 @@ def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, 
           f"differ)")
     print(f"kernel launches of the IVF path ({len(NPROBES) * (1 + ROUNDS) + 4} L2 and 1 "
           f"cosine search_batch calls{', profile included' if profile else ''}): {launches}")
-    for key in ("topk_cl", "fused_dist_select_nprobe", "sparse_scan"):
+    for key in ("topk_cl", "fused_dist_select_nprobe", "sparse_scan", "sparse_scan_compact"):
         if launches[key] <= 0:
             raise AssertionError(f"a kernel of the IVF path never launched: {launches}")
     del c_ivf, c_vecs, c_valid, qc
@@ -1522,6 +1596,7 @@ class uncounted:
         fused_scan.F16_LAUNCHES = s["fused_dist_select_f16"]
         fused_scan.INT8_LAUNCHES = s["fused_dist_select_int8"]
         ivf_sparse.LAUNCHES, ivf_sparse.BF16_LAUNCHES = s["sparse_scan"], s["sparse_scan_bf16"]
+        ivf_sparse.COMPACT_LAUNCHES = s["sparse_scan_compact"]
         beam_kernel.LAUNCHES = s["beam_merge"]
         beam_kernel.FUSED_LAUNCHES = s["beam_merge_fused"]
         beam_kernel.SCORE_LAUNCHES = s["gather_score"]
@@ -3337,7 +3412,7 @@ def main():
     report.update(k2_fewq_section(x_dev, queries, dev, tag, time_ms))
 
     # K3 on the IVF layout, K4 and K5 on a beam state made from the seed
-    report["sparse_scan"] = k3_section(corpus, queries, dev, tag, time_ms)
+    report.update(k3_section(corpus, queries, dev, tag, time_ms))
     beam_section(x_dev, queries, args.seed, dev, tag, time_ms)
     if args.kernels_only:
         return
@@ -3526,7 +3601,11 @@ def main():
               l8["fused_dist_select_int8"]),
         entry("sparse_scan", "comet_tpu_torch/csrc/ivf_sparse.cu",
               "comet_tpu/ops/ivf_sparse.py:215", "sparse_scan",
-              il["sparse_scan"] + pql["sparse_scan"]),
+              il["sparse_scan"] + pql["sparse_scan"] - il["sparse_scan_compact"]
+              - pql.get("sparse_scan_compact", 0)),
+        entry("sparse_scan_compact", "comet_tpu_torch/csrc/ivf_sparse.cu",
+              "comet_tpu/ops/ivf_sparse.py:215", "sparse_scan_compact",
+              il["sparse_scan_compact"] + pql.get("sparse_scan_compact", 0)),
         entry("sparse_scan_bf16", "comet_tpu_torch/csrc/ivf_sparse.cu",
               "comet_tpu/ops/ivf_sparse.py:237", "sparse_scan_bf16", hl["sparse_scan_bf16"]),
         entry("beam_merge", "comet_tpu_torch/csrc/beam_merge.cu",

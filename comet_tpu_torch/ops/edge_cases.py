@@ -349,16 +349,28 @@ def k3_case(layout: str, d: int, seed: int = 0):
 
 def check_k3(dev: torch.device, layout: str, d: int, seed: int = 0) -> float:
     """K3 in both modes, L2 and cosine, without and with a threshold (the
-    median finite distance), against its plain version on one `k3_case`:
-    dist and the group minima array-equal (float32 cosine allclose(1e-5,
-    1e-6), flips only at the threshold), one launch a scan counted in the
-    mode's counter. Returns the largest absolute error of a finite entry."""
+    median finite distance), on both routes, against its plain version on
+    one `k3_case`: dist and the group minima (dense route), the compact
+    rows and their chunk table (compact route) array-equal (float32 cosine
+    allclose(1e-5, 1e-6), flips only at the threshold), one launch a scan
+    counted in the mode's counter. The compact route, one block a chunk,
+    needs a chunk to belong to one cluster: it reads the layout with step
+    s naming cluster s + 1 and that cluster owning chunk s alone (every
+    other cluster empty), so the members of a chunk are those of its step
+    in both groups (up to 256). Returns the largest absolute error of a
+    finite entry."""
     qn_, xn, valid, probes, chunk_ids, cluster_ids = k3_case(layout, d, seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     inf = torch.tensor(float("inf"), device=dev)
     zero = torch.zeros((), device=dev)
     q, x, ok = t(qn_), t(xn), t(valid)
     lists = (t(probes), t(chunk_ids), t(cluster_ids))
+    nlist, s_n = 64, chunk_ids.shape[1]
+    nchunks = np.zeros(nlist, np.int32)
+    nchunks[1:s_n + 1] = 1
+    chunk_start = np.concatenate([[0], np.cumsum(nchunks)]).astype(np.int32)
+    own = (t(np.tile(np.arange(s_n, dtype=np.int32), (len(chunk_ids), 1))), lists[2])
+    compact = (t(chunk_start), t(nchunks), K3_P, 1, ivf_sparse.compact_width(K3_P, 1))
     xc = x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(1.0)
     qc = q / torch.linalg.vector_norm(q, dim=1, keepdim=True).clamp_min(1.0)
     g = np.random.default_rng((seed, d))
@@ -382,18 +394,26 @@ def check_k3(dev: torch.device, layout: str, d: int, seed: int = 0) -> float:
             counter = "BF16_LAUNCHES" if xx.dtype == torch.bfloat16 else "LAUNCHES"
             before = getattr(ivf_sparse, counter)
             dist, gmin = ivf_sparse._sparse_scan_cuda(qq, xx, mask, *lists, thr, cosine, qn)
-            if getattr(ivf_sparse, counter) != before + 1:
-                raise AssertionError(f"K3 {name} did not count one launch")
+            cand, tab = ivf_sparse._compact_scan_cuda(qq, xx, mask, lists[0], *own, *compact,
+                                                      thr, cosine, qn)
+            if getattr(ivf_sparse, counter) != before + 2:
+                raise AssertionError(f"K3 {name} did not count one launch a route")
             pdist, pgmin = ivf_sparse._sparse_scan_plain(qq, xx, mask, *lists, thr, cosine, qn)
+            pcand, ptab = ivf_sparse._compact_scan_plain(qq, xx, mask, lists[0], *own, *compact,
+                                                         thr, cosine, qn)
             where = f"{name} on the {layout!r} layout, d={d}, threshold {thr:g}"
             dead = (lists[2] < 0).repeat_interleave(ivf_sparse.CHUNK, dim=1)[:, None, :]
             if not torch.isinf(dist[dead.expand_as(dist)]).all():
                 raise AssertionError(f"K3 {where}: a dead step came out finite")
+            if not torch.equal(tab, ptab):
+                raise AssertionError(f"K3 {where}: the compact route's chunk table differs")
             if exact:
                 if not (torch.equal(dist, pdist) and torch.equal(gmin, pgmin)):
                     raise AssertionError(f"K3 {where} differs from its plain version")
+                if not torch.equal(cand, pcand):
+                    raise AssertionError(f"K3 {where}: the compact rows differ from plain")
                 continue
-            for got, want in ((dist, pdist), (gmin, pgmin)):
+            for got, want in ((dist, pdist), (gmin, pgmin), (cand, pcand)):
                 both = torch.isfinite(got) & torch.isfinite(want)
                 torch.testing.assert_close(got[both], want[both], rtol=1e-5, atol=1e-6)
                 flip = torch.isfinite(got) != torch.isfinite(want)
@@ -403,6 +423,124 @@ def check_k3(dev: torch.device, layout: str, d: int, seed: int = 0) -> float:
                 if both.any():
                     err = max(err, (got[both] - want[both]).abs().max().item())
     return err
+
+
+# The compact route against the dense route, whole pipelines on one layout:
+# (name, what it exercises)
+K3_ROUTE_LAYOUTS = (
+    "dead steps",      # an ample step budget: most steps of a group dead
+    "overflow",        # a step budget the groups overflow (the rescan path's input)
+    "empty probes",    # queries whose probed clusters are all empty
+    "threshold",       # a threshold that drops rows
+    "filter",          # a doc-ID filter: every third slot masked
+    "narrow",          # a compact row narrower than k_pow2(k): one probe of one chunk
+    "ragged",          # 200 queries, padded to two groups
+    "ties",            # 0/1 vectors: 29 or more equal distances across the 128th place
+)
+K3_ROUTE_CASES = tuple(itertools.product(K3_ROUTE_LAYOUTS, (3, 20, 100, 128), (False, True)))
+
+
+def k3_route_case(layout: str, d: int, seed: int = 0) -> dict:
+    """One IVF layout for both routes, numpy: integer rows (0..255, or 0/1
+    for "ties") in clusters of 0-3 chunks (one chunk for "narrow"), integer
+    centroids, every third cluster's rows scattered so that lists overlap
+    in distance, and the pipeline's arguments: x [N, d], slot_ok [N] (the
+    filter), centroids, assign, queries, k, nprobe, S, thr."""
+    g = np.random.default_rng((seed, K3_ROUTE_LAYOUTS.index(layout), d))
+    nlist, hi = 24, (2 if layout == "ties" else 256)
+    sizes = g.integers(0, 700, size=nlist)
+    if layout == "narrow":
+        sizes = g.integers(1, 257, size=nlist)
+    sizes[5] = 0
+    cents = g.integers(0, hi, size=(nlist, d)).astype(np.float32)
+    if layout == "empty probes":
+        sizes[:4] = 0
+        cents[1:4] = cents[0]
+        cents[1:4, 0] = np.minimum(cents[0, 0] + np.arange(1, 4), 255)
+    assign = np.repeat(np.arange(nlist), sizes).astype(np.int32)
+    q_n = 200 if layout == "ragged" else 256
+    q = cents[g.integers(0, nlist, size=q_n)]
+    if hi > 2:
+        x = np.clip(cents[assign] + g.integers(-40, 41, size=(len(assign), d)), 0, hi - 1)
+        q = np.clip(q + g.integers(-30, 31, size=q.shape), 0, hi - 1)
+    else:   # a tenth of the bits flipped
+        x = np.abs(cents[assign] - (g.random((len(assign), d)) < 0.1))
+        q = np.abs(q - (g.random(q.shape) < 0.1))
+    spread = assign % 3 == 0
+    x[spread] = g.integers(0, hi, size=(int(spread.sum()), d))
+    if layout == "empty probes":
+        q[:9] = cents[0]
+    slot_ok = np.ones(len(x), bool)
+    if layout == "filter":
+        slot_ok[::3] = False
+    return dict(x=x.astype(np.float32), slot_ok=slot_ok, cents=cents, assign=assign,
+                q=q.astype(np.float32), k={"narrow": 300, "overflow": 16}.get(layout, 100),
+                nprobe={"narrow": 1, "empty probes": 4, "overflow": 6}.get(layout, 3),
+                S=8 if layout == "overflow" else 128,
+                thr=float(900 * d) if layout == "threshold" else INF)
+
+
+def check_k3_routes(dev: torch.device, layout: str, d: int, bf16: bool, seed: int = 0):
+    """The compact route (kb_cap = 0) against the dense route (kb_cap = k,
+    which keeps every selection group the exact search needs) through
+    `ivf_sparse_pipeline` on one `k3_route_case`: scores, slots and
+    overflow array-equal, boundary ties included; in the bf16 mode (HNSW's
+    exact seed scan) over the bf16 corpus. On the card each route launches
+    K3 once. Returns (scores, slots, overflow) of the compact route."""
+    c = k3_route_case(layout, d, seed)
+    lay = ivf_sparse.build_cluster_major(c["assign"], len(c["cents"]))
+    perm = lay["perm"]
+    pc = np.maximum(perm, 0)
+    ok = (perm >= 0) & c["slot_ok"][pc]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    xr = t(c["x"][pc])
+    sq = (xr * xr).sum(dim=1)
+    corpus = xr
+    if bf16:
+        corpus, sq = xr.to(torch.bfloat16), bf16_round(sq)
+    mask = torch.where(t(ok), sq, torch.full_like(sq, INF))
+    nlist = len(c["cents"])
+    S, k = c["S"], c["k"]
+    args = (t(c["q"]), corpus, mask, t(perm), c["thr"], t(c["cents"]),
+            t(np.arange(nlist, dtype=np.int32) % 5), t(lay["chunk_start"]), t(lay["nchunks"]),
+            k, c["nprobe"], S, min(S, nlist), lay["max_chunks"], nlist)
+    out = {}
+    for route, kb_cap in (("compact", 0), ("dense", k)):
+        counter = "BF16_LAUNCHES" if bf16 else "LAUNCHES"
+        before = getattr(ivf_sparse, counter)
+        out[route] = ivf_sparse.ivf_sparse_pipeline(
+            *args, sqrt_out=True, bf16_domain=bf16, kb_cap=kb_cap)
+        if dev.type == "cuda" and getattr(ivf_sparse, counter) != before + 1:
+            raise AssertionError(f"K3 {route} route did not launch once")
+    where = f"{layout!r}, d={d}, {'bf16' if bf16 else 'float32'}"
+    for name, got, want in zip(("scores", "slots", "overflow"), out["compact"], out["dense"]):
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 routes on {where}: the {name} differ")
+    s, i, ov = (a.cpu().numpy() for a in out["compact"])
+    hit = i != ivf_sparse.IDX_SENTINEL
+    checks = {
+        "overflow": ov.max() > 0,
+        "empty probes": (~hit[:9]).all() and hit[9:].any(),
+        "threshold": (~hit).any() and hit.any(),
+        "filter": hit.any() and (i[hit] % 3 != 0).all(),
+        "narrow": (~hit).any(),
+    }
+    if not checks.get(layout, ov.max() == 0 and hit.any()):
+        raise AssertionError(f"K3 routes on {where}: the layout missed its case")
+    if layout == "ties":
+        # the exact distances of each query's probed rows, in float64
+        probes = fused_scan.coarse_probes(args[0], args[5], c["nprobe"], False,
+                                          fused_scan.probe_pad(c["nprobe"])).cpu().numpy()
+        x64, q64 = c["x"].astype(np.float64), c["q"].astype(np.float64)
+        widest = 0
+        for r in range(len(q64)):
+            rows = np.flatnonzero(np.isin(c["assign"], probes[r]))
+            dd = np.sort(((x64[rows] - q64[r]) ** 2).sum(axis=1))
+            if len(dd) > 128:
+                widest = max(widest, int((dd == dd[127]).sum()))
+        if widest < 29:
+            raise AssertionError(f"K3 routes on {where}: {widest} ties at the 128th place")
+    return out["compact"]
 
 
 # -- K4 ---------------------------------------------------------------------------

@@ -10,18 +10,30 @@ tracks nprobe:
      (`cluster_order_key`) and cut into groups of QG = 128, so the queries
      of a group probe overlapping clusters.
   3. `_group_chunk_lists` gives every group its deduplicated list of S
-     chunks, ordered by best probe rank; steps past the group's need are
-     dead (cluster id -1).
-  4. `_sparse_scan` computes, per (group, step), the [128 queries x 256
-     rows] distance tile of the listed chunk with the reference's epilogue,
-     +inf for every query that does not probe the chunk's cluster, and the
-     minima of the tile's two 128-row selection groups. On a CUDA tensor
-     the kernel of `csrc/ivf_sparse.cu` does it (see the note there),
-     counted in `LAUNCHES`; on a CPU tensor `_sparse_scan_plain`. K1 then
-     picks each query's top-kb groups by (minimum, scan position), which is
-     the set and order the reference kernel's running selection keeps.
-  5. The kept groups' distances are gathered and reduced to the top-k by
-     K1; local row -> cluster-major row -> slot; a (score, slot) sort
+     chunks, ordered by best probe rank (the scan order); steps past the
+     group's need are dead (cluster id -1).
+  4. K3 computes, for each query that probes a listed chunk's cluster, the
+     chunk's 256 distances with the reference's epilogue, on one of two
+     routes that `_pipeline` picks by kb_cap alone (no setting):
+     - compact (kb_cap == 0, the exact top-k: IVF's search, IVFPQ without
+       nrefine, HNSW's seed scan with seed_kb < 0; `_compact_scan`): each
+       query's distances go to a row of its own at places in scan order
+       (`_compact_places`), W = nprobe x MC x 256 wide, +inf where nothing
+       was scanned, with the chunk of each place; K1 then selects each
+       row's top k directly, ties to the lower position, which are the
+       candidates, in the same tie order, that the dense route keeps.
+     - dense (kb_cap > 0: HNSW's default seed scan, IVFPQ's nrefine
+       shortlist; `_sparse_scan`): the [G, QG, S x 256] tile of every
+       listed chunk, +inf for every query that does not probe it, and the
+       minima of each chunk's two 128-row selection groups. K1 picks each
+       query's top-kb groups by (minimum, scan position), the set and
+       order the reference kernel's running selection keeps, then their
+       distances are gathered and reduced to the top-k by K1.
+     On a CUDA tensor the kernels of `csrc/ivf_sparse.cu` run (see the note
+     there: what bounds each route), counted in `LAUNCHES` (the compact
+     route's also in `COMPACT_LAUNCHES`, a part of it); on a CPU tensor
+     `_compact_scan_plain` and `_sparse_scan_plain`.
+  5. Position -> chunk -> cluster-major row -> slot; a (score, slot) sort
      within the k_pow2 candidates; the inverse query permutation.
 
 Exactness and divergences are the reference's: distances are float32, the
@@ -29,7 +41,8 @@ top-k SET is exact within the scanned chunks, score ties at the k-th
 boundary break by scan order and not slot order, and a group's walk is
 budgeted at S steps and UC distinct clusters; the returned per-group
 overflow counts every chunk dropped, and indexes/ivf.py rescans with a
-larger S until it is zero.
+larger S until it is zero. S sizes the dense route's tile, and only the
+walk on the compact route.
 
 The bf16 mode (`bf16_domain=True`, HNSW's seed scan) scores bf16 queries
 against a bf16 cluster-major corpus with float32 accumulation, float32
@@ -63,9 +76,11 @@ QG = 128         # queries per kernel group
 BIG = 2**30
 DEFAULT_MEM_GB = 8.0   # see `_mem_envelope_bytes`
 
-# Kernel launches made by `_sparse_scan_cuda`: float32 mode, bf16 mode.
+# K3's launches on either route: float32 mode, bf16 mode; and of the
+# float32 launches, those of the compact route (`_compact_scan_cuda`).
 LAUNCHES = 0
 BF16_LAUNCHES = 0
+COMPACT_LAUNCHES = 0
 
 
 # -- layout (host) ---------------------------------------------------------------
@@ -281,16 +296,11 @@ def _sparse_scan_cuda(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
     return dist, gmin
 
 
-def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
-                 threshold: float, kb: int, cosine: bool = False,
-                 bf16_domain: bool = False, qn=None):
-    """Distances of the listed chunks and each query's top-kb selection
-    groups. The corpus is float32, or bfloat16 with `bf16_domain`; `qn`
-    (float32 [G * QG]) gives the queries' squared norms, else they are
-    computed from qsorted. Returns (dist [G, QG, S * CHUNK] float32, gsel
-    [G, QG, kb] int32: group positions 2 s + h in (group minimum, position)
-    order)."""
-    g_n, s_n = chunk_ids.shape
+def _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
+                bf16_domain: bool, qn, extra=()):
+    """Raises ValueError unless the scan's inputs have the shapes, dtypes
+    and device K3 takes; `extra` adds (name, tensor, dtype) checks."""
+    g_n = chunk_ids.shape[0]
     if qsorted.ndim != 2 or qsorted.shape[0] != g_n * QG:
         raise ValueError(f"qsorted must be [{g_n * QG}, d], got {tuple(qsorted.shape)}")
     d = qsorted.shape[1]
@@ -307,7 +317,8 @@ def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
     corpus_dt = torch.bfloat16 if bf16_domain else torch.float32
     checks = [("qsorted", qsorted, torch.float32), ("corpus", corpus, corpus_dt),
               ("mask_vec", mask_vec, torch.float32), ("probes", probes, torch.int32),
-              ("chunk_ids", chunk_ids, torch.int32), ("cluster_ids", cluster_ids, torch.int32)]
+              ("chunk_ids", chunk_ids, torch.int32), ("cluster_ids", cluster_ids, torch.int32),
+              *extra]
     if qn is not None:
         checks.append(("qn", qn, torch.float32))
     for name, t, dt in checks:
@@ -315,6 +326,19 @@ def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
             raise ValueError(f"{name} must be {dt}, got {t.dtype}")
         if t.device != qsorted.device:
             raise ValueError(f"{name} is on {t.device}, qsorted on {qsorted.device}")
+
+
+def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
+                 threshold: float, kb: int, cosine: bool = False,
+                 bf16_domain: bool = False, qn=None):
+    """The dense route: distances of the listed chunks and each query's
+    top-kb selection groups. The corpus is float32, or bfloat16 with
+    `bf16_domain`; `qn` (float32 [G * QG]) gives the queries' squared
+    norms, else they are computed from qsorted. Returns (dist [G, QG, S *
+    CHUNK] float32, gsel [G, QG, kb] int32: group positions 2 s + h in
+    (group minimum, position) order)."""
+    g_n, s_n = chunk_ids.shape
+    _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, bf16_domain, qn)
     if not 1 <= kb <= 2 * s_n:
         raise ValueError(f"kb={kb} outside [1, {2 * s_n}]")
     thr = float(np.float32(threshold))
@@ -325,6 +349,138 @@ def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
         dist, gmin = _sparse_scan_cuda(*args, thr, cosine, qn)
     gsel = topk_rows(gmin.view(g_n * QG, 2 * s_n), None, kb)[1][:, :kb]
     return dist, gsel.reshape(g_n, QG, kb)
+
+
+# -- the compact route: K3 writes only the probed rows --------------------------------
+
+
+def compact_width(nprobe: int, MC: int) -> int:
+    """Chunk places of a compact row: every chunk a query can probe, at most
+    MC in each of its nprobe clusters."""
+    return max(nprobe * MC, 1)
+
+
+def _walk_starts(cluster_ids, nlist: int):
+    """[G, nlist + 1] int32: the step at which each cluster's chunks start
+    in its group's walk, BIG where the walk does not reach it (a dead step,
+    -1, lands in the spare column nlist). Chunk i of cluster c is step
+    starts[g, c] + i, so it is scanned for group g where that step is
+    below S."""
+    g_n, s_n = cluster_ids.shape
+    dev = cluster_ids.device
+    starts = torch.full((g_n, nlist + 1), BIG, dtype=torch.int32, device=dev)
+    steps = torch.arange(s_n, dtype=torch.int32, device=dev).expand(g_n, s_n)
+    return starts.scatter_reduce_(1, cluster_ids.long() % (nlist + 1), steps, "amin")
+
+
+def _compact_places(probes, starts, nchunks, MC: int):
+    """[Q, n] int32: the place, in its query's compact row, of the first
+    chunk of each of the query's n probes (the coarse stage's first n
+    columns: distinct clusters), from the walk's `_walk_starts`. A query's
+    places follow its group's scan order (the order of the clusters in the
+    group's walk, then the chunk within the cluster), so a row's position
+    order is the dense tile's position order restricted to the query's own
+    chunks: a probe's place is the sum of min(chunk count, MC) over the
+    query's probes that the walk takes earlier. K3 works each place out
+    itself; this is its plain version."""
+    pl = probes.long()
+    key = starts.repeat_interleave(QG, dim=0).gather(1, pl)
+    _, order = torch.sort(key, dim=1, stable=True)
+    nch = nchunks.clamp_max(MC)[pl.gather(1, order)].long()
+    places = torch.empty_like(nch).scatter_(1, order, nch.cumsum(dim=1) - nch)
+    return places.to(torch.int32)
+
+
+def _compact_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, chunk_start,
+                        nchunks, n_places: int, MC: int, wc: int, thr: float, cosine: bool,
+                        qn=None):
+    """Plain PyTorch version of K3's compact route: the dense route's
+    distances, each member (query, step) tile moved to its place; a query's
+    member test reads its first n_places probes. Returns (cand [G * QG, wc
+    * CHUNK] float32, +inf where nothing was scanned, chunk_tab [G * QG,
+    wc] int32, the chunk of each place, 0 where none)."""
+    dist, _ = _sparse_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
+                                 thr, cosine, qn)
+    g_n, s_n = chunk_ids.shape
+    q_n = g_n * QG
+    dev = qsorted.device
+    places = _compact_places(probes[:, :n_places], _walk_starts(cluster_ids, len(nchunks)),
+                             nchunks, MC)
+    hit = probes.view(g_n, QG, -1, 1) == cluster_ids.view(g_n, 1, 1, s_n)   # [G, QG, P, S]
+    first = hit.to(torch.int8).argmax(dim=2)            # each query's first probe of the cluster
+    within = chunk_ids.long() - chunk_start.long()[cluster_ids.long().clamp_min(0)]   # [G, S]
+    place = (places.view(g_n, QG, n_places).long().gather(2, first.clamp_max(n_places - 1))
+             + within[:, None, :])
+    keep = hit.any(dim=2) & (first < n_places) & (place < wc)
+    g, r, st = keep.nonzero(as_tuple=True)
+    row, at = g * QG + r, place[keep]
+    cand = torch.full((q_n, wc, CHUNK), float("inf"), dtype=torch.float32, device=dev)
+    cand[row, at] = dist.view(g_n, QG, s_n, CHUNK)[g, r, st]
+    chunk_tab = torch.zeros((q_n, wc), dtype=torch.int32, device=dev)
+    chunk_tab[row, at] = chunk_ids[g, st]
+    return cand.view(q_n, wc * CHUNK), chunk_tab
+
+
+def _compact_scan_cuda(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, chunk_start,
+                       nchunks, n_places: int, MC: int, wc: int, thr: float, cosine: bool,
+                       qn=None):
+    """Launch K3's compact route (the bf16 mode for a bfloat16 corpus), one
+    block a chunk of the corpus. Returns (cand [G * QG, wc * CHUNK],
+    chunk_tab [G * QG, wc])."""
+    global LAUNCHES, BF16_LAUNCHES, COMPACT_LAUNCHES
+    lib = _build.library()
+    g_n, s_n = chunk_ids.shape
+    d = qsorted.shape[1]
+    dev = qsorted.device
+    nlist = len(nchunks)
+    if qn is None:
+        qn = (qsorted * qsorted).sum(dim=1)
+    bf16 = corpus.dtype == torch.bfloat16
+    q = qsorted.to(torch.bfloat16).contiguous() if bf16 else qsorted
+    qn = qn.contiguous()
+    starts = _walk_starts(cluster_ids, nlist)
+    cand = torch.full((g_n * QG, wc * CHUNK), float("inf"), dtype=torch.float32, device=dev)
+    chunk_tab = torch.zeros((g_n * QG, wc), dtype=torch.int32, device=dev)
+    code = lib.comet_sparse_scan_compact(
+        q.data_ptr(), qn.data_ptr(), corpus.data_ptr(), mask_vec.data_ptr(),
+        probes.data_ptr(), probes.shape[1], n_places, starts.data_ptr(), chunk_start.data_ptr(),
+        nchunks.data_ptr(), nlist, MC, thr, g_n, s_n, corpus.shape[0] // CHUNK, d,
+        int(cosine), int(bf16), wc, cand.data_ptr(), chunk_tab.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    with _build.COUNT_LOCK:
+        if bf16:
+            BF16_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+            COMPACT_LAUNCHES += 1
+    _build.check(code, "sparse_scan_compact")
+    return cand, chunk_tab
+
+
+def _compact_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, chunk_start,
+                  nchunks, n_places: int, MC: int, wc: int, threshold: float,
+                  cosine: bool = False, bf16_domain: bool = False, qn=None):
+    """The compact route: each probing query's distances at its own places
+    (`_compact_places`), as `_sparse_scan` takes its inputs, plus the
+    layout's chunk_start [nlist + 1] and nchunks [nlist] (int32), the
+    probes a row has places for (n_places: the coarse stage's nprobe), MC
+    and the row's places wc. Returns (cand [G * QG, wc * CHUNK] float32,
+    chunk_tab [G * QG, wc] int32): a candidate at position i of its row
+    lies in row chunk_tab[q, i // CHUNK] * CHUNK + i % CHUNK of the
+    cluster-major corpus."""
+    _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, bf16_domain, qn,
+                (("chunk_start", chunk_start, torch.int32), ("nchunks", nchunks, torch.int32)))
+    if chunk_start.shape != (len(nchunks) + 1,):
+        raise ValueError(f"chunk_start must be [{len(nchunks) + 1}], "
+                         f"got {tuple(chunk_start.shape)}")
+    if not 1 <= n_places <= probes.shape[1] or MC < 1 or wc < 1:
+        raise ValueError(f"n_places={n_places} (of {probes.shape[1]}), MC={MC}, wc={wc}")
+    thr = float(np.float32(threshold))
+    args = [t.contiguous() for t in (qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
+                                     chunk_start, nchunks)]
+    fn = _compact_scan_plain if use_plain(qsorted) else _compact_scan_cuda
+    return fn(*args, n_places, MC, wc, thr, cosine, qn)
 
 
 # -- the pipeline -------------------------------------------------------------------
@@ -363,21 +519,29 @@ def _pipeline(q, qn, corpus, mask_vec, row_slot, thr, centroids, order_key,
     plan = scan_plan(q, centroids, order_key, chunk_start, nchunks, k, nprobe,
                      S, UC, MC, nlist, coarse_cosine, kb_cap)
     qperm, chunk_ids, kb, S = plan["qperm"], plan["chunk_ids"], plan["kb"], plan["S"]
-    dist, gsel = _sparse_scan(plan["qsorted"], corpus, mask_vec, plan["probes"], chunk_ids,
-                              plan["cluster_ids"], thr, kb, cosine, bf16_domain,
-                              qn[qperm] if qn is not None else None)
-
-    # candidate stage, every group at once (the flat pipeline's structure)
-    d3 = dist.view(q_n, 2 * S, SEL_GROUP)
-    gs = gsel.view(q_n, kb)
-    cand = torch.gather(d3, 1, gs.long()[:, :, None].expand(q_n, kb, SEL_GROUP))
-    offs = torch.arange(SEL_GROUP, dtype=torch.int32, device=dev)
-    cidx = (gs[:, :, None] * SEL_GROUP + offs).reshape(q_n, kb * SEL_GROUP)
-    fv, fi = topk_rows(cand.reshape(q_n, kb * SEL_GROUP), cidx, k)   # [Q, k_pow2]
-    # local index -> cluster-major row -> slot
+    scan = (plan["qsorted"], corpus, mask_vec, plan["probes"], chunk_ids, plan["cluster_ids"])
+    qn_s = qn[qperm] if qn is not None else None
+    if kb_cap:
+        # the dense route: each query's top-kb selection groups by (minimum,
+        # position), their distances gathered, then the candidate select
+        dist, gsel = _sparse_scan(*scan, thr, kb, cosine, bf16_domain, qn_s)
+        d3 = dist.view(q_n, 2 * S, SEL_GROUP)
+        gs = gsel.view(q_n, kb)
+        cand = torch.gather(d3, 1, gs.long()[:, :, None].expand(q_n, kb, SEL_GROUP))
+        offs = torch.arange(SEL_GROUP, dtype=torch.int32, device=dev)
+        cidx = (gs[:, :, None] * SEL_GROUP + offs).reshape(q_n, kb * SEL_GROUP)
+        fv, fi = topk_rows(cand.reshape(q_n, kb * SEL_GROUP), cidx, k)   # [Q, k_pow2]
+        chunks = chunk_ids.repeat_interleave(QG, dim=0)                    # [Q, S]
+    else:
+        # the compact route: one select of each query's own row, whose
+        # position order is the dense tile's scan order, so the same
+        # candidates in the same tie order
+        cand, chunks = _compact_scan(*scan, chunk_start, nchunks, nprobe, MC,
+                                     compact_width(nprobe, MC), thr, cosine, bf16_domain, qn_s)
+        fv, fi = topk_rows(cand, None, k)                                  # [Q, k_pow2]
+    # position -> chunk -> cluster-major row -> slot
     sent = fi == IDX_SENTINEL
-    step = torch.clamp_max(fi // CHUNK, S - 1).long()
-    chunks = chunk_ids.repeat_interleave(QG, dim=0)                    # [Q, S]
+    step = torch.clamp_max(fi // CHUNK, chunks.shape[1] - 1).long()
     grow = torch.gather(chunks, 1, step).long() * CHUNK + (fi % CHUNK)
     slot = row_slot[torch.where(sent, torch.zeros_like(grow), grow)]
     drop = sent | torch.isinf(fv)
@@ -394,12 +558,13 @@ def _pipeline(q, qn, corpus, mask_vec, row_slot, thr, centroids, order_key,
 
 
 def _mem_envelope_bytes() -> int:
-    """Budget for one launch's [G, QG, S * CHUNK] float32 distance tensor
-    (COMET_SPARSE_MEM_GB; default DEFAULT_MEM_GB = 8 GiB, a tenth of an
-    80 GB H100). A 2048-query batch is 16 x 128 x S x 256 x 4 bytes: 2 GiB
-    at S = 1024 (nprobe 32's default budget at 1M rows, nlist 1024), 8 GiB
-    at S = 4096, so it runs as one slice; larger batches or budgets run in
-    query-group slices, one after another, each freed before the next."""
+    """Budget for one launch's scan output (COMET_SPARSE_MEM_GB; default
+    DEFAULT_MEM_GB = 8 GiB, a tenth of an 80 GB H100). The compact route's
+    rows are QG x W x 4 bytes a group, W = `compact_width` x CHUNK: 147 MB
+    for 2048 queries at nprobe 10 and lists of at most 7 chunks. The dense
+    route's tile is QG x S x CHUNK x 4 bytes a group: 2 GiB for 2048
+    queries at S = 1024, 8 GiB at S = 4096. A batch past the envelope runs
+    in query-group slices, one after another, each freed before the next."""
     try:
         gb = float(os.environ.get("COMET_SPARSE_MEM_GB", str(DEFAULT_MEM_GB)))
     except ValueError:
@@ -427,12 +592,14 @@ def ivf_sparse_pipeline(
     kb_cap: int = 0,            # > 0: keep at most k_pow2(kb_cap) selection groups
     qn: torch.Tensor | None = None,  # [Q] float32 query squared norms (bf16 mode)
 ):
-    """Block-sparse IVF search of every query. Pads the batch with zero
-    queries to a multiple of QG and, when the scan's distance tensor would
-    exceed the envelope (`_mem_envelope_bytes`), runs it in QG-multiple
-    slices (queries are sorted within a slice). Returns (scores [Q, k]
-    float32, slots [Q, k] int32, overflow [G] int32, one count per group
-    of QG padded queries); empty slots carry (+inf, IDX_SENTINEL).
+    """Block-sparse IVF search of every query: the compact route when
+    kb_cap is 0, the dense one otherwise (module note). Pads the batch with
+    zero queries to a multiple of QG and, when the scan's output (compact
+    rows, or the dense tile) would exceed the envelope
+    (`_mem_envelope_bytes`), runs it in QG-multiple slices (queries are
+    sorted within a slice). Returns (scores [Q, k] float32, slots [Q, k]
+    int32, overflow [G] int32, one count per group of QG padded queries);
+    empty slots carry (+inf, IDX_SENTINEL).
 
     With `bf16_domain` the corpus is bfloat16 and the mask the float32
     value of each row's bf16 squared norm; `qn`, when given, is used for
@@ -445,7 +612,8 @@ def ivf_sparse_pipeline(
         if qn is not None:
             qn = torch.cat([qn, qn.new_zeros(q_pad - q_n)])
     g_n = q_pad // QG
-    per_group = QG * S * CHUNK * 4
+    width = S * CHUNK if kb_cap else compact_width(nprobe, MC) * CHUNK
+    per_group = QG * width * 4
     max_g = max(_mem_envelope_bytes() // max(per_group, 1), 1)
     args = (corpus, mask_vec, row_slot, threshold, centroids, order_key,
             chunk_start, nchunks, k, nprobe, S, UC, MC, nlist,

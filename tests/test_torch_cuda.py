@@ -353,6 +353,17 @@ def test_sparse_scan_edges_match_plain(dev, layout, d):
     edge_cases.check_k3(dev, layout, d)
 
 
+@pytest.mark.parametrize("layout,d,bf16", edge_cases.K3_ROUTE_CASES)
+def test_sparse_compact_route_equals_the_dense_route(dev, layout, d, bf16):
+    """K3's compact route (kb_cap = 0) against its dense route with the
+    group select (kb_cap = k) through the whole pipeline on one layout, in
+    float32 and the bf16 mode: scores, slots and overflow array-equal at
+    dead steps, an overflowing budget, queries probing only empty clusters,
+    a threshold, a filter, a row narrower than k_pow2(k), a ragged batch
+    and ties across the 128th place (ops/edge_cases.py)."""
+    edge_cases.check_k3_routes(dev, layout, d, bf16)
+
+
 @pytest.mark.parametrize("route", ["0", "1"])
 def test_ivf_index_cuda_matches_cpu(dev, route, monkeypatch):
     """The same IVF index on the card (kernels) and on the CPU (plain

@@ -479,3 +479,129 @@ def test_sparse_pipeline_takes_the_callers_query_norms():
     same = (i3 == i) & (s > 0) & np.isfinite(s)
     assert same.sum() >= 0.9 * (np.isfinite(s) & (s > 0)).sum() > 0
     np.testing.assert_array_equal(s3[same], s[same] + 1024.0)
+
+
+# -- the compact route (kb_cap == 0) against the dense route (kb_cap > 0) ------------------
+
+ROUTE_CASES_CPU = [c for c in edge_cases.K3_ROUTE_CASES
+                   if c[1] in (3, 20) or (c[1] == 128 and not c[2])]
+
+
+@pytest.mark.parametrize("layout,d,bf16", ROUTE_CASES_CPU)
+def test_compact_route_equals_the_dense_route(layout, d, bf16):
+    """The plain versions of both routes through `ivf_sparse_pipeline` on
+    one layout (ops/edge_cases.py: dead steps, an overflowing budget,
+    queries that probe only empty clusters, a threshold, a filter, a row
+    narrower than k_pow2(k), a ragged batch, ties across the 128th place),
+    float32 and the bf16 mode: scores, slots and overflow array-equal."""
+    edge_cases.check_k3_routes(torch.device("cpu"), layout, d, bf16)
+
+
+def test_compact_places_are_each_querys_chunks_in_scan_order():
+    """`_compact_places` of a query's first nprobe (distinct) probes, on a
+    walk with an S cut, empty clusters and probes padded past nprobe: a
+    query's member steps, in the group's walk order, take places 0, 1, 2,
+    ... of its row with no gap, within `compact_width`."""
+    rng = np.random.default_rng(5)
+    nlist = 16
+    nchunks = rng.integers(0, 4, size=nlist).astype(np.int32)
+    probes = np.stack([rng.permutation(nlist)[:5] for _ in range(2 * sp.QG)]).astype(np.int32)
+    probes = np.concatenate([probes, probes[:, :3]], axis=1)       # padded width 8
+    chunk_start = np.zeros(nlist + 1, np.int32)
+    chunk_start[1:] = np.cumsum(nchunks)
+    mc = int(nchunks.max())
+    t = torch.from_numpy
+    chunk_ids, cluster_ids, _, overflow = sp._group_chunk_lists(
+        t(probes), t(chunk_start), t(nchunks), 12, 16, mc, nlist)
+    assert overflow.max() > 0                                      # the cut drops chunks
+    starts = sp._walk_starts(cluster_ids, nlist)
+    places = sp._compact_places(t(probes[:, :5]), starts, t(nchunks), mc).numpy()
+    assert places.dtype == np.int32 and places.shape == (2 * sp.QG, 5)
+    chunk_ids, cluster_ids = chunk_ids.numpy(), cluster_ids.numpy()
+    for r in range(2 * sp.QG):
+        g = r // sp.QG
+        want = 0
+        for s in range(chunk_ids.shape[1]):
+            c = cluster_ids[g, s]
+            if c < 0 or c not in probes[r]:
+                continue
+            j = int(np.flatnonzero(probes[r] == c)[0])
+            assert places[r, j] + chunk_ids[g, s] - chunk_start[c] == want, (r, s)
+            want += 1
+        assert want <= sp.compact_width(5, mc)
+
+
+def test_the_envelope_slices_each_route_by_its_own_width(monkeypatch):
+    """An envelope that holds two groups' compact rows (QG x W x 4 bytes
+    each) but one group's dense tile (QG x S x CHUNK x 4): the compact
+    route runs a 2-group batch as one slice, the dense route as two, and
+    both give the same answer."""
+    calls = []
+    pipeline = sp._pipeline
+
+    def spy(q, *args):
+        calls.append(q.shape[0])
+        return pipeline(q, *args)
+
+    monkeypatch.setattr(sp, "_pipeline", spy)
+    q = _queries(False, False, 2 * sp.QG, seed=70)
+    xr, mask, perm, cents, okey, cs, nch, lay = _args(False, None)
+    mc, nprobe = lay["max_chunks"], 3
+    w = sp.compact_width(nprobe, mc) * sp.CHUNK
+    assert w < S_SMALL * sp.CHUNK
+    monkeypatch.setenv("COMET_SPARSE_MEM_GB", repr(2 * sp.QG * w * 4 / (1 << 30)))
+    t = torch.from_numpy
+    out = {}
+    for kb_cap in (0, K):
+        calls.clear()
+        out[kb_cap] = sp.ivf_sparse_pipeline(
+            t(q), t(xr), t(mask), t(perm), np.inf, t(cents), t(okey), t(cs), t(nch),
+            K, nprobe, S_SMALL, S_SMALL, mc, NLIST, sqrt_out=True, kb_cap=kb_cap)
+        assert calls == ([2 * sp.QG] if kb_cap == 0 else [sp.QG, sp.QG])
+    for a, b in zip(out[0], out[K]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_shortlists_take_the_dense_route_and_exact_scans_the_compact_one(monkeypatch):
+    """The route follows kb_cap alone: an IVFPQ nrefine shortlist and an
+    HNSW default seed scan (kb_cap > 0) run the dense scan and its group
+    select; IVF's search, IVFPQ without nrefine and HNSW's exact seed scan
+    (seed_kb < 0) run the compact scan."""
+    import comet_tpu_torch as ct
+    from comet_tpu_torch.indexes import hnsw as hnsw_mod
+
+    seen = []
+    for name in ("_sparse_scan", "_compact_scan"):
+        fn = getattr(sp, name)
+        monkeypatch.setattr(sp, name, lambda *a, _fn=fn, _name=name, **kw:
+                            seen.append(_name) or _fn(*a, **kw))
+    monkeypatch.setenv("COMET_IVF_SPARSE", "1")
+    monkeypatch.setenv("COMET_IVFPQ_SPARSE", "1")
+    monkeypatch.setenv("COMET_HNSW_SEED", "1")
+    monkeypatch.setattr(hnsw_mod, "BULK_BUILD_MIN", 512)
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 16, size=(600, D)).astype(np.float32)
+    q = x[:6] + 0.5
+
+    def route(search):
+        seen.clear()
+        search()
+        assert len(set(seen)) == 1, seen
+        return seen[0]
+
+    ivf = ct.IVFIndex(D, 8, ct.DistanceKind.L2, device="cpu")
+    ivf.train(x)
+    ivf.add_batch(x)
+    assert route(lambda: ivf.search_batch(q, k=5, nprobes=3)) == "_compact_scan"
+    pq = ct.IVFPQIndex(D, ct.DistanceKind.L2, nlist=8, m=4, nbits=4, store_originals=True,
+                       device="cpu")
+    pq.train(x)
+    pq.add_batch(x)
+    assert route(lambda: pq.search_batch(q, k=5, nprobes=3)) == "_compact_scan"
+    assert route(lambda: pq.search_batch(q, k=5, nprobes=3, nrefine=20)) == "_sparse_scan"
+    for seed_kb, want in ((0, "_sparse_scan"), (-1, "_compact_scan")):
+        hn = ct.HNSWIndex(D, ct.DistanceKind.L2,
+                          ct.HNSWConfig(m=8, ef_construction=32, ef_search=32, seed_kb=seed_kb),
+                          device="cpu")
+        hn.add_batch(x)
+        assert route(lambda: hn.search_batch(q, k=5)) == want, seed_kb
