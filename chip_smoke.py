@@ -27,10 +27,13 @@
    trained on the first 100,000 rows) and the batch's own chunk lists: float32 at
    nprobe 10 and its default step budget (S = 512), at the step budget the
    IVF path learns on this batch, and the bf16 mode at the seed scan's
-   nprobe (16) and kb (32), each with its member share; K4 (beam merge,
-   csrc/beam_merge.cu) split and fused and K5 (csrc/fused_expand.cu) at
-   Q = 2048, ef = ew = kr = 256, E = 8, W = 32 on a running search's beam
-   state made from the seed, K5 over a packed table of the corpus with a
+   nprobe (16), each with its member pairs; then whole pipelines: the
+   exact search against a shortlist at the exact bound, and HNSW's
+   default seed scan (kb_cap 32) and IVFPQ's nrefine shortlist (kb_cap
+   128) held to the reference tile's shortlist, each with its device time
+   a call; K4 (beam merge, csrc/beam_merge.cu) split and fused and K5
+   (csrc/fused_expand.cu) at Q = 2048, ef = ew = kr = 256, E = 8, W = 32
+   on a running search's beam state made from the seed, K5 over a packed table of the corpus with a
    random adjacency, beside the split pair (packed scoring + K4 split);
    the in-loop scoring kernel (csrc/gather_score.cu) on the same nodes over
    the packed and the blocked table (nd, ns and adm held to the plain
@@ -109,8 +112,10 @@
    on the card). K4 (both modes), K3's bf16 mode and the scoring kernel
    (nd, ns and the admission flags adm, split mode and the fused mode of
    the filtered search) are held bit-equal to their plain versions on the
-   inputs of a real iteration, and timed; a Gaussian index shows seed and in-loop distances
-   bit-equal; one iteration's blocked-table row gather is timed.
+   inputs of a real iteration, and timed (the seed scan also whole, held
+   to the reference tile's shortlist, with its device time a call); a
+   Gaussian index shows seed and in-loop distances bit-equal; one
+   iteration's blocked-table row gather is timed.
    `--profile` adds breakdowns of one insertion round and of two steady
    seeded and two classic batches of the grown index.
 
@@ -376,7 +381,7 @@ def reset_launches():
     sortnet.LAUNCHES = fused_scan.LAUNCHES = fused_scan.NPROBE_LAUNCHES = 0
     sortnet.SPLIT_LAUNCHES = fused_scan.FEWQ_LAUNCHES = 0
     fused_scan.BF16_LAUNCHES = fused_scan.F16_LAUNCHES = fused_scan.INT8_LAUNCHES = 0
-    ivf_sparse.LAUNCHES = ivf_sparse.BF16_LAUNCHES = ivf_sparse.COMPACT_LAUNCHES = 0
+    ivf_sparse.LAUNCHES = ivf_sparse.BF16_LAUNCHES = 0
     beam_kernel.LAUNCHES = beam_kernel.FUSED_LAUNCHES = beam_kernel.SCORE_LAUNCHES = 0
     beam_kernel.PACKED_SCORE_LAUNCHES = beam_kernel.FUSE_LAUNCHES = 0
 
@@ -384,9 +389,8 @@ def reset_launches():
 def read_launches():
     from comet_tpu_torch.ops import beam_kernel, bm25, fused_scan, ivf_sparse, sortnet
 
-    # the split, few-query and compact routes' counts are parts of
-    # topk_cl's, of the fused_dist_select modes' and of sparse_scan's (a
-    # checkout without them reads 0)
+    # the split and few-query routes' counts are parts of topk_cl's and of
+    # the fused_dist_select modes' (a checkout without them reads 0)
     return {"bm25_score": bm25.LAUNCHES,
             "topk_cl": sortnet.LAUNCHES, "fused_dist_select": fused_scan.LAUNCHES,
             "topk_cl_split": getattr(sortnet, "SPLIT_LAUNCHES", 0),
@@ -396,7 +400,6 @@ def read_launches():
             "fused_dist_select_f16": fused_scan.F16_LAUNCHES,
             "fused_dist_select_int8": fused_scan.INT8_LAUNCHES,
             "sparse_scan": ivf_sparse.LAUNCHES, "sparse_scan_bf16": ivf_sparse.BF16_LAUNCHES,
-            "sparse_scan_compact": getattr(ivf_sparse, "COMPACT_LAUNCHES", 0),
             "beam_merge": beam_kernel.LAUNCHES, "beam_merge_fused": beam_kernel.FUSED_LAUNCHES,
             "gather_score": beam_kernel.SCORE_LAUNCHES,
             "gather_score_packed": beam_kernel.PACKED_SCORE_LAUNCHES,
@@ -503,21 +506,24 @@ def build_ivf(corpus, tag):
 def k3_section(corpus, queries, dev, tag, time_ms):
     """K3 on an IVF index's cluster-major layout (`build_ivf`, an index of
     its own; the mixture's lists are uneven) and the batch's own chunk
-    lists (section 2). The dense route (kb_cap > 0): float32 at nprobe 10
-    and its default step budget, at the step budget the IVF path learns on
-    this batch, and the bf16 mode at the seed scan's nprobe (nlist / 64)
-    and kb (32) over a bf16 copy of the layout (mask: the float32 value of
-    each row's bf16 squared norm), each held array-equal to the plain
-    version (distances and group minima) and timed beside its member
-    share, the (query, step) pairs whose query probes the step's cluster
-    over G x 128 x S. The compact route (kb_cap = 0, the IVF path's exact
-    search): float32 at nprobe 10 and the learned step budget, its rows
-    and chunk table held array-equal to the plain version, timed with its
-    launch (the wrapper's fills included), on the card alone and the
-    kernel alone; then the whole pipeline at that budget on either route
-    (k = K), outputs array-equal, each timed with its launch and on the
-    card alone. Returns the kernels line's entries: `sparse_scan`, the
-    dense route at the default budget, and `sparse_scan_compact`."""
+    lists (section 2): float32 at nprobe 10 at its default step budget and
+    at the step budget the IVF path learns on this batch, and the bf16 mode
+    at the seed scan's nprobe (nlist / 64) over a bf16 copy of the layout
+    (mask: the float32 value of each row's bf16 squared norm), each with
+    its rows and chunk table held array-equal to the plain version and
+    timed with its launch (the wrapper's fills included), on the card
+    alone and the kernel alone. Then whole pipelines: at the learned
+    budget, the exact search (kb_cap = 0) against a shortlist at the exact
+    bound (kb_cap = K), outputs array-equal; and the two shortlists of the
+    port, HNSW's default seed scan (bf16, nprobe nlist / 64, k 128, kb_cap
+    32) and IVFPQ's nrefine shortlist (nprobe 10, k 256, kb_cap 128), each
+    held to the selection from the reference's dense tile
+    (`edge_cases.plain_shortlist`); each pipeline timed with its launch, on
+    the card alone, and its kernels' device time (torch.profiler). Returns
+    the kernels line's entry `sparse_scan`: float32 at nprobe 10 and the
+    step budget the IVF path learned (the default budget where it learned
+    none), the shape of the IVF path's launches."""
+    from comet_tpu_torch.ops import edge_cases
     from comet_tpu_torch.ops import ivf_sparse as sp
     from comet_tpu_torch.ops.distance import bf16_round
 
@@ -530,61 +536,33 @@ def k3_section(corpus, queries, dev, tag, time_ms):
           f"{time.perf_counter() - t0:.3f} s")
     q_all = torch.from_numpy(queries).to(dev)
     g_n = BATCH // sp.QG
+    bf16_layout = (st["corpus"].to(torch.bfloat16), bf16_round(st["mask_vec"]))
 
-    def plan_of(nprobe, S, kb_cap):
+    def plan_of(nprobe, S):
         S0, _, MC = sp.default_budgets(nprobe, NLIST, st["nch_total"], st["max_chunks"])
         S = S or S0
         plan = sp.scan_plan(q_all, ivf._dev_centroids, ivf._order_key, st["chunk_start"],
-                            st["nchunks"], 128, nprobe, S, min(S, NLIST), MC, NLIST, False, kb_cap)
+                            st["nchunks"], 128, nprobe, S, min(S, NLIST), MC, NLIST, False)
         live = plan["cluster_ids"] >= 0
         member = (plan["probes"][:, :nprobe].view(g_n, sp.QG, -1, 1)
                   == plan["cluster_ids"].view(g_n, 1, 1, plan["S"])).any(dim=2)  # [G, QG, S]
         chunks_read = int(torch.unique(plan["chunk_ids"][live]).numel())
         return plan, MC, live, member, chunks_read
 
-    def run(label, nprobe, S=0, bf16=False, kb_cap=0):
-        plan, _, live, member, chunks_read = plan_of(nprobe, S, kb_cap)
-        S = plan["S"]
-        corpus, mask, qn = st["corpus"], st["mask_vec"], None
-        if bf16:
-            corpus, mask = corpus.to(torch.bfloat16), bf16_round(mask)
-            qn = (plan["qsorted"] * plan["qsorted"]).sum(dim=1)
-        scan = (plan["qsorted"], corpus, mask, plan["probes"], plan["chunk_ids"],
-                plan["cluster_ids"])
-        dist, gmin = sp._sparse_scan_cuda(*scan, inf, False, qn)
-        pdist, pgmin = sp._sparse_scan_plain(*scan, inf, False, qn)
-        torch.cuda.synchronize()
-        if not (torch.equal(dist, pdist) and torch.equal(gmin, pgmin)):
-            raise AssertionError(f"K3 {label} differs from its plain version")
-        n_fin = int(torch.isfinite(pdist).sum())
-        del dist, gmin, pdist, pgmin
-        ms = time_ms(lambda: sp._sparse_scan_cuda(*scan, inf, False, qn))
-        pms = time_ms(lambda: sp._sparse_scan_plain(*scan, inf, False, qn))
-        esize = 2 if bf16 else 4
-        # queries (and their norms), probes and chunk lists, each listed
-        # chunk and its mask read once; dist and the group minima written
-        n_bytes = (esize * BATCH * DIM + 4 * (BATCH + BATCH * plan["probes"].shape[1]
-                                              + 2 * g_n * S + BATCH * S * sp.CHUNK
-                                              + BATCH * 2 * S)
-                   + chunks_read * sp.CHUNK * (esize * DIM + 4))
-        b = bound(n_bytes, 2 * DIM * float(member.sum()) * sp.CHUNK)
-        print(f"K3 dense route, {label}, {BATCH} queries, S={S} ({int(live.sum())} of {g_n * S} "
-              f"steps live, {chunks_read} chunks, member share {float(member.float().mean()):.4f})"
-              f": dist and group minima equal to plain ({n_fin} finite entries); kernel {ms:.3f} "
-              f"ms, plain {pms:.3f} ms; bound {b[0]:.3f} ms ({b[1]}) {tag}")
-        return dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None, bound=b)
-
-    def run_compact(label, nprobe, S):
-        plan, MC, live, member, chunks_read = plan_of(nprobe, S, 0)
+    def run(label, nprobe, S=0, bf16=False):
+        plan, MC, live, member, chunks_read = plan_of(nprobe, S)
         S = plan["S"]
         wc = sp.compact_width(nprobe, MC)
-        args = (plan["qsorted"], st["corpus"], st["mask_vec"], plan["probes"], plan["chunk_ids"],
-                plan["cluster_ids"], st["chunk_start"], st["nchunks"], nprobe, MC, wc, inf, False)
-        cand, tab = sp._compact_scan_cuda(*args)
-        pcand, ptab = sp._compact_scan_plain(*args)
+        corpus, mask = bf16_layout if bf16 else (st["corpus"], st["mask_vec"])
+        qn = (plan["qsorted"] * plan["qsorted"]).sum(dim=1)
+        args = (plan["qsorted"], corpus, mask, plan["probes"], plan["chunk_ids"],
+                plan["cluster_ids"], st["chunk_start"], st["nchunks"], nprobe, MC, wc, inf, False,
+                qn)
+        cand, tab = sp._compact_scan_cuda(*args)[:2]
+        pcand, ptab = sp._compact_scan_plain(*args)[:2]
         torch.cuda.synchronize()
         if not (torch.equal(cand, pcand) and torch.equal(tab, ptab)):
-            raise AssertionError(f"K3's compact route, {label}, differs from its plain version")
+            raise AssertionError(f"K3, {label}, differs from its plain version")
         n_fin = int(torch.isfinite(pcand).sum())
         del cand, tab, pcand, ptab
         torch.cuda.empty_cache()
@@ -593,14 +571,16 @@ def k3_section(corpus, queries, dev, tag, time_ms):
         kernel_us = device_us(lambda: sp._compact_scan_cuda(*args), ["compact_scan_kernel"])[0]
         pms = time_ms(lambda: sp._compact_scan_plain(*args))
         pairs = int(member.sum())
+        esize = 2 if bf16 else 4
         # queries and their norms, probes, the walk's start table, the
         # layout's chunk starts and counts, each chunk a walk reaches and
         # its mask read once; the rows and the chunk table written once
-        n_bytes = (4 * (BATCH * DIM + BATCH + BATCH * plan["probes"].shape[1]
-                        + g_n * (NLIST + 1) + 2 * NLIST + 1 + BATCH * wc * (sp.CHUNK + 1))
-                   + chunks_read * sp.CHUNK * (4 * DIM + 4))
+        n_bytes = (esize * BATCH * DIM + 4 * (BATCH + BATCH * plan["probes"].shape[1]
+                                              + g_n * (NLIST + 1) + 2 * NLIST + 1
+                                              + BATCH * wc * (sp.CHUNK + 1))
+                   + chunks_read * sp.CHUNK * (esize * DIM + 4))
         b = bound(n_bytes, 2 * DIM * pairs * sp.CHUNK)
-        print(f"K3 compact route, {label}, {BATCH} queries, S={S}, MC={MC}, row {wc} chunks "
+        print(f"K3, {label}, {BATCH} queries, S={S}, MC={MC}, row {wc} chunks "
               f"({int(live.sum())} of {g_n * S} steps live, {chunks_read} chunks, {pairs} member "
               f"(query, chunk) pairs, {pairs / BATCH:.1f} a query): rows and chunk table equal to "
               f"plain ({n_fin} finite entries); {ms:.3f} ms with its launch and fills, device "
@@ -608,31 +588,31 @@ def k3_section(corpus, queries, dev, tag, time_ms):
               f"bound {b[0]:.3f} ms ({b[1]}) {tag}")
         return dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None, bound=b), S, MC
 
-    def pipelines(nprobe, S, MC):
-        def pipe(kb_cap):
-            return sp.ivf_sparse_pipeline(
-                q_all, st["corpus"], st["mask_vec"], st["row_slot"], inf, ivf._dev_centroids,
-                ivf._order_key, st["chunk_start"], st["nchunks"], K, nprobe, S, min(S, NLIST),
-                MC, NLIST, sqrt_out=True, kb_cap=kb_cap)
+    def pipe(nprobe, S, MC, k, bf16=False):
+        corpus, mask = bf16_layout if bf16 else (st["corpus"], st["mask_vec"])
+        return (q_all, corpus, mask, st["row_slot"], inf, ivf._dev_centroids, ivf._order_key,
+                st["chunk_start"], st["nchunks"], k, nprobe, S, min(S, NLIST), MC, NLIST)
 
-        # kb_cap = K keeps every selection group the exact search keeps
-        # (k_pow2(K)), so the dense route answers the same search
-        got, want = pipe(0), pipe(K)
+    def timed(label, args, kb_cap, want=None, against=""):
+        def call():
+            return sp.ivf_sparse_pipeline(*args, sqrt_out=True, bf16_domain=bf16, kb_cap=kb_cap)
+
+        bf16 = args[1].dtype == torch.bfloat16
+        got = call()
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError("the IVF pipeline's compact route differs from its dense route")
-        probes = plan_of(nprobe, S, 0)[0]["probes"][:, :nprobe].long()
-        nch = st["nchunks"].long()[probes].sum(dim=1)   # each query's probed chunks
-        times = {route: (time_ms(lambda: pipe(cap)), queued_device_ms(lambda: pipe(cap), reps=10))
-                 for route, cap in (("compact", 0), ("dense", K))}
-        print(f"IVF pipeline, nprobe {nprobe}, S={S}, k={K}: the compact route (row "
-              f"{sp.compact_width(nprobe, MC)} chunks; a query probes "
-              f"{float(nch.float().mean()):.1f} chunks on average, {int(nch.max())} at most) "
-              f"equal to the dense route; "
-              + ", ".join(f"{r} {t[0]:.3f} ms with launch, device {t[1]:.3f} ms a call"
-                          for r, t in times.items()) + f" {tag}")
+        if want is not None and not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"the IVF pipeline, {label}, differs from {against}")
+        ms, dev_ms = time_ms(call), queued_device_ms(call, reps=10)
+        # every kernel of a call on the profiler's clock, one K3 launch a call
+        kern_us = calls_device_us([call], [([""], "scan_kernel")])[0]
+        mode = ", bf16 mode" if bf16 else ""
+        held = f": equal to {against}" if against else ""
+        print(f"IVF pipeline, {label} (nprobe {args[10]}, k={args[9]}, kb_cap {kb_cap}, S="
+              f"{args[11]}{mode}){held}; {ms:.3f} ms with launch, device {dev_ms:.3f} ms a "
+              f"call, its kernels {kern_us / 1e3:.3f} ms a call {tag}")
+        return got
 
-    dense = run("float32, nprobe 10", 10)
+    entry, S0, _ = run("float32, nprobe 10", 10)
     # the IVF path's first batch learns its step budget, the one budget the
     # index then holds, where a group's probes overflowed the default
     ivf.search_batch(queries, k=K, nprobes=10)
@@ -641,16 +621,25 @@ def k3_section(corpus, queries, dev, tag, time_ms):
         raise AssertionError(f"the IVF path holds step budgets {learned} after "
                              f"{ivf.stats()['sparse_overflow_batches']} overflowed batches")
     if learned:
-        run("float32, nprobe 10, the step budget the IVF path learned", 10, S=learned[0])
+        entry, S, MC = run("float32, nprobe 10, the step budget the IVF path learned", 10,
+                           S=learned[0])
     else:
+        S, MC = S0, sp.default_budgets(10, NLIST, st["nch_total"], st["max_chunks"])[2]
         print("the IVF path learned no step budget on this batch (no overflow)")
-    compact, S, MC = run_compact("float32, nprobe 10, the IVF path's step budget", 10,
-                                 learned[0] if learned else 0)
-    pipelines(10, S, MC)
-    run(f"bf16 mode, nprobe {NLIST // 64}, kb 32", NLIST // 64, bf16=True, kb_cap=32)
-    del q_all, st, ivf
+    run(f"bf16 mode, nprobe {NLIST // 64}", NLIST // 64, bf16=True)
+
+    exact = timed("the exact search", pipe(10, S, MC, K), 0)
+    timed("a shortlist at the exact bound", pipe(10, S, MC, K), K, exact, "the exact search")
+    for label, nprobe, k, kb_cap, bf16 in (("HNSW's default seed scan", NLIST // 64, 128, 32, True),
+                                           ("IVFPQ's nrefine shortlist", 10, 256, 128, False)):
+        S_d, _, MC = sp.default_budgets(nprobe, NLIST, st["nch_total"], st["max_chunks"])
+        args = pipe(nprobe, S_d, MC, k, bf16)
+        want = edge_cases.plain_shortlist(*args, kb_cap)
+        timed(label, args, kb_cap, want, "the reference tile's shortlist")
+        del want
+    del q_all, st, ivf, bf16_layout, exact
     torch.cuda.empty_cache()
-    return {"sparse_scan": dense, "sparse_scan_compact": compact}
+    return {"sparse_scan": entry}
 
 
 def merge_compares(ef, ew):
@@ -1148,7 +1137,7 @@ def ivf_phase(corpus, queries, c_corpus, c_queries, flat_ids, flat_scores, dev, 
           f"differ)")
     print(f"kernel launches of the IVF path ({len(NPROBES) * (1 + ROUNDS) + 4} L2 and 1 "
           f"cosine search_batch calls{', profile included' if profile else ''}): {launches}")
-    for key in ("topk_cl", "fused_dist_select_nprobe", "sparse_scan", "sparse_scan_compact"):
+    for key in ("topk_cl", "fused_dist_select_nprobe", "sparse_scan"):
         if launches[key] <= 0:
             raise AssertionError(f"a kernel of the IVF path never launched: {launches}")
     del c_ivf, c_vecs, c_valid, qc
@@ -1596,7 +1585,6 @@ class uncounted:
         fused_scan.F16_LAUNCHES = s["fused_dist_select_f16"]
         fused_scan.INT8_LAUNCHES = s["fused_dist_select_int8"]
         ivf_sparse.LAUNCHES, ivf_sparse.BF16_LAUNCHES = s["sparse_scan"], s["sparse_scan_bf16"]
-        ivf_sparse.COMPACT_LAUNCHES = s["sparse_scan_compact"]
         beam_kernel.LAUNCHES = s["beam_merge"]
         beam_kernel.FUSED_LAUNCHES = s["beam_merge_fused"]
         beam_kernel.SCORE_LAUNCHES = s["gather_score"]
@@ -1647,7 +1635,9 @@ def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_fscore, cap_seed, r
     mode) and K3's bf16 mode against their plain versions on the captured
     inputs of real iterations, timed."""
     from comet_tpu_torch.ops import beam_kernel as bk
+    from comet_tpu_torch.ops import edge_cases
     from comet_tpu_torch.ops import ivf_sparse as sp
+    from comet_tpu_torch.ops.distance import sqrt_f32
     from comet_tpu_torch.ops.edge_cases import equal
 
     for key, cap in (("beam_merge", cap_merge), ("beam_merge_fused", cap_fused)):
@@ -1704,36 +1694,65 @@ def check_k4_scoring_k3(cap_merge, cap_fused, cap_score, cap_fscore, cap_seed, r
           f"bound {report['gather_score']['bound'][0]:.4f} ms "
           f"({report['gather_score']['bound'][1]}) {tag}")
 
-    a = cap_seed.args
-    qsorted, corpus_b, mask, probes, chunk_ids, cluster_ids, thr_s, kb = a[:8]
-    cosine, bf16_domain, qn_s = a[8], a[9], a[10]
-    if not bf16_domain or corpus_b.dtype != torch.bfloat16:
-        raise AssertionError("the seed scan did not take K3's bf16 mode")
-    scan = (qsorted, corpus_b, mask, probes, chunk_ids, cluster_ids)
-    dist, gsel = sp._sparse_scan(*scan, thr_s, kb, cosine, True, qn_s)
-    pdist, pgmin = sp._sparse_scan_plain(*scan, float(thr_s), cosine, qn_s)
-    g_n, s_n = chunk_ids.shape
-    pgsel = sortnet_rows_plain(pgmin.view(g_n * sp.QG, 2 * s_n), kb)
+    # the seed scan: its pipeline call replayed, held to the reference
+    # tile's shortlist, and K3's bf16 mode on its inputs
+    a, kw = cap_seed.args, cap_seed.kwargs
+    kb_cap, qn = kw["kb_cap"], kw["qn"]
+    if not kw["bf16_domain"] or a[1].dtype != torch.bfloat16 or not kb_cap:
+        raise AssertionError("the seed scan did not take K3's bf16 mode with a shortlist")
+    lay = a + tuple(kw[n] for n in ("k", "nprobe", "S", "UC", "MC", "nlist"))
+    q, corpus_b, mask, thr_s = a[0], a[1], a[2], float(a[4])
+    k, nprobe, MC, nlist = kw["k"], kw["nprobe"], kw["MC"], kw["nlist"]
+    got = sp.ivf_sparse_pipeline(*a, **kw)
+    want = edge_cases.plain_shortlist(*lay, kb_cap, qn=qn)
     torch.cuda.synchronize()
-    if not (torch.equal(dist, pdist) and torch.equal(gsel.view(g_n * sp.QG, kb), pgsel)):
+    if not (torch.equal(sqrt_f32(got[0]), want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2], want[2])):
+        raise AssertionError("the seed scan differs from the reference tile's shortlist")
+    del got, want
+    call_ms = queued_device_ms(lambda: sp.ivf_sparse_pipeline(*a, **kw), reps=10)
+    plan = sp.scan_plan(q, *a[5:9], k, nprobe, kw["S"], kw["UC"], MC, nlist, False, kb_cap)
+    wc = sp.compact_width(nprobe, MC, k, kb_cap)
+    scan = (plan["qsorted"], corpus_b, mask, plan["probes"], plan["chunk_ids"],
+            plan["cluster_ids"], a[7], a[8], nprobe, MC, wc, thr_s, False, qn[plan["qperm"]])
+    # the pipeline's mode: the group minima written, the row not filled
+    filled = sp._compact_scan_cuda(*scan)
+    got = sp._compact_scan_cuda(*scan, minima=True)
+    pcand, ptab, pgmin = sp._compact_scan_plain(*scan, minima=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(filled[0], pcand) and torch.equal(filled[1], ptab)
+            and torch.equal(got[2], pgmin)):
         raise AssertionError("K3's bf16 mode differs from its plain version")
-    n_fin = int(torch.isfinite(pdist).sum())
-    del dist, pdist, pgmin, gsel, pgsel
-    ms = time_ms(lambda: sp._sparse_scan_cuda(*scan, float(thr_s), cosine, qn_s))
-    pms = time_ms(lambda: sp._sparse_scan_plain(*scan, float(thr_s), cosine, qn_s))
+    edge_cases.check_k3_minima(filled, got, "bf16 mode, the seed scan's inputs")
+    n_fin = int(torch.isfinite(pcand).sum())
+    del filled, got, pcand, ptab, pgmin
+    ms = time_ms(lambda: sp._compact_scan_cuda(*scan, minima=True))
+    kernel_us = device_us(lambda: sp._compact_scan_cuda(*scan, minima=True),
+                          ["compact_scan_kernel"])[0]
+    pms = time_ms(lambda: sp._compact_scan_plain(*scan, minima=True))
+    chunk_ids, cluster_ids, probes = plan["chunk_ids"], plan["cluster_ids"], plan["probes"]
+    g_n, s_n = chunk_ids.shape
     live = cluster_ids >= 0
-    member = (probes.view(g_n, sp.QG, -1, 1) == cluster_ids.view(g_n, 1, 1, s_n)).any(dim=2)
+    member = (probes[:, :nprobe].view(g_n, sp.QG, -1, 1)
+              == cluster_ids.view(g_n, 1, 1, s_n)).any(dim=2)
     pairs = float(member.sum()) * sp.CHUNK
     chunks_read = int(torch.unique(chunk_ids[live]).numel())
-    q_n = qsorted.shape[0]
-    n_bytes = (q_n * DIM * 2 + 4 * (q_n + q_n * probes.shape[1] + 2 * g_n * s_n
-                                    + q_n * s_n * sp.CHUNK + q_n * 2 * s_n)
+    q_n = q.shape[0]
+    # queries and their norms, probes, the walk's start table, the layout's
+    # chunk starts and counts, each chunk a walk reaches and its mask read
+    # once; the member pairs' distances, the chunk table and the group
+    # minima written once
+    n_bytes = (q_n * DIM * 2 + 4 * (q_n + q_n * probes.shape[1] + g_n * (nlist + 1)
+                                    + 2 * nlist + 1 + pairs + 3 * q_n * wc)
                + chunks_read * sp.CHUNK * (2 * DIM + 4))
     report["sparse_scan_bf16"] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=None,
                                       bound=bound(n_bytes, 2 * DIM * pairs))
-    print(f"K3 bf16 mode, the seed scan of {q_n} queries (S={s_n}, kb={kb}, {int(live.sum())} of "
-          f"{g_n * s_n} steps live, {chunks_read} chunks): dist and group choice equal to plain "
-          f"({n_fin} finite entries); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+    print(f"HNSW seed scan of {q_n} queries (nprobe {nprobe}, k={k}, kb_cap {kb_cap}, S={s_n}, "
+          f"{int(live.sum())} of {g_n * s_n} steps live, {chunks_read} chunks, row {wc} chunks): "
+          f"equal to the reference tile's shortlist, device {call_ms:.3f} ms a call; K3's bf16 "
+          f"mode on its inputs equal to plain ({n_fin} finite entries), and its group minima; "
+          f"with the minima (the pipeline's mode) kernel {ms:.3f} ms with its launch and fills, "
+          f"{kernel_us:.1f} us alone, plain {pms:.3f} ms; bound "
           f"{report['sparse_scan_bf16']['bound'][0]:.3f} ms "
           f"({report['sparse_scan_bf16']['bound'][1]}) {tag}")
 
@@ -2016,7 +2035,7 @@ def hnsw_phase(corpus, queries, extra, c_corpus, c_queries, flat_ids, dev, tag, 
           f"K1 {build_launches['topk_cl']} {tag}")
     with capture(bk, "beam_merge_step", 2) as cap_merge, \
             capture(bk, "gather_score", 2) as cap_score, \
-            capture(sp, "_sparse_scan", 0) as cap_seed:
+            capture(sp, "ivf_sparse_pipeline", 0) as cap_seed:
         s_ids, s_scores, s_first, s_qps = hnsw_search_checked(index, "seeded", queries,
                                                               rounds=ROUNDS)
     ov, starved = index.first_seed_health
@@ -3220,12 +3239,6 @@ def edge_checks(dev, seed, tag):
           f"({time.perf_counter() - t0:.1f} s) {tag}")
 
 
-def sortnet_rows_plain(gmin, kb):
-    from comet_tpu_torch.ops import sortnet
-
-    return sortnet._topk_rows_plain(gmin, None, kb)[1][:, :kb]
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3601,11 +3614,7 @@ def main():
               l8["fused_dist_select_int8"]),
         entry("sparse_scan", "comet_tpu_torch/csrc/ivf_sparse.cu",
               "comet_tpu/ops/ivf_sparse.py:215", "sparse_scan",
-              il["sparse_scan"] + pql["sparse_scan"] - il["sparse_scan_compact"]
-              - pql.get("sparse_scan_compact", 0)),
-        entry("sparse_scan_compact", "comet_tpu_torch/csrc/ivf_sparse.cu",
-              "comet_tpu/ops/ivf_sparse.py:215", "sparse_scan_compact",
-              il["sparse_scan_compact"] + pql.get("sparse_scan_compact", 0)),
+              il["sparse_scan"] + pql["sparse_scan"]),
         entry("sparse_scan_bf16", "comet_tpu_torch/csrc/ivf_sparse.cu",
               "comet_tpu/ops/ivf_sparse.py:237", "sparse_scan_bf16", hl["sparse_scan_bf16"]),
         entry("beam_merge", "comet_tpu_torch/csrc/beam_merge.cu",

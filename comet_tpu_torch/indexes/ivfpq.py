@@ -560,7 +560,7 @@ class IVFPQIndex(BaseVectorIndex):
         if nrefine:
             s, i = self._refine_on_device(q, s, i, take, k_eff)
             take_out, nrefine_out = k_eff, 0
-        kb = k_pow2(k_pad) if not kb_cap else min(k_pow2(k_pad), k_pow2(kb_cap))
+        kb = sp.select_groups(k_pad, kb_cap)
         S_eff = max(S, -(-kb * sp.SEL_GROUP // sp.CHUNK))
         retry = ((q, k_pad, k_eff, take, nrefine, nprobe, builder, qprep, S_eff, S_max)
                  if S_eff < S_max else None)

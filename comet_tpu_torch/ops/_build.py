@@ -59,14 +59,10 @@ SIGNATURES = {
     # dist, gmin, fewq, stream
     "comet_fused_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, ctypes.c_float,
                          _P, _P, _I, _P, _P, _I, _P],
-    # q, qn, x, mask, probes, P, chunk_ids, cluster_ids, order, thr, G, S, d,
-    # cosine, bf16, dist, gmin, stream
-    "comet_sparse_scan": [_P, _P, _P, _P, _P, _I, _P, _P, _P, ctypes.c_float,
-                          _I, _I, _I, _I, _I, _P, _P, _P],
     # q, qn, x, mask, probes, P, n_places, first, chunk_start, nchunks, nlist, MC,
-    # thr, G, S, n_chunks, d, cosine, bf16, wc, cand, chunk_tab, stream
+    # thr, G, S, n_chunks, d, cosine, bf16, wc, cand, chunk_tab, gmin, stream
     "comet_sparse_scan_compact": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
-                                  ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                                  ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # qb, qn, vecs, aux, vec_stride, aux_stride, nodes, allowed, thr, Q, E,
     # W, d, ndig, fused, nd, ns, adm, stream
     "comet_gather_score": [_P, _P, _P, _P, _LL, _LL, _P, _P, ctypes.c_float, _I, _I,

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from comet_tpu_torch.ops import beam_kernel, bm25, fused_scan, ivf_sparse, sortnet
-from comet_tpu_torch.ops.distance import bf16_round, preprocess
+from comet_tpu_torch.ops.distance import bf16_round, preprocess, sqrt_f32
 from comet_tpu_torch.types import DistanceKind
 
 K1_KS = (1, 8, 100, 128, 1000, 8192)
@@ -347,30 +347,50 @@ def k3_case(layout: str, d: int, seed: int = 0):
     return q, x, valid, probes, chunk_ids, cluster_ids
 
 
+def check_k3_minima(filled, got, where: str):
+    """K3's shortlist mode (`minima=True`) against its exact-search mode on
+    the same inputs: `filled` (cand, chunk_tab, None) of the exact-search
+    mode, `got` (cand, chunk_tab, gmin) of the shortlist mode. The chunk
+    tables equal, gmin equal to each 128-place group's minimum of the
+    filled row, and every group whose minimum is finite equal to the
+    filled row's; the rest of the shortlist mode's row is not read."""
+    cand, tab, _ = filled
+    gcand, gtab, gmin = got
+    rows = cand.shape[0]
+    if not torch.equal(gtab, tab):
+        raise AssertionError(f"K3 {where}: the chunk table of the shortlist mode differs")
+    groups = cand.view(rows, -1, ivf_sparse.SEL_GROUP)
+    if not torch.equal(gmin, groups.amin(dim=2)):
+        raise AssertionError(f"K3 {where}: the group minima differ from the row's")
+    fin = torch.isfinite(gmin)
+    if not torch.equal(gcand.view(rows, -1, ivf_sparse.SEL_GROUP)[fin], groups[fin]):
+        raise AssertionError(f"K3 {where}: a scanned group of the shortlist mode differs")
+
+
 def check_k3(dev: torch.device, layout: str, d: int, seed: int = 0) -> float:
     """K3 in both modes, L2 and cosine, without and with a threshold (the
-    median finite distance), on both routes, against its plain version on
-    one `k3_case`: dist and the group minima (dense route), the compact
-    rows and their chunk table (compact route) array-equal (float32 cosine
+    median finite distance), against its plain version on one `k3_case`:
+    the rows and their chunk table array-equal (float32 cosine
     allclose(1e-5, 1e-6), flips only at the threshold), one launch a scan
-    counted in the mode's counter. The compact route, one block a chunk,
-    needs a chunk to belong to one cluster: it reads the layout with step
-    s naming cluster s + 1 and that cluster owning chunk s alone (every
-    other cluster empty), so the members of a chunk are those of its step
-    in both groups (up to 256). Returns the largest absolute error of a
-    finite entry."""
+    counted in the mode's counter. K3 works chunk by chunk and needs a chunk
+    to belong to one cluster: it reads the layout with step s naming cluster
+    s + 1 and that cluster owning chunk s alone (every other cluster
+    empty), so the members of a chunk are those of its step in both groups
+    (up to 256). The shortlist mode (`minima=True`) is held to the
+    exact-search mode by `check_k3_minima`. Returns the largest absolute
+    error of a finite entry."""
     qn_, xn, valid, probes, chunk_ids, cluster_ids = k3_case(layout, d, seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     inf = torch.tensor(float("inf"), device=dev)
     zero = torch.zeros((), device=dev)
     q, x, ok = t(qn_), t(xn), t(valid)
-    lists = (t(probes), t(chunk_ids), t(cluster_ids))
     nlist, s_n = 64, chunk_ids.shape[1]
     nchunks = np.zeros(nlist, np.int32)
     nchunks[1:s_n + 1] = 1
     chunk_start = np.concatenate([[0], np.cumsum(nchunks)]).astype(np.int32)
-    own = (t(np.tile(np.arange(s_n, dtype=np.int32), (len(chunk_ids), 1))), lists[2])
-    compact = (t(chunk_start), t(nchunks), K3_P, 1, ivf_sparse.compact_width(K3_P, 1))
+    lists = (t(probes), t(np.tile(np.arange(s_n, dtype=np.int32), (len(chunk_ids), 1))),
+             t(cluster_ids), t(chunk_start), t(nchunks), K3_P, 1,
+             ivf_sparse.compact_width(K3_P, 1))
     xc = x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(1.0)
     qc = q / torch.linalg.vector_norm(q, dim=1, keepdim=True).clamp_min(1.0)
     g = np.random.default_rng((seed, d))
@@ -388,45 +408,37 @@ def check_k3(dev: torch.device, layout: str, d: int, seed: int = 0) -> float:
     )
     err = 0.0
     for name, qq, xx, mask, cosine, qn, exact in modes:
-        full = ivf_sparse._sparse_scan_plain(qq, xx, mask, *lists, float("inf"), cosine, qn)[0]
+        full = ivf_sparse._compact_scan_plain(qq, xx, mask, *lists, float("inf"), cosine, qn)[0]
         fin = full[torch.isfinite(full)]
         for thr in (float("inf"), float(fin.median()) if fin.numel() else float("inf")):
             counter = "BF16_LAUNCHES" if xx.dtype == torch.bfloat16 else "LAUNCHES"
             before = getattr(ivf_sparse, counter)
-            dist, gmin = ivf_sparse._sparse_scan_cuda(qq, xx, mask, *lists, thr, cosine, qn)
-            cand, tab = ivf_sparse._compact_scan_cuda(qq, xx, mask, lists[0], *own, *compact,
-                                                      thr, cosine, qn)
-            if getattr(ivf_sparse, counter) != before + 2:
-                raise AssertionError(f"K3 {name} did not count one launch a route")
-            pdist, pgmin = ivf_sparse._sparse_scan_plain(qq, xx, mask, *lists, thr, cosine, qn)
-            pcand, ptab = ivf_sparse._compact_scan_plain(qq, xx, mask, lists[0], *own, *compact,
-                                                         thr, cosine, qn)
+            filled = ivf_sparse._compact_scan_cuda(qq, xx, mask, *lists, thr, cosine, qn)
+            if getattr(ivf_sparse, counter) != before + 1:
+                raise AssertionError(f"K3 {name} did not count one launch")
+            cand, tab, _ = filled
+            pcand, ptab, _ = ivf_sparse._compact_scan_plain(qq, xx, mask, *lists, thr, cosine, qn)
             where = f"{name} on the {layout!r} layout, d={d}, threshold {thr:g}"
-            dead = (lists[2] < 0).repeat_interleave(ivf_sparse.CHUNK, dim=1)[:, None, :]
-            if not torch.isinf(dist[dead.expand_as(dist)]).all():
-                raise AssertionError(f"K3 {where}: a dead step came out finite")
+            check_k3_minima(filled, ivf_sparse._compact_scan_cuda(
+                qq, xx, mask, *lists, thr, cosine, qn, minima=True), where)
             if not torch.equal(tab, ptab):
-                raise AssertionError(f"K3 {where}: the compact route's chunk table differs")
+                raise AssertionError(f"K3 {where}: the chunk table differs from plain")
             if exact:
-                if not (torch.equal(dist, pdist) and torch.equal(gmin, pgmin)):
-                    raise AssertionError(f"K3 {where} differs from its plain version")
                 if not torch.equal(cand, pcand):
-                    raise AssertionError(f"K3 {where}: the compact rows differ from plain")
+                    raise AssertionError(f"K3 {where}: the rows differ from plain")
                 continue
-            for got, want in ((dist, pdist), (gmin, pgmin), (cand, pcand)):
-                both = torch.isfinite(got) & torch.isfinite(want)
-                torch.testing.assert_close(got[both], want[both], rtol=1e-5, atol=1e-6)
-                flip = torch.isfinite(got) != torch.isfinite(want)
-                near = torch.where(torch.isfinite(got), got, want)[flip]
-                if ((near - thr).abs() > 1e-6 + 1e-5 * abs(thr)).any():
-                    raise AssertionError(f"K3 {where}: a masked entry differs")
-                if both.any():
-                    err = max(err, (got[both] - want[both]).abs().max().item())
+            both = torch.isfinite(cand) & torch.isfinite(pcand)
+            torch.testing.assert_close(cand[both], pcand[both], rtol=1e-5, atol=1e-6)
+            flip = torch.isfinite(cand) != torch.isfinite(pcand)
+            near = torch.where(torch.isfinite(cand), cand, pcand)[flip]
+            if ((near - thr).abs() > 1e-6 + 1e-5 * abs(thr)).any():
+                raise AssertionError(f"K3 {where}: a masked entry differs")
+            if both.any():
+                err = max(err, (cand[both] - pcand[both]).abs().max().item())
     return err
 
 
-# The compact route against the dense route, whole pipelines on one layout:
-# (name, what it exercises)
+# Whole pipelines on one layout: (name, what it exercises)
 K3_ROUTE_LAYOUTS = (
     "dead steps",      # an ample step budget: most steps of a group dead
     "overflow",        # a step budget the groups overflow (the rescan path's input)
@@ -441,7 +453,7 @@ K3_ROUTE_CASES = tuple(itertools.product(K3_ROUTE_LAYOUTS, (3, 20, 100, 128), (F
 
 
 def k3_route_case(layout: str, d: int, seed: int = 0) -> dict:
-    """One IVF layout for both routes, numpy: integer rows (0..255, or 0/1
+    """One IVF layout for whole pipelines, numpy: integer rows (0..255, or 0/1
     for "ties") in clusters of 0-3 chunks (one chunk for "narrow"), integer
     centroids, every third cluster's rows scattered so that lists overlap
     in distance, and the pipeline's arguments: x [N, d], slot_ok [N] (the
@@ -480,14 +492,11 @@ def k3_route_case(layout: str, d: int, seed: int = 0) -> dict:
                 thr=float(900 * d) if layout == "threshold" else INF)
 
 
-def check_k3_routes(dev: torch.device, layout: str, d: int, bf16: bool, seed: int = 0):
-    """The compact route (kb_cap = 0) against the dense route (kb_cap = k,
-    which keeps every selection group the exact search needs) through
-    `ivf_sparse_pipeline` on one `k3_route_case`: scores, slots and
-    overflow array-equal, boundary ties included; in the bf16 mode (HNSW's
-    exact seed scan) over the bf16 corpus. On the card each route launches
-    K3 once. Returns (scores, slots, overflow) of the compact route."""
-    c = k3_route_case(layout, d, seed)
+def k3_route_args(dev: torch.device, c: dict, bf16: bool) -> tuple:
+    """The positional arguments of `ivf_sparse_pipeline` for one
+    `k3_route_case` on dev, the corpus bfloat16 in the bf16 mode (HNSW's
+    seed scan), its mask the float32 value of each row's bf16 squared
+    norm."""
     lay = ivf_sparse.build_cluster_major(c["assign"], len(c["cents"]))
     perm = lay["perm"]
     pc = np.maximum(perm, 0)
@@ -499,24 +508,74 @@ def check_k3_routes(dev: torch.device, layout: str, d: int, bf16: bool, seed: in
     if bf16:
         corpus, sq = xr.to(torch.bfloat16), bf16_round(sq)
     mask = torch.where(t(ok), sq, torch.full_like(sq, INF))
-    nlist = len(c["cents"])
-    S, k = c["S"], c["k"]
-    args = (t(c["q"]), corpus, mask, t(perm), c["thr"], t(c["cents"]),
+    nlist, S = len(c["cents"]), c["S"]
+    return (t(c["q"]), corpus, mask, t(perm), c["thr"], t(c["cents"]),
             t(np.arange(nlist, dtype=np.int32) % 5), t(lay["chunk_start"]), t(lay["nchunks"]),
-            k, c["nprobe"], S, min(S, nlist), lay["max_chunks"], nlist)
+            c["k"], c["nprobe"], S, min(S, nlist), lay["max_chunks"], nlist)
+
+
+def plain_shortlist(q, corpus, mask, row_slot, thr, cents, order_key, chunk_start, nchunks,
+                    k, nprobe, S, UC, MC, nlist, kb_cap: int, qn=None):
+    """`ivf_sparse_pipeline(..., sqrt_out=True, kb_cap=kb_cap, qn=qn)` as
+    the reference computes it, in plain PyTorch, for a batch in one slice:
+    the [G, QG, S x 256] tile of `_sparse_scan_plain`, each query's top-kb
+    selection groups of it by (minimum, position), their distances
+    gathered, the candidate select, the slots in (score, slot) order.
+    Returns (scores, slots, overflow)."""
+    q_n = q.shape[0]
+    pad = -(-q_n // ivf_sparse.QG) * ivf_sparse.QG - q_n
+    q = torch.cat([q, q.new_zeros((pad, q.shape[1]))])
+    if qn is not None:
+        qn = torch.cat([qn, qn.new_zeros(pad)])
+    rows = q.shape[0]
+    plan = ivf_sparse.scan_plan(q, cents, order_key, chunk_start, nchunks, k, nprobe, S, UC, MC,
+                                nlist, False, kb_cap)
+    kb, S, grp = plan["kb"], plan["S"], ivf_sparse.SEL_GROUP
+    dist, gmin = ivf_sparse._sparse_scan_plain(
+        plan["qsorted"], corpus, mask, plan["probes"], plan["chunk_ids"], plan["cluster_ids"],
+        float(np.float32(thr)), False, None if qn is None else qn[plan["qperm"]])
+    gsel = sortnet._topk_rows_plain(gmin.view(rows, 2 * S), None, kb)[1][:, :kb].long()
+    cand = dist.view(rows, 2 * S, grp).gather(1, gsel[:, :, None].expand(rows, kb, grp))
+    pos = (gsel[:, :, None] * grp + torch.arange(grp, device=q.device)).reshape(rows, kb * grp)
+    fv, fi = sortnet._topk_rows_plain(cand.reshape(rows, kb * grp), pos.int(), k)
+    # position -> step -> cluster-major row -> slot
+    ok = torch.isfinite(fv) & (fi != ivf_sparse.IDX_SENTINEL)
+    fi = torch.where(ok, fi, 0).long()
+    chunks = plan["chunk_ids"].repeat_interleave(ivf_sparse.QG, dim=0).long()
+    row = chunks.gather(1, fi // ivf_sparse.CHUNK) * ivf_sparse.CHUNK + fi % ivf_sparse.CHUNK
+    slot = torch.where(ok, row_slot[row], ivf_sparse.IDX_SENTINEL)
+    fv, slot = sortnet._topk_rows_plain(torch.where(ok, fv, INF), slot, fv.shape[1])
+    inv = torch.argsort(plan["qperm"])
+    return sqrt_f32(fv[:, :k])[inv][:q_n], slot[:, :k][inv][:q_n], plan["overflow"]
+
+
+def check_k3_routes(dev: torch.device, layout: str, d: int, bf16: bool, seed: int = 0):
+    """Two checks through `ivf_sparse_pipeline` on one `k3_route_case`, in
+    float32 and in the bf16 mode: a shortlist at the exact bound (kb_cap =
+    k, which keeps every selection group the exact search needs) equals
+    the exact search (kb_cap = 0), and a shortlist below it (kb_cap = 8)
+    equals `plain_shortlist`, the reference tile's; scores, slots and
+    overflow array-equal, boundary ties included. On the card each
+    pipeline launches K3 once. Returns (scores, slots, overflow) of the
+    exact search."""
+    c = k3_route_case(layout, d, seed)
+    args = k3_route_args(dev, c, bf16)
     out = {}
-    for route, kb_cap in (("compact", 0), ("dense", k)):
+    for kb_cap in (0, c["k"], 8):
         counter = "BF16_LAUNCHES" if bf16 else "LAUNCHES"
         before = getattr(ivf_sparse, counter)
-        out[route] = ivf_sparse.ivf_sparse_pipeline(
+        out[kb_cap] = ivf_sparse.ivf_sparse_pipeline(
             *args, sqrt_out=True, bf16_domain=bf16, kb_cap=kb_cap)
         if dev.type == "cuda" and getattr(ivf_sparse, counter) != before + 1:
-            raise AssertionError(f"K3 {route} route did not launch once")
+            raise AssertionError(f"K3 did not launch once at kb_cap={kb_cap}")
     where = f"{layout!r}, d={d}, {'bf16' if bf16 else 'float32'}"
-    for name, got, want in zip(("scores", "slots", "overflow"), out["compact"], out["dense"]):
-        if not torch.equal(got, want):
-            raise AssertionError(f"K3 routes on {where}: the {name} differ")
-    s, i, ov = (a.cpu().numpy() for a in out["compact"])
+    pairs = (("a shortlist at the exact bound", out[c["k"]], out[0]),
+             ("a shortlist of 8 groups", out[8], plain_shortlist(*args, 8)))
+    for what, got, want in pairs:
+        for name, a, b in zip(("scores", "slots", "overflow"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K3 on {where}: the {name} of {what} differ")
+    s, i, ov = (a.cpu().numpy() for a in out[0])
     hit = i != ivf_sparse.IDX_SENTINEL
     checks = {
         "overflow": ov.max() > 0,
@@ -526,7 +585,7 @@ def check_k3_routes(dev: torch.device, layout: str, d: int, bf16: bool, seed: in
         "narrow": (~hit).any(),
     }
     if not checks.get(layout, ov.max() == 0 and hit.any()):
-        raise AssertionError(f"K3 routes on {where}: the layout missed its case")
+        raise AssertionError(f"K3 on {where}: the layout missed its case")
     if layout == "ties":
         # the exact distances of each query's probed rows, in float64
         probes = fused_scan.coarse_probes(args[0], args[5], c["nprobe"], False,
@@ -539,8 +598,8 @@ def check_k3_routes(dev: torch.device, layout: str, d: int, bf16: bool, seed: in
             if len(dd) > 128:
                 widest = max(widest, int((dd == dd[127]).sum()))
         if widest < 29:
-            raise AssertionError(f"K3 routes on {where}: {widest} ties at the 128th place")
-    return out["compact"]
+            raise AssertionError(f"K3 on {where}: {widest} ties at the 128th place")
+    return out[0]
 
 
 # -- K4 ---------------------------------------------------------------------------

@@ -12,27 +12,29 @@ tracks nprobe:
   3. `_group_chunk_lists` gives every group its deduplicated list of S
      chunks, ordered by best probe rank (the scan order); steps past the
      group's need are dead (cluster id -1).
-  4. K3 computes, for each query that probes a listed chunk's cluster, the
-     chunk's 256 distances with the reference's epilogue, on one of two
-     routes that `_pipeline` picks by kb_cap alone (no setting):
-     - compact (kb_cap == 0, the exact top-k: IVF's search, IVFPQ without
-       nrefine, HNSW's seed scan with seed_kb < 0; `_compact_scan`): each
-       query's distances go to a row of its own at places in scan order
-       (`_compact_places`), W = nprobe x MC x 256 wide, +inf where nothing
-       was scanned, with the chunk of each place; K1 then selects each
-       row's top k directly, ties to the lower position, which are the
-       candidates, in the same tie order, that the dense route keeps.
-     - dense (kb_cap > 0: HNSW's default seed scan, IVFPQ's nrefine
-       shortlist; `_sparse_scan`): the [G, QG, S x 256] tile of every
-       listed chunk, +inf for every query that does not probe it, and the
-       minima of each chunk's two 128-row selection groups. K1 picks each
-       query's top-kb groups by (minimum, scan position), the set and
-       order the reference kernel's running selection keeps, then their
-       distances are gathered and reduced to the top-k by K1.
-     On a CUDA tensor the kernels of `csrc/ivf_sparse.cu` run (see the note
-     there: what bounds each route), counted in `LAUNCHES` (the compact
-     route's also in `COMPACT_LAUNCHES`, a part of it); on a CPU tensor
-     `_compact_scan_plain` and `_sparse_scan_plain`.
+  4. K3 (`_compact_scan`) computes, for each query that probes a listed
+     chunk's cluster, the chunk's 256 distances with the reference's
+     epilogue, and writes them to a row of the query's own at places in
+     scan order (`_compact_places`), W = nprobe x MC x 256 wide, +inf where
+     nothing was scanned, with the chunk of each place. A row's position
+     order is the order of the reference kernel's [G, QG, S x 256] tile
+     restricted to the query's own chunks, and every chunk of the tile
+     that the row lacks is +inf there. So:
+     - the exact top-k (kb_cap == 0: IVF's search, IVFPQ without nrefine,
+       HNSW's seed scan with seed_kb < 0): K1 selects each row's top k
+       directly, ties to the lower position: the candidates, in the same
+       tie order, that the reference's group select keeps;
+     - a shortlist (kb_cap > 0: HNSW's default seed scan, IVFPQ's nrefine
+       shortlist): the row is at least kb / 2 chunks wide, K3 also writes
+       each 128-place selection group's minimum (and the row is not
+       filled: a group whose minimum is +inf is masked once gathered), K1
+       picks each query's top-kb groups by (minimum, position), which are
+       the tile's groups in its order, and their distances are gathered
+       and reduced to the top-k by K1.
+     On a CUDA tensor the kernel of `csrc/ivf_sparse.cu` runs (see the note
+     there: what bounds it), counted in `LAUNCHES`; on a CPU tensor
+     `_compact_scan_plain`, built on `_sparse_scan_plain`, the plain version
+     of the reference kernel's tile.
   5. Position -> chunk -> cluster-major row -> slot; a (score, slot) sort
      within the k_pow2 candidates; the inverse query permutation.
 
@@ -41,8 +43,7 @@ top-k SET is exact within the scanned chunks, score ties at the k-th
 boundary break by scan order and not slot order, and a group's walk is
 budgeted at S steps and UC distinct clusters; the returned per-group
 overflow counts every chunk dropped, and indexes/ivf.py rescans with a
-larger S until it is zero. S sizes the dense route's tile, and only the
-walk on the compact route.
+larger S until it is zero.
 
 The bf16 mode (`bf16_domain=True`, HNSW's seed scan) scores bf16 queries
 against a bf16 cluster-major corpus with float32 accumulation, float32
@@ -76,11 +77,9 @@ QG = 128         # queries per kernel group
 BIG = 2**30
 DEFAULT_MEM_GB = 8.0   # see `_mem_envelope_bytes`
 
-# K3's launches on either route: float32 mode, bf16 mode; and of the
-# float32 launches, those of the compact route (`_compact_scan_cuda`).
+# K3's launches: float32 mode, bf16 mode.
 LAUNCHES = 0
 BF16_LAUNCHES = 0
-COMPACT_LAUNCHES = 0
 
 
 # -- layout (host) ---------------------------------------------------------------
@@ -213,12 +212,14 @@ def _group_chunk_lists(probes, chunk_start, nchunks, S: int, UC: int, MC: int, n
     return chunk_ids.to(i32), cluster_ids.to(i32), n_real.to(i32), overflow.to(i32)
 
 
-# -- the sparse scan: K3 and its plain version ----------------------------------------
+# -- the reference kernel's tile, in plain PyTorch ---------------------------------------
 
 
 def _sparse_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
                        thr: float, cosine: bool, qn=None):
-    """Plain PyTorch version of K3, in the kernel's order of operations.
+    """Plain PyTorch version of the reference kernel
+    (comet_tpu/ops/ivf_sparse.py:_sparse_kernel), in K3's order of
+    operations: every listed step's distances for every query of its group.
 
     qsorted [G * QG, d] float32, corpus [NR, d] cluster-major (float32, or
     bfloat16 for the bf16 mode, where the queries are rounded to bf16 and
@@ -255,51 +256,10 @@ def _sparse_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids
     return dist, gmin
 
 
-def _chunk_order(chunk_ids):
-    """The steps g * S + s of chunk_ids [G, S], int32, ordered by chunk id
-    (ties by step): the order K3's blocks take them in, so that the steps
-    of different groups that read one chunk run together and share its
-    rows through L2."""
-    return torch.argsort(chunk_ids.reshape(-1), stable=True).to(torch.int32)
-
-
-def _sparse_scan_cuda(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
-                      thr: float, cosine: bool, qn=None):
-    """Launch K3 (the bf16 mode for a bfloat16 corpus). Returns
-    (dist [G, QG, S * CHUNK], gmin [G, QG, 2 S])."""
-    global LAUNCHES, BF16_LAUNCHES
-    lib = _build.library()
-    g_n, s_n = chunk_ids.shape
-    d = qsorted.shape[1]
-    dev = qsorted.device
-    if qn is None:
-        qn = (qsorted * qsorted).sum(dim=1)
-    bf16 = corpus.dtype == torch.bfloat16
-    q = qsorted.to(torch.bfloat16).contiguous() if bf16 else qsorted
-    qn = qn.contiguous()
-    order = _chunk_order(chunk_ids)
-    dist = torch.empty((g_n, QG, s_n * CHUNK), dtype=torch.float32, device=dev)
-    gmin = torch.empty((g_n, QG, 2 * s_n), dtype=torch.float32, device=dev)
-    code = lib.comet_sparse_scan(
-        q.data_ptr(), qn.data_ptr(), corpus.data_ptr(), mask_vec.data_ptr(),
-        probes.data_ptr(), probes.shape[1], chunk_ids.data_ptr(),
-        cluster_ids.data_ptr(), order.data_ptr(), thr, g_n, s_n, d, int(cosine), int(bf16),
-        dist.data_ptr(), gmin.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    with _build.COUNT_LOCK:
-        if bf16:
-            BF16_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
-    _build.check(code, "sparse_scan")
-    return dist, gmin
-
-
-def _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
-                bf16_domain: bool, qn, extra=()):
+def _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, chunk_start,
+                nchunks, bf16_domain: bool, qn):
     """Raises ValueError unless the scan's inputs have the shapes, dtypes
-    and device K3 takes; `extra` adds (name, tensor, dtype) checks."""
+    and device K3 takes."""
     g_n = chunk_ids.shape[0]
     if qsorted.ndim != 2 or qsorted.shape[0] != g_n * QG:
         raise ValueError(f"qsorted must be [{g_n * QG}, d], got {tuple(qsorted.shape)}")
@@ -312,13 +272,16 @@ def _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
         raise ValueError(f"probes must be [{qsorted.shape[0]}, P], got {tuple(probes.shape)}")
     if cluster_ids.shape != chunk_ids.shape:
         raise ValueError("chunk_ids and cluster_ids differ in shape")
+    if chunk_start.shape != (len(nchunks) + 1,):
+        raise ValueError(f"chunk_start must be [{len(nchunks) + 1}], "
+                         f"got {tuple(chunk_start.shape)}")
     if qn is not None and qn.shape != (qsorted.shape[0],):
         raise ValueError(f"qn must be [{qsorted.shape[0]}], got {tuple(qn.shape)}")
     corpus_dt = torch.bfloat16 if bf16_domain else torch.float32
     checks = [("qsorted", qsorted, torch.float32), ("corpus", corpus, corpus_dt),
               ("mask_vec", mask_vec, torch.float32), ("probes", probes, torch.int32),
               ("chunk_ids", chunk_ids, torch.int32), ("cluster_ids", cluster_ids, torch.int32),
-              *extra]
+              ("chunk_start", chunk_start, torch.int32), ("nchunks", nchunks, torch.int32)]
     if qn is not None:
         checks.append(("qn", qn, torch.float32))
     for name, t, dt in checks:
@@ -328,36 +291,23 @@ def _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
             raise ValueError(f"{name} is on {t.device}, qsorted on {qsorted.device}")
 
 
-def _sparse_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
-                 threshold: float, kb: int, cosine: bool = False,
-                 bf16_domain: bool = False, qn=None):
-    """The dense route: distances of the listed chunks and each query's
-    top-kb selection groups. The corpus is float32, or bfloat16 with
-    `bf16_domain`; `qn` (float32 [G * QG]) gives the queries' squared
-    norms, else they are computed from qsorted. Returns (dist [G, QG, S *
-    CHUNK] float32, gsel [G, QG, kb] int32: group positions 2 s + h in
-    (group minimum, position) order)."""
-    g_n, s_n = chunk_ids.shape
-    _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, bf16_domain, qn)
-    if not 1 <= kb <= 2 * s_n:
-        raise ValueError(f"kb={kb} outside [1, {2 * s_n}]")
-    thr = float(np.float32(threshold))
-    args = [t.contiguous() for t in (qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids)]
-    if use_plain(qsorted):
-        dist, gmin = _sparse_scan_plain(*args, thr, cosine, qn)
-    else:
-        dist, gmin = _sparse_scan_cuda(*args, thr, cosine, qn)
-    gsel = topk_rows(gmin.view(g_n * QG, 2 * s_n), None, kb)[1][:, :kb]
-    return dist, gsel.reshape(g_n, QG, kb)
+# -- K3: each query's distances in a row of its own -----------------------------------
 
 
-# -- the compact route: K3 writes only the probed rows --------------------------------
+def select_groups(k: int, kb_cap: int = 0) -> int:
+    """Selection groups each query keeps: k_pow2(k), the block-select bound,
+    or at most k_pow2(kb_cap) when kb_cap > 0."""
+    kb = k_pow2(k)
+    return min(kb, k_pow2(kb_cap)) if kb_cap else kb
 
 
-def compact_width(nprobe: int, MC: int) -> int:
+def compact_width(nprobe: int, MC: int, k: int = 0, kb_cap: int = 0) -> int:
     """Chunk places of a compact row: every chunk a query can probe, at most
-    MC in each of its nprobe clusters."""
-    return max(nprobe * MC, 1)
+    MC in each of its nprobe clusters, and for a shortlist (kb_cap > 0) at
+    least its `select_groups(k, kb_cap)` groups of 128 places (two a
+    chunk)."""
+    kb = select_groups(k, kb_cap) if kb_cap else 0
+    return max(nprobe * MC, -(-kb * SEL_GROUP // CHUNK), 1)
 
 
 def _walk_starts(cluster_ids, nlist: int):
@@ -379,8 +329,8 @@ def _compact_places(probes, starts, nchunks, MC: int):
     columns: distinct clusters), from the walk's `_walk_starts`. A query's
     places follow its group's scan order (the order of the clusters in the
     group's walk, then the chunk within the cluster), so a row's position
-    order is the dense tile's position order restricted to the query's own
-    chunks: a probe's place is the sum of min(chunk count, MC) over the
+    order is the reference tile's position order restricted to the query's
+    own chunks: a probe's place is the sum of min(chunk count, MC) over the
     query's probes that the walk takes earlier. K3 works each place out
     itself; this is its plain version."""
     pl = probes.long()
@@ -393,12 +343,19 @@ def _compact_places(probes, starts, nchunks, MC: int):
 
 def _compact_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, chunk_start,
                         nchunks, n_places: int, MC: int, wc: int, thr: float, cosine: bool,
-                        qn=None):
-    """Plain PyTorch version of K3's compact route: the dense route's
-    distances, each member (query, step) tile moved to its place; a query's
-    member test reads its first n_places probes. Returns (cand [G * QG, wc
-    * CHUNK] float32, +inf where nothing was scanned, chunk_tab [G * QG,
-    wc] int32, the chunk of each place, 0 where none)."""
+                        qn=None, minima: bool = False):
+    """Plain PyTorch version of K3: the reference's tile
+    (`_sparse_scan_plain`), each member (query, step) tile moved to its
+    place; a query's member test reads its first n_places probes. Returns
+    (cand [G * QG, wc * CHUNK] float32, +inf where nothing was scanned,
+    chunk_tab [G * QG, wc] int32, the chunk of each place, 0 where none,
+    gmin as `_compact_scan`'s)."""
+    # a dead step (cluster id -1) has no member: the tile of each walk's
+    # live steps alone, in walk order, holds every member tile
+    live = cluster_ids >= 0
+    steps = torch.sort((~live).to(torch.int8), dim=1, stable=True).indices
+    steps = steps[:, :max(int(live.sum(dim=1).max()), 1)]
+    chunk_ids, cluster_ids = chunk_ids.gather(1, steps), cluster_ids.gather(1, steps)
     dist, _ = _sparse_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
                                  thr, cosine, qn)
     g_n, s_n = chunk_ids.shape
@@ -418,16 +375,16 @@ def _compact_scan_plain(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_id
     cand[row, at] = dist.view(g_n, QG, s_n, CHUNK)[g, r, st]
     chunk_tab = torch.zeros((q_n, wc), dtype=torch.int32, device=dev)
     chunk_tab[row, at] = chunk_ids[g, st]
-    return cand.view(q_n, wc * CHUNK), chunk_tab
+    gmin = cand.view(q_n, 2 * wc, SEL_GROUP).amin(dim=2) if minima else None
+    return cand.view(q_n, wc * CHUNK), chunk_tab, gmin
 
 
 def _compact_scan_cuda(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, chunk_start,
                        nchunks, n_places: int, MC: int, wc: int, thr: float, cosine: bool,
-                       qn=None):
-    """Launch K3's compact route (the bf16 mode for a bfloat16 corpus), one
-    block a chunk of the corpus. Returns (cand [G * QG, wc * CHUNK],
-    chunk_tab [G * QG, wc])."""
-    global LAUNCHES, BF16_LAUNCHES, COMPACT_LAUNCHES
+                       qn=None, minima: bool = False):
+    """Launch K3 (the bf16 mode for a bfloat16 corpus): `_compact_scan`'s
+    outputs (csrc/ivf_sparse.cu)."""
+    global LAUNCHES, BF16_LAUNCHES
     lib = _build.library()
     g_n, s_n = chunk_ids.shape
     d = qsorted.shape[1]
@@ -439,48 +396,53 @@ def _compact_scan_cuda(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids
     q = qsorted.to(torch.bfloat16).contiguous() if bf16 else qsorted
     qn = qn.contiguous()
     starts = _walk_starts(cluster_ids, nlist)
-    cand = torch.full((g_n * QG, wc * CHUNK), float("inf"), dtype=torch.float32, device=dev)
+    rows, f32 = (g_n * QG, wc * CHUNK), torch.float32
+    cand = (torch.empty(rows, dtype=f32, device=dev) if minima
+            else torch.full(rows, float("inf"), dtype=f32, device=dev))
+    gmin = torch.full((g_n * QG, 2 * wc), float("inf"), dtype=f32, device=dev) if minima else None
     chunk_tab = torch.zeros((g_n * QG, wc), dtype=torch.int32, device=dev)
     code = lib.comet_sparse_scan_compact(
         q.data_ptr(), qn.data_ptr(), corpus.data_ptr(), mask_vec.data_ptr(),
         probes.data_ptr(), probes.shape[1], n_places, starts.data_ptr(), chunk_start.data_ptr(),
         nchunks.data_ptr(), nlist, MC, thr, g_n, s_n, corpus.shape[0] // CHUNK, d,
         int(cosine), int(bf16), wc, cand.data_ptr(), chunk_tab.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        None if gmin is None else gmin.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     with _build.COUNT_LOCK:
         if bf16:
             BF16_LAUNCHES += 1
         else:
             LAUNCHES += 1
-            COMPACT_LAUNCHES += 1
     _build.check(code, "sparse_scan_compact")
-    return cand, chunk_tab
+    return cand, chunk_tab, gmin
 
 
 def _compact_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, chunk_start,
                   nchunks, n_places: int, MC: int, wc: int, threshold: float,
-                  cosine: bool = False, bf16_domain: bool = False, qn=None):
-    """The compact route: each probing query's distances at its own places
-    (`_compact_places`), as `_sparse_scan` takes its inputs, plus the
-    layout's chunk_start [nlist + 1] and nchunks [nlist] (int32), the
-    probes a row has places for (n_places: the coarse stage's nprobe), MC
-    and the row's places wc. Returns (cand [G * QG, wc * CHUNK] float32,
-    chunk_tab [G * QG, wc] int32): a candidate at position i of its row
-    lies in row chunk_tab[q, i // CHUNK] * CHUNK + i % CHUNK of the
-    cluster-major corpus."""
-    _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, bf16_domain, qn,
-                (("chunk_start", chunk_start, torch.int32), ("nchunks", nchunks, torch.int32)))
-    if chunk_start.shape != (len(nchunks) + 1,):
-        raise ValueError(f"chunk_start must be [{len(nchunks) + 1}], "
-                         f"got {tuple(chunk_start.shape)}")
+                  cosine: bool = False, bf16_domain: bool = False, qn=None,
+                  minima: bool = False):
+    """K3: each probing query's distances at its own places
+    (`_compact_places`), from the inputs of `_sparse_scan_plain` (the corpus
+    float32, or bfloat16 with `bf16_domain`; `qn` float32 [G * QG] the
+    queries' squared norms, else computed from qsorted), the layout's
+    chunk_start [nlist + 1] and nchunks [nlist] (int32), the probes a row
+    has places for (n_places: the coarse stage's nprobe), MC and the row's
+    places wc. Returns (cand [G * QG, wc * CHUNK] float32, chunk_tab
+    [G * QG, wc] int32, gmin): a candidate at position i of its row lies in
+    row chunk_tab[q, i // CHUNK] * CHUNK + i % CHUNK of the cluster-major
+    corpus. With `minima`, gmin [G * QG, 2 wc] float32 holds each 128-place
+    group's minimum and cand only the groups whose minimum is finite (the
+    card leaves the rest unwritten); else gmin is None and cand is +inf
+    wherever nothing was scanned."""
+    _check_scan(qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids, chunk_start, nchunks,
+                bf16_domain, qn)
     if not 1 <= n_places <= probes.shape[1] or MC < 1 or wc < 1:
         raise ValueError(f"n_places={n_places} (of {probes.shape[1]}), MC={MC}, wc={wc}")
     thr = float(np.float32(threshold))
     args = [t.contiguous() for t in (qsorted, corpus, mask_vec, probes, chunk_ids, cluster_ids,
                                      chunk_start, nchunks)]
     fn = _compact_scan_plain if use_plain(qsorted) else _compact_scan_cuda
-    return fn(*args, n_places, MC, wc, thr, cosine, qn)
+    return fn(*args, n_places, MC, wc, thr, cosine, qn, minima)
 
 
 # -- the pipeline -------------------------------------------------------------------
@@ -490,14 +452,11 @@ def scan_plan(q, centroids, order_key, chunk_start, nchunks, k, nprobe,
               S, UC, MC, nlist, coarse_cosine, kb_cap: int = 0):
     """The scan's inputs for one slice of queries (a multiple of QG):
     coarse probes, the stable query sort by the order key of each query's
-    nearest centroid, and the groups' chunk lists. kb is a power of two
-    >= k (block-select bound), or at most k_pow2(kb_cap) when kb_cap > 0,
+    nearest centroid, and the groups' chunk lists. kb is `select_groups`,
     and S grows so that at least kb selection groups exist (the extra steps
-    are dead). Returns a dict of qperm, qsorted, probes (sorted),
-    chunk_ids, cluster_ids, overflow, kb, S."""
-    kb = k_pow2(k)
-    if kb_cap:
-        kb = min(kb, k_pow2(kb_cap))
+    are dead), as the reference's does. Returns a dict of qperm, qsorted,
+    probes (sorted), chunk_ids, cluster_ids, overflow, kb, S."""
+    kb = select_groups(k, kb_cap)
     S = max(S, -(-kb * SEL_GROUP // CHUNK))
     probes = coarse_probes(q, centroids, nprobe, coarse_cosine, probe_pad(nprobe))
     p0 = probes[:, 0].long()
@@ -518,26 +477,27 @@ def _pipeline(q, qn, corpus, mask_vec, row_slot, thr, centroids, order_key,
     dev = q.device
     plan = scan_plan(q, centroids, order_key, chunk_start, nchunks, k, nprobe,
                      S, UC, MC, nlist, coarse_cosine, kb_cap)
-    qperm, chunk_ids, kb, S = plan["qperm"], plan["chunk_ids"], plan["kb"], plan["S"]
-    scan = (plan["qsorted"], corpus, mask_vec, plan["probes"], chunk_ids, plan["cluster_ids"])
+    qperm, kb = plan["qperm"], plan["kb"]
     qn_s = qn[qperm] if qn is not None else None
+    cand, chunks, gmin = _compact_scan(
+        plan["qsorted"], corpus, mask_vec, plan["probes"], plan["chunk_ids"], plan["cluster_ids"],
+        chunk_start, nchunks, nprobe, MC, compact_width(nprobe, MC, k, kb_cap), thr, cosine,
+        bf16_domain, qn_s, minima=bool(kb_cap))
     if kb_cap:
-        # the dense route: each query's top-kb selection groups by (minimum,
-        # position), their distances gathered, then the candidate select
-        dist, gsel = _sparse_scan(*scan, thr, kb, cosine, bf16_domain, qn_s)
-        d3 = dist.view(q_n, 2 * S, SEL_GROUP)
-        gs = gsel.view(q_n, kb)
-        cand = torch.gather(d3, 1, gs.long()[:, :, None].expand(q_n, kb, SEL_GROUP))
+        # the shortlist: each query's top-kb selection groups by (minimum,
+        # position), the reference tile's groups in its order (module
+        # note), their distances gathered (a group with no finite minimum
+        # holds nothing scanned: +inf), then the candidate select
+        gv, gs = topk_rows(gmin, None, kb)
+        gv, gs = gv[:, :kb], gs[:, :kb]
+        cand = torch.gather(cand.view(q_n, -1, SEL_GROUP), 1,
+                            gs.long()[:, :, None].expand(q_n, kb, SEL_GROUP))
+        cand = cand.masked_fill(torch.isinf(gv)[:, :, None], float("inf"))
         offs = torch.arange(SEL_GROUP, dtype=torch.int32, device=dev)
         cidx = (gs[:, :, None] * SEL_GROUP + offs).reshape(q_n, kb * SEL_GROUP)
         fv, fi = topk_rows(cand.reshape(q_n, kb * SEL_GROUP), cidx, k)   # [Q, k_pow2]
-        chunks = chunk_ids.repeat_interleave(QG, dim=0)                    # [Q, S]
     else:
-        # the compact route: one select of each query's own row, whose
-        # position order is the dense tile's scan order, so the same
-        # candidates in the same tie order
-        cand, chunks = _compact_scan(*scan, chunk_start, nchunks, nprobe, MC,
-                                     compact_width(nprobe, MC), thr, cosine, bf16_domain, qn_s)
+        # the exact top-k: one select of each query's own row
         fv, fi = topk_rows(cand, None, k)                                  # [Q, k_pow2]
     # position -> chunk -> cluster-major row -> slot
     sent = fi == IDX_SENTINEL
@@ -559,12 +519,11 @@ def _pipeline(q, qn, corpus, mask_vec, row_slot, thr, centroids, order_key,
 
 def _mem_envelope_bytes() -> int:
     """Budget for one launch's scan output (COMET_SPARSE_MEM_GB; default
-    DEFAULT_MEM_GB = 8 GiB, a tenth of an 80 GB H100). The compact route's
-    rows are QG x W x 4 bytes a group, W = `compact_width` x CHUNK: 147 MB
-    for 2048 queries at nprobe 10 and lists of at most 7 chunks. The dense
-    route's tile is QG x S x CHUNK x 4 bytes a group: 2 GiB for 2048
-    queries at S = 1024, 8 GiB at S = 4096. A batch past the envelope runs
-    in query-group slices, one after another, each freed before the next."""
+    DEFAULT_MEM_GB = 8 GiB, a tenth of an 80 GB H100). K3's rows are QG x
+    W x 4 bytes a group, W = `compact_width` x CHUNK: 147 MB for 2048 queries
+    at nprobe 10 and lists of at most 7 chunks. A batch past the envelope
+    runs in query-group slices, one after another, each freed before the
+    next."""
     try:
         gb = float(os.environ.get("COMET_SPARSE_MEM_GB", str(DEFAULT_MEM_GB)))
     except ValueError:
@@ -592,14 +551,13 @@ def ivf_sparse_pipeline(
     kb_cap: int = 0,            # > 0: keep at most k_pow2(kb_cap) selection groups
     qn: torch.Tensor | None = None,  # [Q] float32 query squared norms (bf16 mode)
 ):
-    """Block-sparse IVF search of every query: the compact route when
-    kb_cap is 0, the dense one otherwise (module note). Pads the batch with
-    zero queries to a multiple of QG and, when the scan's output (compact
-    rows, or the dense tile) would exceed the envelope
-    (`_mem_envelope_bytes`), runs it in QG-multiple slices (queries are
-    sorted within a slice). Returns (scores [Q, k] float32, slots [Q, k]
-    int32, overflow [G] int32, one count per group of QG padded queries);
-    empty slots carry (+inf, IDX_SENTINEL).
+    """Block-sparse IVF search of every query: the exact top-k when kb_cap
+    is 0, a shortlist of selection groups otherwise (module note). Pads the
+    batch with zero queries to a multiple of QG and, when K3's rows would
+    exceed the envelope (`_mem_envelope_bytes`), runs it in QG-multiple
+    slices (queries are sorted within a slice). Returns (scores [Q, k]
+    float32, slots [Q, k] int32, overflow [G] int32, one count per group
+    of QG padded queries); empty slots carry (+inf, IDX_SENTINEL).
 
     With `bf16_domain` the corpus is bfloat16 and the mask the float32
     value of each row's bf16 squared norm; `qn`, when given, is used for
@@ -612,8 +570,7 @@ def ivf_sparse_pipeline(
         if qn is not None:
             qn = torch.cat([qn, qn.new_zeros(q_pad - q_n)])
     g_n = q_pad // QG
-    width = S * CHUNK if kb_cap else compact_width(nprobe, MC) * CHUNK
-    per_group = QG * width * 4
+    per_group = QG * compact_width(nprobe, MC, k, kb_cap) * CHUNK * 4
     max_g = max(_mem_envelope_bytes() // max(per_group, 1), 1)
     args = (corpus, mask_vec, row_slot, threshold, centroids, order_key,
             chunk_start, nchunks, k, nprobe, S, UC, MC, nlist,

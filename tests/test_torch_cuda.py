@@ -305,44 +305,59 @@ def test_fused_dist_select_nprobe_kernel_matches_plain(dev, q_n, n, d, nlist, wi
     assert torch.isfinite(dist).any() and torch.isinf(dist).any()
 
 
-def _sparse_case(dev, g_n, s_n, d, nlist, cosine, seed):
+def _k3_layout(dev, rng, g_n, s_n, nlist=12):
+    """A cluster-major layout of nlist clusters of 0-5 chunks and each
+    group's walk over its queries' 8 distinct probes at a step budget of
+    s_n (which may drop chunks). Returns (rows NR, the layout arguments of
+    K3's wrapper: probes, chunk_ids, cluster_ids, chunk_start, nchunks,
+    n_places, MC, wc)."""
     from comet_tpu_torch.ops import ivf_sparse as sp
 
-    rng = np.random.default_rng(seed)
-    nr = 64 * sp.CHUNK
-    q, x, mask = _scan_inputs(rng, g_n * sp.QG, nr, d, cosine)
-    probes = rng.integers(0, nlist, size=(g_n * sp.QG, 8)).astype(np.int32)
-    chunk_ids = rng.integers(0, 64, size=(g_n, s_n)).astype(np.int32)
-    cluster_ids = rng.integers(-1, nlist, size=(g_n, s_n)).astype(np.int32)
-    t = [torch.from_numpy(a).to(dev) for a in (q, x, mask, probes, chunk_ids, cluster_ids)]
-    return sp, t
+    nchunks = rng.integers(0, 6, size=nlist).astype(np.int32)
+    nchunks[0] = max(nchunks[0], 1)
+    chunk_start = np.concatenate([[0], np.cumsum(nchunks)]).astype(np.int32)
+    probes = np.stack([rng.permutation(nlist)[:8] for _ in range(g_n * sp.QG)]).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    mc = int(nchunks.max())
+    chunk_ids, cluster_ids, _, _ = sp._group_chunk_lists(
+        t(probes), t(chunk_start), t(nchunks), s_n, min(s_n, nlist), mc, nlist)
+    return int(chunk_start[-1]) * sp.CHUNK, (t(probes), chunk_ids, cluster_ids, t(chunk_start),
+                                            t(nchunks), 8, mc, sp.compact_width(8, mc))
 
 
 @pytest.mark.parametrize("cosine", [False, True])
 @pytest.mark.parametrize("g_n,s_n,d", [(3, 40, 128), (2, 5, 20)])
-def test_sparse_scan_kernel_matches_plain(dev, cosine, g_n, s_n, d):
-    """K3 against `_sparse_scan_plain`: integer L2 bit-equal (group choice
-    too); cosine within float32 summation-order error."""
-    sp, t = _sparse_case(dev, g_n, s_n, d, 12, cosine, seed=g_n + s_n)
+def test_compact_scan_kernel_matches_plain(dev, cosine, g_n, s_n, d):
+    """K3 against `_compact_scan_plain` on a layout of uneven lists: the
+    chunk table equal, the rows integer L2 bit-equal, cosine within
+    float32 summation-order error; its shortlist mode (group minima, the
+    row unfilled) held to it by `edge_cases.check_k3_minima`, and its
+    minima integer L2 bit-equal to the plain version's."""
+    from comet_tpu_torch.ops import ivf_sparse as sp
+
+    rng = np.random.default_rng(g_n + s_n)
+    nr, lay = _k3_layout(dev, rng, g_n, s_n)
+    t = [torch.from_numpy(a).to(dev) for a in _scan_inputs(rng, g_n * sp.QG, nr, d, cosine)]
     thr = 1.0 if cosine else float(np.float32(4.0e5 * d / 20))
-    kb = min(16, 2 * s_n)
     before = sp.LAUNCHES
-    dist, gsel = sp._sparse_scan(*t, thr, kb, cosine)
+    filled = sp._compact_scan(*t, *lay, thr, cosine)
     torch.cuda.synchronize()
     assert sp.LAUNCHES == before + 1
-    want_d, want_gmin = sp._sparse_scan_plain(*t, thr, cosine)
-    want_g = sortnet._topk_rows_plain(want_gmin.view(g_n * sp.QG, -1), None, kb)[1][:, :kb]
-    dead = (t[5] < 0).repeat_interleave(sp.CHUNK, dim=1)[:, None, :].expand_as(dist)
-    assert torch.isinf(dist[dead]).all()
+    cand, tab, _ = filled
+    want, want_tab, want_gmin = sp._compact_scan_plain(*t, *lay, thr, cosine, minima=True)
+    got = sp._compact_scan(*t, *lay, thr, cosine, minima=True)
+    edge_cases.check_k3_minima(filled, got, "float32")
+    assert torch.isfinite(got[2]).any() and torch.isinf(got[2]).any()
+    assert torch.equal(tab, want_tab)
+    assert torch.isfinite(want).any() and torch.isinf(want).any()
     if cosine:
-        both = torch.isfinite(dist) & torch.isfinite(want_d)
-        torch.testing.assert_close(dist[both], want_d[both], rtol=1e-5, atol=1e-6)
-        flip = torch.isfinite(dist) != torch.isfinite(want_d)
-        near = torch.where(torch.isfinite(dist), dist, want_d)[flip]
+        both = torch.isfinite(cand) & torch.isfinite(want)
+        torch.testing.assert_close(cand[both], want[both], rtol=1e-5, atol=1e-6)
+        flip = torch.isfinite(cand) != torch.isfinite(want)
+        near = torch.where(torch.isfinite(cand), cand, want)[flip]
         assert ((near - thr).abs() <= 1e-6 + 1e-5 * abs(thr)).all()
     else:
-        assert torch.equal(dist, want_d)
-        assert torch.equal(gsel.view(g_n * sp.QG, kb), want_g)
+        assert torch.equal(cand, want) and torch.equal(got[2], want_gmin)
 
 
 @pytest.mark.parametrize("layout,d", edge_cases.K3_CASES)
@@ -355,12 +370,13 @@ def test_sparse_scan_edges_match_plain(dev, layout, d):
 
 @pytest.mark.parametrize("layout,d,bf16", edge_cases.K3_ROUTE_CASES)
 def test_sparse_compact_route_equals_the_dense_route(dev, layout, d, bf16):
-    """K3's compact route (kb_cap = 0) against its dense route with the
-    group select (kb_cap = k) through the whole pipeline on one layout, in
-    float32 and the bf16 mode: scores, slots and overflow array-equal at
-    dead steps, an overflowing budget, queries probing only empty clusters,
-    a threshold, a filter, a row narrower than k_pow2(k), a ragged batch
-    and ties across the 128th place (ops/edge_cases.py)."""
+    """Through the whole pipeline on one layout, in float32 and the bf16
+    mode: a shortlist at the exact bound (kb_cap = k) equals the exact
+    search (kb_cap = 0), and a shortlist of 8 groups equals the plain
+    selection from the reference's dense tile; scores, slots and overflow
+    array-equal at dead steps, an overflowing budget, queries probing only
+    empty clusters, a threshold, a filter, a row narrower than k_pow2(k), a
+    ragged batch and ties across the 128th place (ops/edge_cases.py)."""
     edge_cases.check_k3_routes(dev, layout, d, bf16)
 
 
@@ -482,34 +498,34 @@ def _seed_loop_case(dev, n=4096, d=128, w=32, q_n=128, seed=5):
 
 @pytest.mark.parametrize("q_n,s_n", [(128, 16), (384, 40)])
 def test_sparse_scan_bf16_kernel_matches_plain(dev, q_n, s_n):
-    """K3's bf16 mode on Gaussian (non-integer) data: bit-equal to the
-    plain version, which sums the exact bf16 products in the kernel's
-    order; and its launches count apart from the float32 mode's."""
+    """K3's bf16 mode on Gaussian (non-integer) data: rows and chunk table
+    bit-equal to the plain version, which sums the exact bf16 products in
+    the kernel's order, and so are the group minima of its shortlist mode
+    (held to the filled rows by `edge_cases.check_k3_minima`); and its
+    launches count apart from the float32 mode's."""
     from comet_tpu_torch.ops import ivf_sparse as sp
 
     rng = np.random.default_rng(q_n)
-    nr = 64 * sp.CHUNK
-    g_n = q_n // sp.QG
+    nr, lay = _k3_layout(dev, rng, q_n // sp.QG, s_n)
     q = torch.from_numpy(rng.normal(size=(q_n, 128)).astype(np.float32)).to(dev)
     x = torch.from_numpy(rng.normal(size=(nr, 128)).astype(np.float32)).to(dev)
     sqn = (x * x).sum(dim=1)
     mask = torch.where(torch.from_numpy(rng.random(nr) < 0.1).to(dev), float("inf"),
                        sqn.to(torch.bfloat16).float())
-    probes = torch.from_numpy(rng.integers(0, 12, size=(q_n, 8)).astype(np.int32)).to(dev)
-    chunk_ids = torch.from_numpy(rng.integers(0, 64, size=(g_n, s_n)).astype(np.int32)).to(dev)
-    cluster_ids = torch.from_numpy(rng.integers(-1, 12, size=(g_n, s_n)).astype(np.int32)).to(dev)
     qn = (q * q).sum(dim=1)
     xb = x.to(torch.bfloat16)
-    args = (q, xb, mask, probes, chunk_ids, cluster_ids)
     before = (sp.LAUNCHES, sp.BF16_LAUNCHES)
-    dist, gsel = sp._sparse_scan(*args, float("inf"), 16, False, True, qn)
+    filled = sp._compact_scan(q, xb, mask, *lay, float("inf"), False, True, qn)
     torch.cuda.synchronize()
     assert (sp.LAUNCHES, sp.BF16_LAUNCHES) == (before[0], before[1] + 1)
-    want_d, want_gmin = sp._sparse_scan_plain(*args, float("inf"), False, qn)
-    assert torch.equal(dist, want_d)
-    want_g = sortnet._topk_rows_plain(want_gmin.view(q_n, -1), None, 16)[1][:, :16]
-    assert torch.equal(gsel.view(q_n, 16), want_g)
-    assert torch.isfinite(dist).any()
+    cand, tab, _ = filled
+    want, want_tab, want_gmin = sp._compact_scan_plain(q, xb, mask, *lay, float("inf"), False,
+                                                       qn, minima=True)
+    assert torch.equal(cand, want) and torch.equal(tab, want_tab)
+    assert torch.isfinite(cand).any()
+    got = sp._compact_scan(q, xb, mask, *lay, float("inf"), False, True, qn, minima=True)
+    edge_cases.check_k3_minima(filled, got, "bf16 mode")
+    assert torch.equal(got[2], want_gmin)
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -550,11 +566,14 @@ def test_seed_and_in_loop_distances_are_bit_equal(dev):
     n, q_n, w = x.shape[0], q.shape[0], adj.shape[1]
     s_n = n // sp.CHUNK
     qn = (q * q).sum(dim=1)
-    dist, _ = sp._sparse_scan(
-        q, x.to(torch.bfloat16), mask, torch.zeros((q_n, 8), dtype=torch.int32, device=dev),
-        torch.arange(s_n, dtype=torch.int32, device=dev)[None, :],
-        torch.zeros((1, s_n), dtype=torch.int32, device=dev), float("inf"), 8, False, True, qn)
-    seed_d = dist[0]                                          # [Q, n]: every (query, row)
+    # one cluster of every chunk, one group's walk over all of them: chunk i
+    # goes to place i of each query's row
+    i32 = dict(dtype=torch.int32, device=dev)
+    seed_d, _, _ = sp._compact_scan(
+        q, x.to(torch.bfloat16), mask, torch.zeros((q_n, 8), **i32),
+        torch.arange(s_n, **i32)[None, :], torch.zeros((1, s_n), **i32),
+        torch.tensor([0, s_n], **i32), torch.tensor([s_n], **i32), 1, s_n, s_n, float("inf"),
+        False, True, qn)                                      # [Q, n]: every (query, row)
     nodes = torch.from_numpy(rng.integers(0, n, size=(q_n, 8)).astype(np.int32)).to(dev)
     nd, ns, _ = bk.gather_score(q.to(torch.bfloat16), qn, nbr_vecs, aux, nodes,
                                 torch.ones(n, dtype=torch.bool, device=dev), float("inf"), False)

@@ -159,7 +159,7 @@ def _args(cosine, fmask):
     return xr, mask, perm, cents, ORDER_KEY, lay["chunk_start"], lay["nchunks"], lay
 
 
-# -- the scan: _sparse_scan_plain against the interpret-mode kernel ----------------
+# -- the scan: _sparse_scan_plain and K1's group select against the interpret-mode kernel
 
 
 @lru_cache(maxsize=None)
@@ -189,14 +189,21 @@ def _ref_scan():
     return np.asarray(dist), np.asarray(gsel)
 
 
+def _group_select(gmin, kb):
+    """K1's group select of the tile's minima, as the pipeline makes it:
+    each query's top-kb groups by (minimum, position)."""
+    return sp.topk_rows(gmin.reshape(-1, gmin.shape[-1]), None, kb)[1][:, :kb]
+
+
 def test_sparse_scan_matches_reference():
-    """Integer data, a threshold, a dead step: dist array-equal, the same
-    kept groups, ordered by (group minimum, scan position)."""
+    """Integer data, a threshold, a dead step: `_sparse_scan_plain`'s dist
+    array-equal, and K1's group select of its minima the same kept groups,
+    ordered by (group minimum, scan position)."""
     q, xr, mask, probes, chunk_ids, cluster_ids = _scan_case()
     rdist, rgsel = _ref_scan()
     t = [torch.from_numpy(a) for a in (q, xr, mask, probes, chunk_ids, cluster_ids)]
-    dist, gsel = sp._sparse_scan(*t, THR_SCAN, 8)
-    dist, gsel = dist.numpy(), gsel.numpy()
+    dist, pgmin = sp._sparse_scan_plain(*t, THR_SCAN, False)
+    dist, gsel = dist.numpy(), _group_select(pgmin, 8).numpy()
     np.testing.assert_array_equal(dist, rdist)
     assert np.isinf(dist[0, :, 2 * sp.CHUNK:3 * sp.CHUNK]).all()   # the dead step
     fin = np.isfinite(dist)
@@ -215,8 +222,7 @@ def test_sparse_scan_matches_reference():
         assert {g for g in gsel[r] if fin[g]} == {g for g in rgsel[r] if fin[g]}, r
         assert len(set(gsel[r])) == 8
     assert (np.isfinite(gmin).sum(axis=1) >= 8).any()      # some rows need no fill
-    # the plain version gives the group minima the kernel's K1 choice reads
-    _, pgmin = sp._sparse_scan_plain(*t, THR_SCAN, False)
+    # the group minima K1's choice reads are those of the distances
     np.testing.assert_array_equal(pgmin.numpy().reshape(2 * sp.QG, 12), gmin)
 
 
@@ -265,16 +271,6 @@ def test_sparse_scan_member_counts_match_reference(bf16):
     assert (fin.sum(axis=1) == member.sum(axis=1)).all()   # every member row has a hit
     np.testing.assert_array_equal(
         gmin, dist.reshape(g_n, sp.QG, 2 * s_n, sp.SEL_GROUP).min(axis=3))
-
-
-def test_chunk_order_takes_steps_by_chunk():
-    """K3's block order (`_chunk_order`): every step g * S + s once, int32,
-    by chunk id and then by step."""
-    chunk_ids = np.random.default_rng(3).integers(0, 9, size=(4, 13)).astype(np.int32)
-    order = sp._chunk_order(torch.from_numpy(chunk_ids)).numpy()
-    flat = chunk_ids.ravel()
-    assert order.dtype == np.int32
-    np.testing.assert_array_equal(order, np.lexsort((np.arange(flat.size), flat)))
 
 
 # -- the pipeline ------------------------------------------------------------------
@@ -402,25 +398,27 @@ def _ref_scan_bf16():
 
 
 def test_sparse_scan_bf16_matches_reference():
-    """K3's bf16 mode: bf16 queries and corpus, float32 query norms, the
-    bf16-domain mask: dist array-equal to the reference kernel's, and the
-    group choice in (minimum, position) order."""
+    """The bf16 mode: bf16 queries and corpus, float32 query norms, the
+    bf16-domain mask: `_sparse_scan_plain`'s dist array-equal to the
+    reference kernel's, and K1's group select of its minima in (minimum,
+    position) order; K3's wrapper refuses a float32 corpus in this mode."""
     q, _, _, probes, chunk_ids, cluster_ids = _scan_case()
-    xb, bmask, _, _, _ = _bf16_layout()
+    xb, bmask, _, _, lay = _bf16_layout()
     rdist, _ = _ref_scan_bf16()
     t = torch.from_numpy
-    dist, gsel = sp._sparse_scan(t(q), xb, t(bmask), t(probes), t(chunk_ids), t(cluster_ids),
-                                 THR_SCAN, 8, False, True)
+    lists = (t(probes), t(chunk_ids), t(cluster_ids))
+    dist, pgmin = sp._sparse_scan_plain(t(q), xb, t(bmask), *lists, THR_SCAN, False)
     np.testing.assert_array_equal(dist.numpy(), rdist)
     gmin = rdist.reshape(2 * sp.QG, 12, sp.SEL_GROUP).min(axis=2)
     order = np.lexsort((np.broadcast_to(np.arange(12), gmin.shape), gmin), axis=1)[:, :8]
-    np.testing.assert_array_equal(gsel.numpy().reshape(2 * sp.QG, 8), order)
+    np.testing.assert_array_equal(_group_select(pgmin, 8).numpy(), order)
     # bf16 rounding moved some distances off the float32 mode's
-    f32, _ = sp._sparse_scan(t(q), *(t(a) for a in _scan_case()[1:]), THR_SCAN, 8)
+    f32, _ = sp._sparse_scan_plain(*(t(a) for a in _scan_case()), THR_SCAN, False)
     assert not np.array_equal(f32.numpy(), rdist)
+    mc = lay["max_chunks"]
     with pytest.raises(ValueError, match="corpus must be"):
-        sp._sparse_scan(t(q), xb.float(), t(bmask), t(probes), t(chunk_ids), t(cluster_ids),
-                        THR_SCAN, 8, False, True)
+        sp._compact_scan(t(q), xb.float(), t(bmask), *lists, t(lay["chunk_start"]),
+                         t(lay["nchunks"]), 8, mc, sp.compact_width(8, mc), THR_SCAN, False, True)
 
 
 K_CAP = 32   # k of the kb_cap pipeline: kb = k_pow2(8) = 8 groups, not 32
@@ -481,7 +479,7 @@ def test_sparse_pipeline_takes_the_callers_query_norms():
     np.testing.assert_array_equal(s3[same], s[same] + 1024.0)
 
 
-# -- the compact route (kb_cap == 0) against the dense route (kb_cap > 0) ------------------
+# -- shortlists (kb_cap > 0) against the exact search and the reference tile's ------------
 
 ROUTE_CASES_CPU = [c for c in edge_cases.K3_ROUTE_CASES
                    if c[1] in (3, 20) or (c[1] == 128 and not c[2])]
@@ -489,12 +487,72 @@ ROUTE_CASES_CPU = [c for c in edge_cases.K3_ROUTE_CASES
 
 @pytest.mark.parametrize("layout,d,bf16", ROUTE_CASES_CPU)
 def test_compact_route_equals_the_dense_route(layout, d, bf16):
-    """The plain versions of both routes through `ivf_sparse_pipeline` on
-    one layout (ops/edge_cases.py: dead steps, an overflowing budget,
-    queries that probe only empty clusters, a threshold, a filter, a row
-    narrower than k_pow2(k), a ragged batch, ties across the 128th place),
-    float32 and the bf16 mode: scores, slots and overflow array-equal."""
+    """Through `ivf_sparse_pipeline` on one layout (ops/edge_cases.py: dead
+    steps, an overflowing budget, queries that probe only empty clusters,
+    a threshold, a filter, a row narrower than k_pow2(k), a ragged batch,
+    ties across the 128th place), float32 and the bf16 mode: a shortlist
+    at the exact bound equals the exact search, and a shortlist of 8
+    groups equals the one the reference's dense tile gives
+    (`edge_cases.plain_shortlist`); scores, slots and overflow
+    array-equal."""
     edge_cases.check_k3_routes(torch.device("cpu"), layout, d, bf16)
+
+
+@pytest.mark.parametrize("layout", edge_cases.K3_ROUTE_LAYOUTS)
+def test_shortlists_read_no_group_whose_minimum_is_inf(layout, monkeypatch):
+    """On the card a shortlist's row is not filled, so a group with nothing
+    scanned holds whatever the memory held: with every group whose
+    minimum is +inf poisoned (-1.0, which a select would take first), a
+    shortlist of 8 groups still equals the reference tile's
+    (`edge_cases.plain_shortlist`)."""
+    scan = sp._compact_scan_plain
+
+    def poisoned(*args, **kw):
+        cand, tab, gmin = scan(*args, **kw)
+        if gmin is not None:
+            groups = cand.view(cand.shape[0], -1, sp.SEL_GROUP)
+            groups[torch.isinf(gmin)] = -1.0
+        return cand, tab, gmin
+
+    monkeypatch.setattr(sp, "_compact_scan_plain", poisoned)
+    args = edge_cases.k3_route_args(torch.device("cpu"), edge_cases.k3_route_case(layout, 20),
+                                    False)
+    got = sp.ivf_sparse_pipeline(*args, sqrt_out=True, kb_cap=8)
+    for a, b in zip(got, edge_cases.plain_shortlist(*args, 8)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("layout", edge_cases.K3_ROUTE_LAYOUTS)
+def test_compact_row_group_minima_are_the_tiles_member_groups(layout):
+    """The selection groups a shortlist picks from: on each layout, the
+    128-place group minima of a query's compact row are the minima of the
+    reference tile's groups in the steps whose cluster the query probes,
+    in the tile's order, then +inf; and every other group of the tile is
+    +inf. So K1's (minimum, position) select of either picks the same
+    groups in the same order. `minima=True` returns those minima."""
+    c = edge_cases.k3_route_case(layout, 20)
+    (q, corpus, mask, _, thr, cents, okey, cs, nch, k, nprobe, S, UC, mc,
+     nlist) = edge_cases.k3_route_args(torch.device("cpu"), c, False)
+    q = torch.cat([q, q.new_zeros((-(-len(q) // sp.QG) * sp.QG - len(q), q.shape[1]))])
+    plan = sp.scan_plan(q, cents, okey, cs, nch, k, nprobe, S, UC, mc, nlist, False, 8)
+    lists = (plan["probes"], plan["chunk_ids"], plan["cluster_ids"])
+    _, gmin = sp._sparse_scan_plain(plan["qsorted"], corpus, mask, *lists, thr, False)
+    wc = sp.compact_width(nprobe, mc, k, 8)
+    cand, _, got = sp._compact_scan_plain(plan["qsorted"], corpus, mask, *lists, cs, nch, nprobe,
+                                          mc, wc, thr, False, minima=True)
+    rows = q.shape[0]
+    row_min = cand.view(rows, 2 * wc, sp.SEL_GROUP).amin(dim=2).numpy()
+    np.testing.assert_array_equal(got.numpy(), row_min)
+    tile_min = gmin.view(rows, 2 * plan["S"]).numpy()
+    probes, cluster_ids = plan["probes"].numpy(), plan["cluster_ids"].numpy()
+    for r in range(rows):
+        live = cluster_ids[r // sp.QG]
+        member = (live >= 0) & np.isin(live, probes[r, :nprobe])
+        want = tile_min[r].reshape(-1, 2)[member].ravel()
+        np.testing.assert_array_equal(row_min[r, :len(want)], want, err_msg=f"query {r}")
+        assert np.isinf(row_min[r, len(want):]).all(), r
+        assert np.isinf(tile_min[r].reshape(-1, 2)[~member]).all(), r
+    assert np.isfinite(row_min).any()
 
 
 def test_compact_places_are_each_querys_chunks_in_scan_order():
@@ -532,10 +590,12 @@ def test_compact_places_are_each_querys_chunks_in_scan_order():
 
 
 def test_the_envelope_slices_each_route_by_its_own_width(monkeypatch):
-    """An envelope that holds two groups' compact rows (QG x W x 4 bytes
-    each) but one group's dense tile (QG x S x CHUNK x 4): the compact
-    route runs a 2-group batch as one slice, the dense route as two, and
-    both give the same answer."""
+    """An envelope that holds two groups' rows at the compact width (QG x W
+    x 4 bytes each): the exact search and a shortlist whose groups fit that
+    width run a 2-group batch as one slice; a shortlist of more groups than
+    it holds widens the row (`compact_width`) and runs as two slices. Each
+    gives the exact search's answer (kb_cap = k keeps every group it
+    needs)."""
     calls = []
     pipeline = sp._pipeline
 
@@ -547,31 +607,41 @@ def test_the_envelope_slices_each_route_by_its_own_width(monkeypatch):
     q = _queries(False, False, 2 * sp.QG, seed=70)
     xr, mask, perm, cents, okey, cs, nch, lay = _args(False, None)
     mc, nprobe = lay["max_chunks"], 3
-    w = sp.compact_width(nprobe, mc) * sp.CHUNK
-    assert w < S_SMALL * sp.CHUNK
-    monkeypatch.setenv("COMET_SPARSE_MEM_GB", repr(2 * sp.QG * w * 4 / (1 << 30)))
+    w = sp.compact_width(nprobe, mc)
+    assert sp.compact_width(nprobe, mc, 64, 64) > w == sp.compact_width(nprobe, mc, K, K)
+    assert sp.compact_width(nprobe, mc, 64) == w
     t = torch.from_numpy
-    out = {}
-    for kb_cap in (0, K):
+
+    def pipe(k, kb_cap, envelope):
+        monkeypatch.setenv("COMET_SPARSE_MEM_GB", repr(envelope))
         calls.clear()
-        out[kb_cap] = sp.ivf_sparse_pipeline(
+        out = sp.ivf_sparse_pipeline(
             t(q), t(xr), t(mask), t(perm), np.inf, t(cents), t(okey), t(cs), t(nch),
-            K, nprobe, S_SMALL, S_SMALL, mc, NLIST, sqrt_out=True, kb_cap=kb_cap)
-        assert calls == ([2 * sp.QG] if kb_cap == 0 else [sp.QG, sp.QG])
-    for a, b in zip(out[0], out[K]):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
+            k, nprobe, S_SMALL, S_SMALL, mc, NLIST, sqrt_out=True, kb_cap=kb_cap)
+        return out, list(calls)
+
+    two_groups = 2 * sp.QG * w * sp.CHUNK * 4 / (1 << 30)
+    for k, kb_cap, slices in ((K, 0, [2 * sp.QG]), (K, K, [2 * sp.QG]),
+                              (64, 64, [sp.QG, sp.QG])):
+        got, seen = pipe(k, kb_cap, two_groups)
+        assert seen == slices, (k, kb_cap)
+        want, _ = pipe(k, 0, 8)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_shortlists_take_the_dense_route_and_exact_scans_the_compact_one(monkeypatch):
-    """The route follows kb_cap alone: an IVFPQ nrefine shortlist and an
-    HNSW default seed scan (kb_cap > 0) run the dense scan and its group
-    select; IVF's search, IVFPQ without nrefine and HNSW's exact seed scan
-    (seed_kb < 0) run the compact scan."""
+    """Every caller scans with K3's one wrapper (`_compact_scan`); the
+    shortlists, IVFPQ's nrefine and HNSW's default seed scan (kb_cap > 0),
+    then select their groups from its rows, the reference's dense-tile
+    selection (three K1 selects a slice: groups, candidates, the (score,
+    slot) order), and IVF's search, IVFPQ without nrefine and HNSW's exact
+    seed scan (seed_kb < 0) select the rows directly (two)."""
     import comet_tpu_torch as ct
     from comet_tpu_torch.indexes import hnsw as hnsw_mod
 
     seen = []
-    for name in ("_sparse_scan", "_compact_scan"):
+    for name in ("_compact_scan", "topk_rows"):
         fn = getattr(sp, name)
         monkeypatch.setattr(sp, name, lambda *a, _fn=fn, _name=name, **kw:
                             seen.append(_name) or _fn(*a, **kw))
@@ -583,25 +653,25 @@ def test_shortlists_take_the_dense_route_and_exact_scans_the_compact_one(monkeyp
     x = rng.integers(0, 16, size=(600, D)).astype(np.float32)
     q = x[:6] + 0.5
 
-    def route(search):
+    def selects(search):
         seen.clear()
         search()
-        assert len(set(seen)) == 1, seen
-        return seen[0]
+        assert seen[0] == "_compact_scan", seen
+        return seen.count("topk_rows") / seen.count("_compact_scan")
 
     ivf = ct.IVFIndex(D, 8, ct.DistanceKind.L2, device="cpu")
     ivf.train(x)
     ivf.add_batch(x)
-    assert route(lambda: ivf.search_batch(q, k=5, nprobes=3)) == "_compact_scan"
+    assert selects(lambda: ivf.search_batch(q, k=5, nprobes=3)) == 2
     pq = ct.IVFPQIndex(D, ct.DistanceKind.L2, nlist=8, m=4, nbits=4, store_originals=True,
                        device="cpu")
     pq.train(x)
     pq.add_batch(x)
-    assert route(lambda: pq.search_batch(q, k=5, nprobes=3)) == "_compact_scan"
-    assert route(lambda: pq.search_batch(q, k=5, nprobes=3, nrefine=20)) == "_sparse_scan"
-    for seed_kb, want in ((0, "_sparse_scan"), (-1, "_compact_scan")):
+    assert selects(lambda: pq.search_batch(q, k=5, nprobes=3)) == 2
+    assert selects(lambda: pq.search_batch(q, k=5, nprobes=3, nrefine=20)) == 3
+    for seed_kb, want in ((0, 3), (-1, 2)):
         hn = ct.HNSWIndex(D, ct.DistanceKind.L2,
                           ct.HNSWConfig(m=8, ef_construction=32, ef_search=32, seed_kb=seed_kb),
                           device="cpu")
         hn.add_batch(x)
-        assert route(lambda: hn.search_batch(q, k=5)) == want, seed_kb
+        assert selects(lambda: hn.search_batch(q, k=5)) == want, seed_kb
