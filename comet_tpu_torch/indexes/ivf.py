@@ -17,7 +17,9 @@ Search takes one of two routes, each exact within the probed lists:
   COMET_IVF_SPARSE=0 disables it. A batch whose groups want more chunks
   than the step budget S is rescanned with a larger S, which is remembered
   per (nprobe, k_pad); once that budget reaches half the table, the shape
-  takes the dense route.
+  takes the dense route. On the card the pipeline runs as a CUDA graph of
+  its call shape from the shape's second call on (`sp.PipelineGraphs`,
+  kept with the layout and dropped when it is rebuilt).
 - dense (`ops/fused_scan.ivf_topk_pipeline`, kernel K2 in nprobe mode):
   the whole corpus with unprobed rows masked, everywhere else.
 
@@ -29,8 +31,8 @@ Under a profiler (`utils/profiling.span`) a search records the steps
 `layer.ivf.layout` (a rebuild of a route's layout after the store
 changed) and `layer.ivf.rescan` (each overflow rescan, its wait
 included), and counts `ivf_sparse_rows` (the queries a launch sends down
-the sparse route; 0 on the dense one) and the copies to the card in
-`h2d_bytes`.
+the sparse route; 0 on the dense one), `ivf_graph_rows` (those a CUDA
+graph's replay served) and the copies to the card in `h2d_bytes`.
 """
 
 from __future__ import annotations
@@ -280,6 +282,7 @@ class IVFIndex(BaseVectorIndex):
                 "nchunks": torch.from_numpy(lay["nchunks"]).to(self._device),
                 "nch_total": int(lay["chunk_start"][-1]),
                 "max_chunks": lay["max_chunks"],
+                "graphs": sp.PipelineGraphs(),   # the pipeline's graphs on this layout
             }
             self._sparse_version = self._store.version
 
@@ -320,7 +323,7 @@ class IVFIndex(BaseVectorIndex):
         S = min(S, S_max)
         UC = min(S, self._nlist)
         with span("layer.vector.scan"):
-            s, i, overflow = sp.ivf_sparse_pipeline(
+            s, i, overflow = st["graphs"](
                 q, st["corpus"], mask_vec, st["row_slot"], thr_k, self._dev_centroids,
                 self._order_key, st["chunk_start"], st["nchunks"],
                 k=k_pad, nprobe=nprobe, S=S, UC=UC, MC=MC, nlist=self._nlist,

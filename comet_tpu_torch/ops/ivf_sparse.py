@@ -45,6 +45,10 @@ budgeted at S steps and UC distinct clusters; the returned per-group
 overflow counts every chunk dropped, and indexes/ivf.py rescans with a
 larger S until it is zero.
 
+`PipelineGraphs` replays the pipeline of one fixed layout (IVF's) as CUDA
+graphs, one a call shape: the same ops in the same order, so the same
+results bit for bit, for one graph launch in place of ~90 enqueues.
+
 The bf16 mode (`bf16_domain=True`, HNSW's seed scan) scores bf16 queries
 against a bf16 cluster-major corpus with float32 accumulation, float32
 query norms from the float32 queries and the caller's mask (the float32
@@ -59,23 +63,27 @@ top-k): the best kb_cap rows stay exact.
 from __future__ import annotations
 
 import os
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from comet_tpu_torch.ops import _build
+from comet_tpu_torch.ops import _build, sortnet
 from comet_tpu_torch.ops.distance import bf16_dot, f32_matmul, sqrt_f32
 from comet_tpu_torch.ops.fused_scan import coarse_probes, probe_pad
 from comet_tpu_torch.ops.kmeans import kmeans
 from comet_tpu_torch.ops.sortnet import k_pow2, topk_rows, use_plain
 from comet_tpu_torch.ops.topk import IDX_SENTINEL
 from comet_tpu_torch.types import DistanceKind
+from comet_tpu_torch.utils.profiling import count
 
 CHUNK = 256      # corpus rows per chunk (two 128-row selection groups)
 SEL_GROUP = 128  # rows per selection group
 QG = 128         # queries per kernel group
 BIG = 2**30
 DEFAULT_MEM_GB = 8.0   # see `_mem_envelope_bytes`
+GRAPHS_MAX = 4   # CUDA graphs a `PipelineGraphs` keeps (each holds its scratch pool)
 
 # K3's launches: float32 mode, bf16 mode.
 LAUNCHES = 0
@@ -582,3 +590,146 @@ def ivf_sparse_pipeline(
     return (torch.cat([o[0] for o in outs])[:q_n],
             torch.cat([o[1] for o in outs])[:q_n],
             torch.cat([o[2] for o in outs]))
+
+
+# -- the pipeline as a CUDA graph ---------------------------------------------------
+
+
+def _capture(run):
+    """Captures run() on the current card as a CUDA graph, on a side
+    stream, other threads' CUDA work left out of it. Returns (graph, what
+    run() returned); nothing runs until the graph is replayed.
+
+    cuBLAS keeps a 32 MiB workspace a stream: the capture's stream gets
+    one inside the graph's pool. The workspaces are dropped before the
+    capture, so that the eager stream's is not held beside it, and after,
+    so that the graph's pool alone keeps the capture's (as torch's own
+    graph trees do); the next eager product makes its stream a new one."""
+    graph = torch.cuda.CUDAGraph()
+    torch._C._cuda_clearCublasWorkspaces()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        outs = run()
+    torch._C._cuda_clearCublasWorkspaces()
+    return graph, outs
+
+
+def _launch_counts() -> tuple:
+    """The counters of the kernels the pipeline launches: K3's two and
+    K1's two."""
+    return LAUNCHES, BF16_LAUNCHES, sortnet.LAUNCHES, sortnet.SPLIT_LAUNCHES
+
+
+def _add_launches(delta) -> None:
+    global LAUNCHES, BF16_LAUNCHES
+    with _build.COUNT_LOCK:
+        LAUNCHES += delta[0]
+        BF16_LAUNCHES += delta[1]
+        sortnet.LAUNCHES += delta[2]
+        sortnet.SPLIT_LAUNCHES += delta[3]
+
+
+class _Graph:
+    """One captured pipeline: its static inputs (queries, mask) and
+    outputs, the launches a replay makes, and the layout tensors whose
+    addresses it reads (held, so that no other tensor takes them)."""
+
+    __slots__ = ("graph", "q", "mask", "outs", "launches", "layout")
+
+    def __init__(self, graph, q, mask, outs, launches, layout):
+        self.graph, self.q, self.mask, self.outs = graph, q, mask, outs
+        self.launches, self.layout = launches, layout
+
+    def replay(self, queries, mask_vec):
+        q_n = queries.shape[0]
+        self.q[:q_n].copy_(queries)
+        if q_n < self.q.shape[0]:
+            self.q[q_n:].zero_()     # the eager pipeline's padding queries
+        self.mask.copy_(mask_vec)
+        self.graph.replay()
+        _add_launches(self.launches)
+        count("ivf_graph_rows", q_n)
+        s, i, overflow = self.outs
+        return s[:q_n].clone(), i[:q_n].clone(), overflow.clone()
+
+
+class PipelineGraphs:
+    """`ivf_sparse_pipeline` (exact search, float32) over one fixed layout,
+    replayed as CUDA graphs: an IVF index keeps one with its layout.
+
+    A call shape is keyed on all that a capture bakes in: the padded query
+    count, d, k, nprobe, S, UC, MC, nlist, the threshold, the cosine and
+    sqrt_out flags, the memory envelope and the layout tensors' addresses.
+    Its first call runs eagerly (it builds the kernels, and its overflow
+    teaches the caller its step budget); its second captures the graph.
+    From then on a call copies its queries and mask into the graph's
+    static inputs, replays it and returns copies of its outputs, which a
+    caller may hold while it launches more calls. The ops and their order
+    are the eager pipeline's, so are the results, bit for bit. A replay
+    adds to the kernels' counters the launches its capture made (the
+    kernels run, as nodes of the graph) and counts `ivf_graph_rows`, the
+    queries it served (0 for an eager call on the card). At most
+    GRAPHS_MAX graphs are kept, the least recently used dropped first. A
+    CPU tensor never captures: its calls run `ivf_sparse_pipeline` as they
+    are."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._seen: OrderedDict = OrderedDict()      # keys run once, eagerly
+        self._graphs: OrderedDict = OrderedDict()    # key -> _Graph
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def __call__(self, queries, corpus, mask_vec, row_slot, threshold, centroids, order_key,
+                 chunk_start, nchunks, k, nprobe, S, UC, MC, nlist, coarse_cosine=False,
+                 cosine=False, sqrt_out=False):
+        kw = dict(k=k, nprobe=nprobe, S=S, UC=UC, MC=MC, nlist=nlist,
+                  coarse_cosine=coarse_cosine, cosine=cosine, sqrt_out=sqrt_out)
+        if use_plain(queries):
+            return ivf_sparse_pipeline(queries, corpus, mask_vec, row_slot, threshold, centroids,
+                                       order_key, chunk_start, nchunks, **kw)
+        layout = (corpus, row_slot, centroids, order_key, chunk_start, nchunks)
+        key = self.key(queries, corpus, mask_vec, row_slot, threshold, centroids, order_key,
+                       chunk_start, nchunks, **kw)
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is None and key in self._seen:
+                del self._seen[key]
+                g = self._new_graph(key[0], queries, mask_vec, threshold, layout, kw)
+                self._graphs[key] = g
+                if len(self._graphs) > GRAPHS_MAX:
+                    self._graphs.popitem(last=False)
+            if g is not None:
+                self._graphs.move_to_end(key)
+                return g.replay(queries, mask_vec)
+            self._seen[key] = None
+            if len(self._seen) > GRAPHS_MAX:
+                self._seen.popitem(last=False)
+        count("ivf_graph_rows", 0)
+        return ivf_sparse_pipeline(queries, corpus, mask_vec, row_slot, threshold, centroids,
+                                   order_key, chunk_start, nchunks, **kw)
+
+    @staticmethod
+    def key(queries, corpus, mask_vec, row_slot, threshold, centroids, order_key, chunk_start,
+            nchunks, k, nprobe, S, UC, MC, nlist, coarse_cosine=False, cosine=False,
+            sqrt_out=False) -> tuple:
+        """What a capture of this call bakes in (the class's note); the
+        padded query count first."""
+        q_pad = -(-max(queries.shape[0], 1) // QG) * QG
+        return (q_pad, queries.shape[1], k, nprobe, S, UC, MC, nlist, float(threshold),
+                bool(coarse_cosine), bool(cosine), bool(sqrt_out), _mem_envelope_bytes(),
+                *(t.data_ptr() for t in (corpus, row_slot, centroids, order_key, chunk_start,
+                                         nchunks)))
+
+    @staticmethod
+    def _new_graph(q_pad, queries, mask_vec, threshold, layout, kw) -> _Graph:
+        corpus, row_slot, centroids, order_key, chunk_start, nchunks = layout
+        q = queries.new_zeros((q_pad, queries.shape[1]))
+        mask = torch.empty_like(mask_vec)
+        before = _launch_counts()
+        graph, outs = _capture(lambda: ivf_sparse_pipeline(
+            q, corpus, mask, row_slot, threshold, centroids, order_key, chunk_start, nchunks,
+            **kw))
+        launches = tuple(b - a for a, b in zip(before, _launch_counts()))
+        _add_launches(tuple(-n for n in launches))    # captured, not run
+        return _Graph(graph, q, mask, outs, launches, layout)

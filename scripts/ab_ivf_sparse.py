@@ -23,7 +23,14 @@ time a call (calls queued behind a sleep, CUDA events) in REPS turns a
 tree; one torch.profiler window a tree: its kernels' device time a call
 and the longest of them; and the call's scan shape (member (query, chunk)
 pairs, the chunks they fall in, the 32-member slabs K3 computes, the most
-members of a chunk). Needs one NVIDIA card.
+members of a chunk). IVF's index calls the eager pipeline in those turns.
+Then IVF's exact search of this tree alone, through its CUDA graph
+(`ivf_sparse.PipelineGraphs`, as the index runs it) beside the eager
+pipeline: outputs array-equal, the host time a call (enqueue to return,
+the card idle before each call) and the device time a call (queued behind
+a sleep) in HOST_REPS and REPS turns, K3's and all kernels' time a call
+on the profiler's clock, and the index's queries/s with each in TURNS
+turns. Needs one NVIDIA card.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from comet_tpu_torch.ops import ivf_sparse as sp  # noqa: E402
 TURNS = 10
 BATCHES = 4
 REPS = 3
+HOST_REPS = 50
 
 
 def load(path: str, name: str):
@@ -123,6 +131,66 @@ def compare(name, search, pipes):
     sys.stdout.flush()
 
 
+def graph_turns(name, ivf, queries):
+    """IVF's exact search through `PipelineGraphs` against the eager
+    pipeline, this tree alone: outputs equal, host and device time a call,
+    the index's queries/s with each; one line each."""
+    st = ivf._device_sparse()
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return sp.ivf_sparse_pipeline(*a, **kw)
+
+    st["graphs"] = spy
+    ivf.search_batch(queries, k=cs.K, nprobes=10)
+    a, kw = calls[-1]
+    graphs = sp.PipelineGraphs()
+    ways = {"eager": lambda: sp.ivf_sparse_pipeline(*a, **kw), "graph": lambda: graphs(*a, **kw)}
+    want = ways["eager"]()
+    for _ in range(3):      # eager, captured, replayed
+        got = ways["graph"]()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{name}: the graph's outputs differ from the eager pipeline's")
+    if len(graphs) != 1:
+        raise AssertionError(f"{name}: {len(graphs)} graphs after three calls")
+    host_ms = {w: [] for w in ways}
+    for rep in range(HOST_REPS):
+        for w in (list(ways) if rep % 2 == 0 else list(ways)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ways[w]()
+            host_ms[w].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    dev_ms = {w: [] for w in ways}
+    for rep in range(REPS):
+        for w in (list(ways) if rep % 2 == 0 else list(ways)[::-1]):
+            dev_ms[w].append(cs.queued_device_ms(ways[w], reps=10))
+    prof = {}
+    for w in ways:      # the profiler's clock: K3 and all kernels a call
+        rows = cs.profiled_rows([ways[w]])
+        n = max(sum(c for _, c, key in rows if "compact_scan_kernel" in key), 1)
+        prof[w] = (sum(us for us, _, key in rows if "compact_scan_kernel" in key) / n,
+                   sum(r[0] for r in rows) / n / 1e3)
+    qps = {w: [] for w in ways}
+    routes = {"eager": spy, "graph": graphs}
+    for turn in range(TURNS):
+        for w in (list(ways) if turn % 2 == 0 else list(ways)[::-1]):
+            st["graphs"] = routes[w]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BATCHES):
+                ivf.search_batch(queries, k=cs.K, nprobes=10)
+            qps[w].append(BATCHES * cs.BATCH / (time.perf_counter() - t0))
+    for w in ways:
+        print(f"{name}, {w}: host {statistics.median(host_ms[w]):.3f} ms a call (median of "
+              f"{HOST_REPS}, quartiles {' '.join(f'{v:.3f}' for v in statistics.quantiles(host_ms[w]))}),"
+              f" device {' '.join(f'{v:.3f}' for v in dev_ms[w])} ms a call (profiler: K3 "
+              f"{prof[w][0]:.1f} us, all kernels {prof[w][1]:.3f} ms a call); search queries/s "
+              f"median {statistics.median(qps[w]):.1f} of {' '.join(f'{v:.1f}' for v in qps[w])}")
+    sys.stdout.flush()
+
+
 def scan_shape(a, kw):
     """The captured call's scan, from its plan (one slice): member (query,
     chunk) pairs, the chunks with a member, K3's 32-member slabs (each
@@ -176,8 +244,11 @@ def main():
     ivf = IVFIndex(cs.DIM, cs.NLIST, DistanceKind.L2, device="cuda")
     ivf.train(corpus[:cs.N_TRAIN])
     ivf.add_batch(corpus, ids=ids)
+    # the trees' turns swap the module's pipeline: the index calls it eagerly
+    ivf._device_sparse()["graphs"] = lambda *a, **kw: sp.ivf_sparse_pipeline(*a, **kw)
     compare("IVF nprobe 10 k=100 (exact)", lambda: ivf.search_batch(
         queries, k=cs.K, nprobes=10), pipes)
+    graph_turns("IVF nprobe 10 k=100 (exact), this tree's CUDA graph", ivf, queries)
 
 
 if __name__ == "__main__":
